@@ -1,0 +1,87 @@
+"""Carry a hierarchy built by the JAX reference over to the port.
+
+``hierarchy_from_numpy(tree, device)`` takes the reference ``Hierarchy``
+flattened to plain Python: nested dicts of numpy arrays plus the static
+fields. It lets the port's solve path be held against the reference on the
+very same hierarchy, independently of setup. The layout of ``tree``:
+
+    {"transfers": [transfer, ...], "lam_maxes": [float, ...],
+     "coarse_inv": array}
+    transfer = {"kind": "agg", "fine": level, "coarse": level,
+                "coarse_id": array}
+             | {"kind": "elim", "fine": level, "coarse": level,
+                "elim_mask", "c_index", "f_index", "f_vertices",
+                "inv_deg_f": array, "p_f": coo}
+    level    = {"adj": coo, "deg": array,
+                "ell": {"col", "val": array, "n_cols": int} | None,
+                "ell_rem": coo | None}
+    coo      = {"row", "col", "val": array, "n_rows", "n_cols": int}
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.coarsen import AggregationLevel
+from repro_torch.core.elimination import EliminationLevel
+from repro_torch.core.graph import GraphLevel
+from repro_torch.core.hierarchy import Hierarchy
+from repro_torch.sparse.coo import COO
+from repro_torch.sparse.ell import ELL
+
+
+def _t(a, device, dtype=None) -> torch.Tensor:
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def _coo(d: dict, device) -> COO:
+    return COO(_t(d["row"], device, torch.int32),
+               _t(d["col"], device, torch.int32),
+               _t(d["val"], device, torch.float32),
+               int(d["n_rows"]), int(d["n_cols"]))
+
+
+def _level(d: dict, device) -> GraphLevel:
+    ell = d.get("ell")
+    rem = d.get("ell_rem")
+    return GraphLevel(
+        adj=_coo(d["adj"], device), deg=_t(d["deg"], device, torch.float32),
+        ell=None if ell is None else ELL(_t(ell["col"], device, torch.int32),
+                                         _t(ell["val"], device,
+                                            torch.float32),
+                                         int(ell["n_cols"])),
+        ell_rem=None if rem is None else _coo(rem, device))
+
+
+def hierarchy_from_numpy(tree: dict, device) -> Hierarchy:
+    """The port's :class:`Hierarchy` for a flattened reference hierarchy."""
+    device = torch.device(device)
+    transfers = []
+    prev_coarse = None
+    for t in tree["transfers"]:
+        # one object per level, as the reference's t.coarse is t_next.fine
+        fine = prev_coarse if prev_coarse is not None else \
+            _level(t["fine"], device)
+        coarse = _level(t["coarse"], device)
+        if t["kind"] == "agg":
+            transfers.append(AggregationLevel(
+                fine=fine, coarse=coarse,
+                coarse_id=_t(t["coarse_id"], device, torch.int32)))
+        elif t["kind"] == "elim":
+            transfers.append(EliminationLevel(
+                fine=fine, coarse=coarse,
+                elim_mask=_t(t["elim_mask"], device, torch.bool),
+                c_index=_t(t["c_index"], device, torch.int32),
+                f_index=_t(t["f_index"], device, torch.int32),
+                f_vertices=_t(t["f_vertices"], device, torch.int32),
+                p_f=_coo(t["p_f"], device),
+                inv_deg_f=_t(t["inv_deg_f"], device, torch.float32)))
+        else:
+            raise ValueError(f"unknown transfer kind {t['kind']!r}")
+        prev_coarse = coarse
+    lam = tuple(torch.tensor(float(v), device=device)
+                for v in tree["lam_maxes"])
+    return Hierarchy(transfers=tuple(transfers), lam_maxes=lam,
+                     coarse_inv=_t(tree["coarse_inv"], device,
+                                   torch.float32))

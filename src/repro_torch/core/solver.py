@@ -1,0 +1,134 @@
+"""Public solver API (torch port of ``repro.core.solver``).
+
+    solver = LaplacianSolver.setup(n, rows, cols, vals)   # multigrid setup
+    x, info = solver.solve(b, tol=1e-8)                   # PCG + V-cycle
+
+Runs on the CUDA card unless ``device`` names another device; without a
+card and without ``device="cpu"`` it raises. ``random_ordering=True``
+applies the paper's §2.2 relabeling (solutions are permuted back).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.core.cycles import CycleConfig
+from repro_torch.core.hierarchy import (Hierarchy, SetupConfig, apply_cycle,
+                                        build_hierarchy, hierarchy_stats)
+from repro_torch.core.krylov import pcg
+from repro_torch.core.wda import pcg_iteration_work, wda
+from repro_torch.device import resolve_device
+from repro_torch.graphs.generators import random_relabel, to_laplacian_coo
+
+
+@dataclasses.dataclass
+class LaplacianSolveInfo:
+    iters: int
+    residual_norms: list
+    converged: bool
+    wda: float
+    work_per_iteration: float
+    status: str = "max_iters"
+
+
+@dataclasses.dataclass
+class LaplacianSolver:
+    hierarchy: Hierarchy
+    cycle_config: CycleConfig
+    n: int
+    device: torch.device
+    perm: np.ndarray | None = None          # random ordering (paper §2.2)
+    inv_perm: np.ndarray | None = None
+    # component labels in internal (relabeled) order, None when connected
+    comp: np.ndarray | None = None
+    n_comp: int = 1
+
+    @staticmethod
+    def setup(n: int, rows, cols, vals,
+              setup_config: SetupConfig = SetupConfig(),
+              cycle_config: CycleConfig = CycleConfig(),
+              random_ordering: bool = True, capacity: int | None = None,
+              device=None) -> "LaplacianSolver":
+        """Build the hierarchy on ``device`` (default: the CUDA card)."""
+        from repro_torch.core.components import connected_components
+
+        dev = resolve_device(device)
+        rows = np.asarray(rows)
+        cols = np.asarray(cols)
+        vals = np.asarray(vals, np.float32)
+        perm = inv_perm = None
+        if random_ordering:
+            rows, cols, perm, inv_perm = random_relabel(
+                n, rows, cols, setup_config.seed)
+        comp, n_comp = connected_components(n, rows, cols)
+        if n_comp == 1:
+            comp = None
+        adj = to_laplacian_coo(n, rows, cols, vals, capacity=capacity,
+                               device=dev)
+        h = build_hierarchy(adj, setup_config)
+        return LaplacianSolver(hierarchy=h, cycle_config=cycle_config, n=n,
+                               device=dev, perm=perm, inv_perm=inv_perm,
+                               comp=comp, n_comp=n_comp)
+
+    @property
+    def projector(self):
+        """Per-component nullspace projector, or None on connected graphs
+        (pcg then keeps its global-mean projection)."""
+        if self.comp is None:
+            return None
+        proj = self.__dict__.get("_projector")
+        if proj is None:
+            from repro_torch.core.components import component_projector
+
+            proj = component_projector(self.comp, self.n_comp, self.device)
+            self.__dict__["_projector"] = proj
+        return proj
+
+    def _perm_tensor(self, p: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(p, dtype=torch.int64, device=self.device)
+
+    def _to_internal(self, b: torch.Tensor) -> torch.Tensor:
+        return b[self._perm_tensor(self.inv_perm)] \
+            if self.perm is not None else b
+
+    def _from_internal(self, x: torch.Tensor) -> torch.Tensor:
+        return x[self._perm_tensor(self.perm)] if self.perm is not None else x
+
+    @property
+    def _fine(self):
+        return self.hierarchy.transfers[0].fine
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return self._fine.laplacian_matvec(x)
+
+    def precondition(self, r: torch.Tensor) -> torch.Tensor:
+        return apply_cycle(self.hierarchy, r, self.cycle_config)
+
+    def solve(self, b, tol: float = 1e-8, maxiter: int = 200,
+              precondition: bool = True, guard=True):
+        """PCG preconditioned by the cycle. ``b`` (numpy or tensor, in the
+        caller's vertex order) should be mean-free per component. Returns
+        ``(x, LaplacianSolveInfo)`` with ``x`` a float32 tensor on the
+        solver's device."""
+        b = torch.as_tensor(b, dtype=torch.float32, device=self.device)
+        M = self.precondition if precondition else None
+        x, info = pcg(self.matvec, self._to_internal(b), precond=M, tol=tol,
+                      maxiter=maxiter, project=self.projector, guard=guard)
+        w = self.iteration_work(precondition)
+        out = LaplacianSolveInfo(
+            iters=info.iters, residual_norms=info.residual_norms,
+            converged=info.converged, work_per_iteration=w,
+            wda=wda(info.residual_norms, w), status=info.status)
+        return self._from_internal(x), out
+
+    def iteration_work(self, precondition: bool = True) -> float:
+        """Work of one PCG iteration in finest-matvec equivalents (WDA)."""
+        if not precondition:
+            return 1.0
+        return pcg_iteration_work(self.hierarchy, self.cycle_config)
+
+    def stats(self) -> dict:
+        return hierarchy_stats(self.hierarchy)

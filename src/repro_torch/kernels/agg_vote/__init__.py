@@ -1,0 +1,3 @@
+from repro_torch.kernels.agg_vote.ops import vote_reduce, vote_reduce_ref
+
+__all__ = ["vote_reduce", "vote_reduce_ref"]

@@ -1,0 +1,49 @@
+"""ELL SpMV: the CUDA kernel's wrapper and its plain PyTorch version.
+
+Replaces ``repro/kernels/spmv_ell/spmv_ell.py::spmv_ell_pallas``. The
+kernel (``repro_torch/csrc/spmv_ell.cu``) is bound by bytes on the card:
+it streams the col/val tables once and gathers ``x`` through L2, since
+``x`` does not fit in shared memory at the main path's sizes. See the
+source for the design.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import on_cuda, require, stream_of
+from repro_torch.sparse.segment import take_fill
+
+
+def spmv_ell_ref(col: torch.Tensor, val: torch.Tensor,
+                 x: torch.Tensor) -> torch.Tensor:
+    """Plain version: ``y[r] = Σ_w val[r, w]·x[col[r, w]]``, with slots
+    whose col is out of range contributing 0."""
+    return (val * take_fill(x, col, 0)).sum(dim=1).to(x.dtype)
+
+
+def spmv_ell(col: torch.Tensor, val: torch.Tensor,
+             x: torch.Tensor) -> torch.Tensor:
+    """ELL SpMV: the kernel on CUDA tensors, the plain version on CPU ones."""
+    if not on_cuda("spmv_ell", col, val, x):
+        return spmv_ell_ref(col, val, x)
+    from repro_torch.kernels._build import check, library
+
+    n_rows, width = col.shape
+    require("spmv_ell col", col, torch.int32, (n_rows, width))
+    require("spmv_ell val", val, torch.float32, (n_rows, width))
+    require("spmv_ell x", x, torch.float32, (x.shape[0],))
+    y = torch.empty(n_rows, dtype=torch.float32, device=x.device)
+    if width == 0 or n_rows == 0:
+        return y.zero_()
+    lib = library()
+    with torch.cuda.device(x.device):
+        check(lib.repro_spmv_ell_f32(col.data_ptr(), val.data_ptr(),
+                                     x.data_ptr(), y.data_ptr(), n_rows,
+                                     width, x.shape[0], stream_of(x)),
+              "spmv_ell")
+    spmv_ell.launches += 1
+    return y
+
+
+spmv_ell.launches = 0

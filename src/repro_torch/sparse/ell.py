@@ -1,0 +1,161 @@
+"""ELL (ELLPACK) format: the layout of the ``spmv_ell``/``jacobi``/``agg_vote``
+kernels (torch port of ``repro.sparse.ell``).
+
+ELL stores a fixed ``width`` of (col, val) slots per row — a dense
+``[n_rows, width]`` pair of arrays. Rows shorter than ``width`` pad with
+``col = n_cols`` / ``val = 0``; rows longer than ``width`` spill to a COO
+remainder (hybrid ELL+COO). Both splits here run on the arrays' own device
+and give the reference's layouts bit for bit.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.sparse.coo import COO, sort_key
+from repro_torch.sparse.segment import take_fill
+
+
+@dataclasses.dataclass(frozen=True)
+class ELL:
+    col: torch.Tensor  # int32 [n_rows, width], padding = n_cols
+    val: torch.Tensor  # float32 [n_rows, width], padding = 0
+    n_cols: int
+
+    @property
+    def n_rows(self) -> int:
+        return self.col.shape[0]
+
+    @property
+    def width(self) -> int:
+        return self.col.shape[1]
+
+
+def _ranks(r: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """Rank of each entry within its row for row-sorted ids < n_rows."""
+    counts = torch.bincount(r.long(), minlength=n_rows)
+    starts = torch.cumsum(counts, 0) - counts
+    return torch.arange(r.shape[0], device=r.device) - starts[r.long()]
+
+
+def coo_to_ell(a: COO, width: int | None = None) -> tuple[ELL, COO]:
+    """Split a COO into (ELL part, COO remainder).
+
+    Entries beyond ``width`` per row (in (row, col) order) spill to the
+    remainder; ``width=None`` takes the maximum row degree.
+    """
+    ok = a.row < a.n_rows
+    row, col, val = a.row[ok], a.col[ok], a.val[ok]
+    order = torch.argsort(sort_key(row, col), stable=True)
+    row, col, val = row[order], col[order], val[order]
+    rank = _ranks(row, a.n_rows)
+    if width is None:
+        w = int(torch.bincount(row.long(), minlength=a.n_rows).max()) \
+            if a.n_rows else 0
+    else:
+        w = int(width)          # width=0 is legal: everything spills
+    dev = a.device
+    in_ell = rank < w
+    ell_col = torch.full((a.n_rows, w), a.n_cols, dtype=torch.int32,
+                         device=dev)
+    ell_val = torch.zeros((a.n_rows, w), dtype=torch.float32, device=dev)
+    ri, ki = row[in_ell].long(), rank[in_ell]
+    ell_col[ri, ki] = col[in_ell]
+    ell_val[ri, ki] = val[in_ell]
+
+    out = ~in_ell
+    n_rem = int(out.sum())
+    rem_cap = max(n_rem, 1)
+    rrow = torch.full((rem_cap,), a.n_rows, dtype=torch.int32, device=dev)
+    rcol = torch.full((rem_cap,), a.n_rows, dtype=torch.int32, device=dev)
+    rval = torch.zeros((rem_cap,), dtype=torch.float32, device=dev)
+    rrow[:n_rem] = row[out]
+    rcol[:n_rem] = col[out]
+    rval[:n_rem] = val[out]
+    return ELL(ell_col, ell_val, a.n_cols), COO(rrow, rcol, rval, a.n_rows,
+                                                 a.n_cols)
+
+
+def ell_spmv_ref(ell: ELL, x: torch.Tensor) -> torch.Tensor:
+    """Plain-torch ELL SpMV."""
+    return (ell.val * take_fill(x, ell.col, 0)).sum(dim=1)
+
+
+# ---------------------------------------------------------------------------
+# Setup-time layout plan: the twin of the reference's ell_layout_traced.
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class EllLayout:
+    """Hybrid ELL+COO layout plan of one padded edge list.
+
+    ``table`` scatters any per-edge payload (edge weights, quantised
+    strengths) into the fixed ``[n_rows, width]`` tile; entries of rank
+    >= width per row stay in ``spill_row``/``spill_col`` COO order
+    (sentinel ``n_rows``).
+    """
+
+    order: torch.Tensor       # int64 [cap]: permutation into (row, col) order
+    rr: torch.Tensor          # int64 [cap]: scatter row (sentinel n_rows)
+    kk: torch.Tensor          # int64 [cap]: scatter slot in [0, width)
+    in_ell: torch.Tensor      # bool [cap], aligned with the sorted order
+    col_table: torch.Tensor   # int32 [n_rows, width], sentinel n_rows
+    spill_row: torch.Tensor   # int32 [cap], sentinel n_rows
+    spill_col: torch.Tensor   # int32 [cap], sentinel n_rows
+    n_rows: int
+    width: int
+
+    def table(self, values: torch.Tensor, fill=0) -> torch.Tensor:
+        """Scatter a per-edge payload (original entry order) into the
+        [n_rows, width] ELL tile."""
+        v = values[self.order]
+        if self.width == 0:
+            return v.new_zeros((self.n_rows, 0))
+        out = torch.full((self.n_rows + 1, self.width), fill, dtype=v.dtype,
+                         device=v.device)
+        out[self.rr, self.kk] = torch.where(self.in_ell, v, fill)
+        return out[: self.n_rows]
+
+    def spill(self, values: torch.Tensor, fill=0) -> torch.Tensor:
+        """The spilled entries of a per-edge payload, aligned with
+        ``spill_row``/``spill_col``."""
+        v = values[self.order]
+        return torch.where(self.spill_row < self.n_rows, v, fill)
+
+
+def ell_layout_traced(row: torch.Tensor, col: torch.Tensor, n_rows: int,
+                      width: int) -> EllLayout:
+    """Plan the hybrid split of a padded edge list (sentinel >= ``n_rows``).
+
+    Same arrays as the reference's in-jit planner, padding entries
+    included, so a payload scattered through either lands identically.
+    """
+    cap = row.shape[0]
+    dev = row.device
+    valid = row < n_rows
+    row = torch.where(valid, row, n_rows).to(torch.int32)
+    col = torch.where(valid, col, n_rows).to(torch.int32)
+    order = torch.argsort(sort_key(row, col), stable=True)
+    r = row[order]
+    c = col[order]
+    real = r < n_rows
+    rank = torch.zeros(cap, dtype=torch.int64, device=dev)
+    rank[real] = _ranks(r[real], n_rows)
+    ok = real & (rank < width)
+    rr = torch.where(ok, r, n_rows).long()
+    kk = torch.where(ok, rank, 0)
+    if width:
+        col_table = torch.full((n_rows + 1, width), n_rows, dtype=torch.int32,
+                               device=dev)
+        col_table[rr, kk] = torch.where(ok, c, n_rows)
+        col_table = col_table[:n_rows]
+    else:
+        col_table = torch.zeros((n_rows, 0), dtype=torch.int32, device=dev)
+    spilled = real & (rank >= width)
+    return EllLayout(order=order, rr=rr, kk=kk, in_ell=ok,
+                     col_table=col_table,
+                     spill_row=torch.where(spilled, r, n_rows),
+                     spill_col=torch.where(spilled, c, n_rows),
+                     n_rows=n_rows, width=width)

@@ -1,0 +1,134 @@
+"""Hybrid ELL+COO matvec layer — the solve-phase hot path (torch port of
+``repro.sparse.matvec``).
+
+Backends, chosen at setup (``SetupConfig.matvec_backend``):
+
+* ``"coo"`` — the gather + deterministic segment-sum path
+  (``repro_torch.sparse.coo.spmv``); the default, as in the reference.
+* ``"ell"`` — every level gets a hybrid ELL+COO twin: a fixed-width
+  ``[rows, width]`` table run by the ``spmv_ell``/``jacobi`` kernels, plus a
+  COO remainder for overlong rows.
+* ``"auto"`` — a level gets a twin only where the fixed width pays.
+
+A twin runs through the kernel wrappers, which launch the CUDA kernel on a
+CUDA tensor and run the plain version only on a CPU tensor.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.sparse.coo import COO, spmm, spmv
+from repro_torch.sparse.ell import ELL, coo_to_ell
+
+MATVEC_BACKENDS = ("coo", "ell", "auto")
+
+MIN_ELL_ROWS = 256
+MAX_PAD_FACTOR = 3.0
+
+
+def validate_backend(backend: str) -> str:
+    if backend not in MATVEC_BACKENDS:
+        raise ValueError(
+            f"matvec_backend must be one of {MATVEC_BACKENDS}, "
+            f"got {backend!r}")
+    return backend
+
+
+def select_ell_width(counts, backend: str, *, percentile: float = 95.0,
+                     cap: int = 64, min_rows: int = MIN_ELL_ROWS,
+                     max_pad_factor: float = MAX_PAD_FACTOR) -> int | None:
+    """Choose the hybrid split width for one level (or refuse with None):
+    a capped percentile of the row degrees; ``"auto"`` also refuses small
+    levels and widths that would be mostly padding."""
+    validate_backend(backend)
+    if backend == "coo":
+        return None
+    counts = np.asarray(counts)
+    nnz = int(counts.sum()) if counts.size else 0
+    max_deg = int(counts.max()) if counts.size else 0
+    if nnz == 0 or max_deg == 0:
+        return None
+    width = int(np.ceil(np.percentile(counts, percentile)))
+    width = max(1, min(width, cap, max_deg))
+    if backend == "ell":
+        return width
+    if counts.size < min_rows:
+        return None
+    if counts.size * width > max_pad_factor * nnz:
+        return None
+    return width
+
+
+def split_hybrid(adj: COO, width: int) -> tuple[ELL, COO | None, dict]:
+    """Split ``adj`` into (ELL part, COO remainder-or-None, stats). The
+    remainder is None when nothing spills."""
+    ell, rem = coo_to_ell(adj, width=width)
+    spill_nnz = rem.nnz
+    nnz = adj.nnz
+    stats = dict(width=width, spill_nnz=spill_nnz,
+                 spill_fraction=spill_nnz / max(nnz, 1),
+                 pad_fraction=1.0 - (nnz - spill_nnz) /
+                 max(adj.n_rows * max(width, 1), 1))
+    return ell, (rem if spill_nnz else None), stats
+
+
+def build_hybrid(adj: COO, backend: str, *, percentile: float = 95.0,
+                 cap: int = 64) -> tuple[ELL, COO | None] | None:
+    """Plan one level's ELL twin ``(ell, remainder)``, or None when the
+    level stays on the COO path."""
+    validate_backend(backend)
+    if backend == "coo":
+        return None
+    row = adj.row.long()
+    counts = torch.bincount(row[row < adj.n_rows], minlength=adj.n_rows)
+    width = select_ell_width(counts.cpu().numpy(), backend,
+                             percentile=percentile, cap=cap)
+    if width is None:
+        return None
+    ell, rem, _ = split_hybrid(adj, width)
+    return ell, rem
+
+
+# ----------------------------------------------------------------------------
+# Solve-phase operators: the only SpMV entry points of the smoother,
+# residual, PCG and cycle loop.
+# ----------------------------------------------------------------------------
+
+def hybrid_spmv(ell: ELL, rem: COO | None, x: torch.Tensor) -> torch.Tensor:
+    """y = A @ x through the hybrid ELL+COO split. ``width == 0`` degrades
+    to remainder-only."""
+    from repro_torch.kernels.spmv_ell import spmv_ell
+
+    if ell.width == 0:
+        y = torch.zeros(ell.n_rows, dtype=x.dtype, device=x.device)
+    else:
+        y = spmv_ell(ell.col, ell.val, x)
+    if rem is not None:
+        y = y + spmv(rem, x)
+    return y
+
+
+def level_spmv(level, x: torch.Tensor) -> torch.Tensor:
+    """A @ x for a level, dispatching on its attached layout."""
+    ell = getattr(level, "ell", None)
+    if ell is None:
+        return spmv(level.adj, x)
+    return hybrid_spmv(ell, level.ell_rem, x)
+
+
+def laplacian_matvec(level, x: torch.Tensor) -> torch.Tensor:
+    """L @ x = deg * x - A @ x through the selected execution format."""
+    return level.deg * x - level_spmv(level, x)
+
+
+def level_spmm(level, x: torch.Tensor) -> torch.Tensor:
+    """Y = A @ X for [n, d] blocks: per column through the ELL twin where a
+    level carries one, else the COO ``spmm``."""
+    ell = getattr(level, "ell", None)
+    if ell is None:
+        return spmm(level.adj, x)
+    return torch.stack([hybrid_spmv(ell, level.ell_rem,
+                                    x[:, j].contiguous())
+                        for j in range(x.shape[1])], dim=1)

@@ -1,0 +1,115 @@
+"""Where the time of setup and of a solve goes on the card.
+
+    python -m repro_torch.trace_solve [--n 1048576] [--trace PATH]
+
+Builds the main path's graph (Barabási–Albert, m = 4, seed 0, weighted,
+connected) and:
+
+* times ``LaplacianSolver.setup`` per stage with ``cProfile``: setup is a
+  host-driven loop whose host reads synchronise the device, so the wall
+  time of each stage's function is its cost;
+* times one warm solve (tol 1e-6) untraced, then traces the same solve
+  with ``torch.profiler``: device time by kernel name, and the device's
+  busy share against the untraced wall time (the profiler's own host
+  overhead stretches the traced solve's wall time, so the share against
+  that is reported too, as a lower bound). The port runs on one stream, so
+  kernel times add up. ``--trace`` writes the Chrome trace.
+
+Prints one JSON object. It needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import cProfile
+import json
+import pstats
+import sys
+import time
+
+SETUP_STAGES = (
+    "random_relabel", "connected_components", "to_laplacian_coo",
+    "select_eliminated", "build_elimination_level",
+    "algebraic_distance_strength", "ell_layout_traced", "aggregate",
+    "renumber_aggregates", "contract", "estimate_lambda_max",
+    "coarse_inverse", "attach_ell_transfers")
+
+
+def _stage_seconds(prof: cProfile.Profile) -> dict:
+    """Cumulative wall seconds of each setup stage function (first call
+    site by name; recursive or repeated calls are summed by cProfile)."""
+    out = {}
+    for (filename, _, name), row in pstats.Stats(prof).stats.items():
+        if name in SETUP_STAGES and "repro_torch" in filename.replace("\\", "/"):
+            out[name] = out.get(name, 0.0) + row[3]
+    return {k: round(out[k], 3) for k in SETUP_STAGES if k in out}
+
+
+def main(argv=None) -> int:
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core.hierarchy import SetupConfig
+    from repro_torch.core.solver import LaplacianSolver
+    from repro_torch.graphs.generators import barabasi_albert, ensure_connected
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n", type=int, default=1 << 20)
+    ap.add_argument("--trace", default=None, help="Chrome trace output path")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("trace_solve: needs a CUDA device", file=sys.stderr)
+        return 2
+
+    # the coarse solve's dense product in full float32, never TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    n, r, c, v = ensure_connected(*barabasi_albert(args.n, m=4, seed=0,
+                                                   weighted=True))
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.enable()
+    solver = LaplacianSolver.setup(n, r, c, v,
+                                   SetupConfig(matvec_backend="ell"))
+    torch.cuda.synchronize()
+    prof.disable()
+    setup_s = time.perf_counter() - t0
+
+    b = np.random.default_rng(100).normal(size=n).astype(np.float32)
+    b -= b.mean()
+    solver.solve(b, tol=1e-6)                       # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solver.solve(b, tol=1e-6)
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        _, info = solver.solve(b, tol=1e-6)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in p.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    if args.trace:
+        p.export_chrome_trace(args.trace)
+    print(json.dumps(dict(
+        device=torch.cuda.get_device_name(0), n=n, nnz=len(r),
+        setup_s=round(setup_s, 3), setup_stage_s=_stage_seconds(prof),
+        solve_iters=info.iters, solve_untraced_ms=round(untraced_ms, 3),
+        solve_traced_ms=round(wall_ms, 3),
+        solve_device_busy_ms=round(busy_ms, 3),
+        solve_device_busy_share=round(busy_ms / untraced_ms, 4),
+        solve_device_busy_share_of_traced=round(busy_ms / wall_ms, 4),
+        solve_kernel_launches=int(sum(e.count for e in kernels)),
+        solve_top_kernels=[dict(name=e.key[:80], count=e.count,
+                                ms=round(e.self_device_time_total / 1e3, 4))
+                           for e in top])))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,78 @@
+"""Port kernels on the card: each CUDA kernel against its plain version.
+
+Needs a CUDA device and ``nvcc`` (the kernels build on first use); every
+test skips without a card. It imports neither JAX nor the reference, so
+it runs on a machine that has only the port's dependencies:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerances: ``spmv_ell``/``jacobi`` rtol 1e-5 / atol 1e-6 (the float32
+summation order differs), ``agg_vote`` bit-exact.
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.agg_vote import vote_reduce, vote_reduce_ref  # noqa: E402
+from repro_torch.kernels.jacobi import jacobi_step, jacobi_step_ref  # noqa: E402
+from repro_torch.kernels.spmv_ell import spmv_ell, spmv_ell_ref  # noqa: E402
+
+RTOL, ATOL = 1e-5, 1e-6
+
+
+def _ell(rng, n_rows, n_cols, width, density=0.7):
+    col = rng.integers(0, n_cols, (n_rows, width)).astype(np.int32)
+    val = rng.normal(size=(n_rows, width)).astype(np.float32)
+    pad = rng.random((n_rows, width)) > density
+    col[pad] = n_cols
+    val[pad] = 0
+    return col, val
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows,width", [(70000, 19), (4099, 8), (3000, 33),
+                                          (7, 0)])
+def test_cuda_kernels_match_plain_versions(n_rows, width):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(n_rows)
+    col, val = _ell(rng, n_rows, n_rows, width)
+    x, b = (rng.normal(size=n_rows).astype(np.float32) for _ in range(2))
+    deg = np.abs(rng.normal(size=n_rows)).astype(np.float32)
+    deg[::7] = 0.0
+    C, V, X, B, D = (_t(a).cuda() for a in (col, val, x, b, deg))
+    torch.testing.assert_close(spmv_ell(C, V, X), spmv_ell_ref(C, V, X),
+                               rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(jacobi_step(C, V, X, B, D),
+                               jacobi_step_ref(C, V, X, B, D),
+                               rtol=RTOL, atol=ATOL)
+    sq = rng.integers(0, 4, (n_rows, width)).astype(np.int32)  # many ties
+    state = rng.integers(0, 3, n_rows).astype(np.int32)     # 0 = Decided
+    S, Q = _t(state).cuda(), _t(sq).cuda()
+    got = vote_reduce(C, Q, S, levels=1 << 20)
+    want = vote_reduce_ref(C, Q, S, levels=1 << 20)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_launch_counts_and_width_zero():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    col = torch.zeros((5, 0), dtype=torch.int32, device="cuda")
+    state = torch.ones(5, dtype=torch.int32, device="cuda")
+    before = vote_reduce.launches
+    k, i = vote_reduce(col, col, state, levels=4)
+    assert vote_reduce.launches == before            # width 0: no launch
+    assert (k == torch.iinfo(torch.int32).min).all()
+    assert (i == torch.iinfo(torch.int32).max).all()
+    x = torch.ones(5, device="cuda")
+    n0 = spmv_ell.launches
+    spmv_ell(torch.zeros((5, 1), dtype=torch.int32, device="cuda"),
+             torch.ones((5, 1), device="cuda"), x)
+    assert spmv_ell.launches == n0 + 1
