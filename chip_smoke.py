@@ -5,9 +5,10 @@
 
 Phases, one line each (any failure exits non-zero):
 
-1. build   — compile the three kernels of ``src/repro_torch/csrc`` for
-             sm_90a with nvcc; print the seconds and the card's name and
-             power limit as nvidia-smi reports them.
+1. build   — compile the four kernels of ``src/repro_torch/csrc`` for
+             sm_90a with nvcc (one process per source, all started
+             together); print the seconds and the card's name and power
+             limit as nvidia-smi reports them.
 2. main    — the paper's solver at the per-process scale of its largest
              run: Barabási–Albert n = 2^20, m = 4 (about 4.2 M undirected
              edges), ``LaplacianSolver.setup(SetupConfig(matvec_backend=
@@ -24,6 +25,21 @@ Phases, one line each (any failure exits non-zero):
 4. e2e     — the same path at n = 2^16 with the kernels and with the plain
              versions: identical levels, iteration counts within ±1 and
              ‖x_k − x_p‖/‖x_p‖ ≤ 1e-4.
+5. deepfm  — DeepFM serving at full width (``configs/deepfm.py::FULL``: 39
+             fields, d = 10, H = 2, MLP 390-400-400-400-1, 3,729,408 table
+             rows), weights from a seeded generator: 8 serve_p99 requests
+             (B = 512, ``recsys_batch_stream`` steps 0-7, seed 0), one
+             serve_bulk batch (B = 262,144) and one retrieval_cand call (one
+             user against the 10^6 ids of field 0). Every logit and score
+             must be finite; the embedding-bag launch count, reset to 0 just
+             before and read just after, must rise by exactly 2 per forward
+             and 1 per retrieval; with the wrappers rebound to their plain
+             versions the same requests give logits and scores within
+             rtol 1e-5 / atol 1e-5 and launch no kernel; 64 retrieval scores
+             must match a float64 host computation. Then the kernels phase's
+             ``embedding_bag`` record at the bulk batch's shapes (10,223,616
+             bags, hot 2, d 10), with ``F.embedding_bag`` as a yardstick, and
+             a case with the sentinel ids −2, −1, V and V + 3.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -48,13 +64,18 @@ REPLACES = {
     "spmv_ell": "src/repro/kernels/spmv_ell/spmv_ell.py:41",
     "jacobi": "src/repro/kernels/jacobi/jacobi.py:35",
     "agg_vote": "src/repro/kernels/agg_vote/agg_vote.py:51",
+    "embedding_bag": "src/repro/kernels/embedding_bag/embedding_bag.py:36",
 }
 # each kernel package's wrapper and its plain version
 WRAPPERS = {
     "repro_torch.kernels.spmv_ell": ("spmv_ell", "spmv_ell_ref"),
     "repro_torch.kernels.jacobi": ("jacobi_step", "jacobi_step_ref"),
     "repro_torch.kernels.agg_vote": ("vote_reduce", "vote_reduce_ref"),
+    "repro_torch.kernels.embedding_bag": ("embedding_bag_kernel",
+                                          "embedding_bag_ref"),
 }
+SOLVER_KERNELS = ("repro_torch.kernels.spmv_ell", "repro_torch.kernels.jacobi",
+                  "repro_torch.kernels.agg_vote")
 
 
 class SmokeFailure(RuntimeError):
@@ -113,11 +134,26 @@ def plain_versions():
                     saved[mod_name])
 
 
-def launch_counts() -> tuple:
-    """The three wrappers' launch counts (read from the ``ops`` modules,
-    which :func:`plain_versions` leaves alone)."""
-    return tuple(getattr(importlib.import_module(f"{m}.ops"), w).launches
-                 for m, (w, _) in WRAPPERS.items())
+def launch_counts(mods=SOLVER_KERNELS) -> tuple:
+    """The launch counts of the wrappers of ``mods`` (read from the ``ops``
+    modules, which :func:`plain_versions` leaves alone)."""
+    return tuple(getattr(importlib.import_module(f"{m}.ops"),
+                         WRAPPERS[m][0]).launches for m in mods)
+
+
+def kernel_record(name, launches, err, ms, plain_ms, bytes_moved, ops,
+                  library_ms=None) -> dict:
+    """One kernel's entry of the ``kernels`` JSON line, printed as it is
+    made."""
+    b_ms, b_by = bound(bytes_moved, ops)
+    say("kernels", name=name, max_abs_err=err, kernel_ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=library_ms, bytes=int(bytes_moved))
+    return dict(name=name, route="cuda",
+                source=f"src/repro_torch/csrc/{name}.cu",
+                replaces=REPLACES[name], launches=launches,
+                max_abs_err=err, ms=ms, kernel_ms=ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
 
 
 def graph(n: int, seed: int):
@@ -231,17 +267,8 @@ def phase_kernels(torch, np, solver, launches):
     before = (spmv_ell.launches, jacobi_step.launches, vote_reduce.launches)
     records = []
 
-    def record(name, err, ms, plain_ms, bytes_moved, ops, library_ms=None):
-        b_ms, b_by = bound(bytes_moved, ops)
-        rec = dict(name=name, route="cuda",
-                   source=f"src/repro_torch/csrc/{name}.cu",
-                   replaces=REPLACES[name], launches=launches[name],
-                   max_abs_err=err, ms=ms, kernel_ms=ms, plain_ms=plain_ms,
-                   bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
-        records.append(rec)
-        say("kernels", name=name, max_abs_err=err, kernel_ms=ms,
-            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-            library_ms=library_ms, bytes=int(bytes_moved))
+    def record(name, *args, **kw):
+        records.append(kernel_record(name, launches[name], *args, **kw))
 
     # spmv_ell: the finest level's ELL table (every PCG matvec)
     top = solver.hierarchy.transfers[0].fine
@@ -351,6 +378,192 @@ def phase_e2e(torch, np):
     check(rel <= 1e-4, f"kernel vs plain solutions differ: {rel:.3e}")
 
 
+def _bag_launches() -> int:
+    return launch_counts(("repro_torch.kernels.embedding_bag",))[0]
+
+
+def phase_deepfm(torch, np):
+    """DeepFM serving at FULL: returns the model, the bulk batch's
+    fused-table ids and the embedding-bag launches of the served run."""
+    from repro_torch.configs.deepfm import FULL, SHAPE_DIMS, serve_flops
+    from repro_torch.data.synthetic import recsys_batch_stream
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+    from repro_torch.models.recsys.deepfm import DeepFM, _flat_ids
+
+    cfg, dev = FULL, torch.device("cuda")
+    t0 = time.perf_counter()
+    model = DeepFM(cfg, torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    say("deepfm", config="FULL", fields=cfg.n_fields, embed_dim=cfg.embed_dim,
+        multi_hot=cfg.multi_hot, mlp=cfg.mlp_sizes,
+        total_vocab=cfg.total_vocab, table_rows=model.table.shape[0],
+        params=n_params, param_mb=round(4 * n_params / 1e6, 1),
+        init_s=round(time.perf_counter() - t0, 2))
+
+    b_p99 = SHAPE_DIMS["serve_p99"]["batch"]
+    b_bulk = SHAPE_DIMS["serve_bulk"]["batch"]
+    n_cand = SHAPE_DIMS["retrieval_cand"]["n_candidates"]
+    p99 = recsys_batch_stream(cfg.vocab_per_field, b_p99, cfg.multi_hot,
+                              seed=0)
+    requests = [next(p99)[1] for _ in range(8)]
+    t0 = time.perf_counter()
+    bulk_np = next(recsys_batch_stream(cfg.vocab_per_field, b_bulk,
+                                       cfg.multi_hot, seed=0))[1]
+    gen_s = time.perf_counter() - t0
+    user = requests[0][:1]
+    cands = torch.arange(n_cand, dtype=torch.int32, device=dev)
+    bulk = torch.from_numpy(bulk_np).to(dev)
+
+    def serve(idx_np):                  # host ids in, host logits out
+        return model(torch.from_numpy(idx_np).to(dev)).cpu()
+
+    def serve_bulk():
+        out = model(bulk)
+        torch.cuda.synchronize()
+        return out
+
+    def retrieve():
+        out = model.retrieval_scores(torch.from_numpy(user).to(dev), cands)
+        torch.cuda.synchronize()
+        return out
+
+    t0 = time.perf_counter()            # warm-up: cuBLAS handles, shapes
+    serve(requests[0])
+    serve_bulk()
+    retrieve()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+
+    bag_ops.embedding_bag_kernel.launches = 0
+    torch.cuda.synchronize()
+    req_ms, logits, per_call = [], [], []
+    for idx in requests:
+        k0, t0 = _bag_launches(), time.perf_counter()
+        logits.append(serve(idx))
+        req_ms.append((time.perf_counter() - t0) * 1e3)
+        per_call.append(_bag_launches() - k0)
+    k0, t0 = _bag_launches(), time.perf_counter()
+    bulk_logits = serve_bulk()
+    bulk_ms = (time.perf_counter() - t0) * 1e3
+    per_call.append(_bag_launches() - k0)
+    k0, t0 = _bag_launches(), time.perf_counter()
+    scores = retrieve()
+    ret_ms = (time.perf_counter() - t0) * 1e3
+    per_call.append(_bag_launches() - k0)
+    launches = _bag_launches()
+
+    say("deepfm", shape="serve_p99", batch=b_p99, requests=len(requests),
+        request_ms_median=float(np.median(req_ms)),
+        request_ms_max=max(req_ms),
+        request_ms=json.dumps([round(m, 4) for m in req_ms]),
+        model_gflop=serve_flops(cfg, b_p99) / 1e9)
+    say("deepfm", shape="serve_bulk", batch=b_bulk,
+        bags=b_bulk * cfg.n_fields, bulk_ms=bulk_ms,
+        examples_per_s=b_bulk / (bulk_ms / 1e3),
+        model_gflop=serve_flops(cfg, b_bulk) / 1e9,
+        host_batch_gen_s=round(gen_s, 2), warmup_ms=round(warm_ms, 1))
+    say("deepfm", shape="retrieval_cand", candidates=n_cand,
+        retrieval_ms=ret_ms, launches=launches,
+        launches_per_call=json.dumps(per_call))
+    check(all(bool(torch.isfinite(x).all())
+              for x in (*logits, bulk_logits, scores)),
+          "deepfm: a logit or score is not finite")
+    check(per_call == [2] * (len(requests) + 1) + [1],
+          f"deepfm: embedding_bag launches per call {per_call}, "
+          "expected 2 per forward and 1 per retrieval")
+    check(launches == 2 * (len(requests) + 1) + 1,
+          f"deepfm: embedding_bag launched {launches} times")
+
+    before = launch_counts(tuple(WRAPPERS))
+    with plain_versions():
+        plain = (serve(requests[0]), serve_bulk(), retrieve())
+    check(launch_counts(tuple(WRAPPERS)) == before,
+          "deepfm: the plain run launched a kernel")
+    errs = []
+    for name, got, want in (("serve_p99", logits[0], plain[0]),
+                            ("serve_bulk", bulk_logits, plain[1]),
+                            ("retrieval", scores, plain[2])):
+        errs.append(float((got - want.to(got.device)).abs().max()))
+        check(torch.allclose(got, want.to(got.device), rtol=1e-5,
+                             atol=1e-5),
+              f"deepfm {name}: kernel and plain outputs differ")
+
+    # 64 retrieval scores against float64 on the host
+    pick = torch.arange(0, n_cand, n_cand // 64, device=dev)[:64]
+    uid = _flat_ids(cfg, torch.from_numpy(user).to(dev))[0, 1:]
+    v_user = model.table[uid.reshape(-1).long()].double().sum(0)
+    off = int(cfg.field_offsets()[0])
+    want = (model.first_order[pick + off, 0].double()
+            + model.table[pick + off].double() @ v_user)
+    host_err = float((scores[pick].double() - want).abs().max())
+    say("deepfm", kernel_vs_plain_max_abs=json.dumps(errs),
+        retrieval_vs_f64_max_abs=host_err)
+    check(host_err <= 1e-6, "deepfm: retrieval disagrees with float64")
+    flat = _flat_ids(cfg, bulk).reshape(-1, cfg.multi_hot)
+    return model, flat, launches
+
+
+def phase_kernels_deepfm(torch, model, flat, launches):
+    """The embedding_bag record at the bulk batch's shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import (embedding_bag_kernel,
+                                                   embedding_bag_ref)
+
+    table = model.table.detach()
+    n_vocab, d = table.shape
+    n_bags, hot = flat.shape
+    before = embedding_bag_kernel.launches
+    got, want = embedding_bag_kernel(table, flat), embedding_bag_ref(table,
+                                                                     flat)
+    w1 = model.first_order.detach()
+    got1, want1 = embedding_bag_kernel(w1, flat), embedding_bag_ref(w1, flat)
+    torch.cuda.synchronize()
+    err = max(float((got - want).abs().max()),
+              float((got1 - want1).abs().max()))
+    check(torch.allclose(got, want, rtol=1e-6, atol=1e-6)
+          and torch.allclose(got1, want1, rtol=1e-6, atol=1e-6),
+          "embedding_bag disagrees with its plain version")
+
+    # sentinel ids: −2, −1, V (the reference's pad row) and V + 3
+    sent = flat[:100_003].clone()
+    pos = torch.arange(0, sent.numel(), 5, device=sent.device)
+    bad = torch.tensor([-2, -1, n_vocab, n_vocab + 3], dtype=torch.int32,
+                       device=sent.device)
+    sent.view(-1)[pos] = bad[torch.arange(len(pos), device=sent.device) % 4]
+    s_got, s_want = (embedding_bag_kernel(table, sent),
+                     embedding_bag_ref(table, sent))
+    empty = flat[:1000, :0]
+    k0 = embedding_bag_kernel.launches
+    e_got = embedding_bag_kernel(table, empty)
+    torch.cuda.synchronize()
+    check(torch.allclose(s_got, s_want, rtol=1e-6, atol=1e-6),
+          "embedding_bag disagrees with its plain version on sentinel ids")
+    check(embedding_bag_kernel.launches == k0 and not e_got.any(),
+          "embedding_bag at hot 0 launched or did not return zeros")
+    say("kernels", name="embedding_bag", bit_exact=bool(
+        torch.equal(got, want) and torch.equal(got1, want1)),
+        sentinel_max_abs=float((s_got - s_want).abs().max()))
+
+    valid = (flat >= 0) & (flat < n_vocab)
+    distinct = int(torch.unique(flat[valid]).numel())
+    padded = torch.cat([table, table.new_zeros((1, d))])   # yardstick only
+    mapped = torch.where(valid, flat, n_vocab)
+    rec = kernel_record(
+        "embedding_bag", launches, err,
+        time_ms(torch, lambda: embedding_bag_kernel(table, flat)),
+        time_ms(torch, lambda: embedding_bag_ref(table, flat)),
+        4 * n_bags * hot + 4 * n_bags * d + 4 * d * distinct,
+        n_bags * hot * d,
+        library_ms=time_ms(torch, lambda: F.embedding_bag(
+            mapped, padded, mode="sum", padding_idx=n_vocab)))
+    say("kernels", name="embedding_bag", bags=n_bags, hot=hot, d=d,
+        vocab=n_vocab, distinct_valid_ids=distinct)
+    check(embedding_bag_kernel.launches > before,
+          "embedding_bag was not launched in the comparison phase")
+    return rec
+
+
 def main() -> int:
     import torch
 
@@ -372,6 +585,8 @@ def main() -> int:
     records = phase_kernels(torch, np, solver, launches)
     del solver
     phase_e2e(torch, np)
+    model, flat, bag_launches = phase_deepfm(torch, np)
+    records.append(phase_kernels_deepfm(torch, model, flat, bag_launches))
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-"""Carry a hierarchy built by the JAX reference over to the port.
+"""Carry state built by the JAX reference over to the port.
 
 ``hierarchy_from_numpy(tree, device)`` takes the reference ``Hierarchy``
 flattened to plain Python: nested dicts of numpy arrays plus the static
@@ -16,6 +16,10 @@ very same hierarchy, independently of setup. The layout of ``tree``:
                 "ell": {"col", "val": array, "n_cols": int} | None,
                 "ell_rem": coo | None}
     coo      = {"row", "col", "val": array, "n_rows", "n_cols": int}
+
+``deepfm_params_from_numpy(tree, device)`` does the same for the dict that
+the reference's ``init_deepfm`` returns, as numpy arrays:
+``{"table", "first_order", "bias": array, "mlp": {"w": [...], "b": [...]}}``.
 """
 
 from __future__ import annotations
@@ -85,3 +89,14 @@ def hierarchy_from_numpy(tree: dict, device) -> Hierarchy:
     return Hierarchy(transfers=tuple(transfers), lam_maxes=lam,
                      coarse_inv=_t(tree["coarse_inv"], device,
                                    torch.float32))
+
+
+def deepfm_params_from_numpy(tree: dict, device) -> dict:
+    """The port's DeepFM parameters (``init_deepfm``'s layout) for a
+    reference parameter dict of numpy arrays."""
+    device = torch.device(device)
+    return dict(table=_t(tree["table"], device, torch.float32),
+                first_order=_t(tree["first_order"], device, torch.float32),
+                mlp={k: [_t(a, device, torch.float32) for a in tree["mlp"][k]]
+                     for k in ("w", "b")},
+                bias=_t(tree["bias"], device, torch.float32))

@@ -98,7 +98,7 @@ def random_relabel(n, rows, cols, seed: int):
 
 def to_laplacian_coo(n, rows, cols, vals, capacity=None, device=None):
     """Adjacency edge list -> padded COO of the adjacency (the Laplacian is
-    L = diag(deg) − A) on ``device`` (default the CPU)."""
+    L = diag(deg) − A) on ``device`` (default: the CUDA card)."""
     from repro_torch.sparse.coo import coo_from_arrays
 
     return coo_from_arrays(rows, cols, vals, n, n, capacity=capacity,

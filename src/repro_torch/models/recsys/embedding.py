@@ -1,0 +1,58 @@
+"""Embedding substrate (torch port of ``repro.models.recsys.embedding``).
+
+An embedding bag is a sum-semiring SpMV with one-hot rows. The unweighted
+bag sum goes through the hand-written kernel
+(``repro_torch.kernels.embedding_bag``) on the card; weighted bags keep the
+reference's composition (gather, scale, masked sum), as the JAX package has
+no kernel for them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.graph import _M32, _mul32
+from repro_torch.sparse.segment import take_fill
+
+
+def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
+                  weights: torch.Tensor | None = None,
+                  mode: str = "sum") -> torch.Tensor:
+    """table [V, d]; indices [..., H] (out-of-range = padding) -> [..., d].
+
+    Multi-hot bags reduce over the trailing H axis. ``mode``: sum|mean.
+    """
+    from repro_torch.kernels.embedding_bag import embedding_bag_kernel
+
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"embedding_bag: unknown mode {mode!r}")
+    V, d = table.shape
+    valid = None if weights is None and mode == "sum" else \
+        (indices >= 0) & (indices < V)
+    if weights is None:
+        bags = indices.reshape(-1, indices.shape[-1])  # a view, no copy
+        out = embedding_bag_kernel(table, bags).reshape(*indices.shape[:-1],
+                                                        d)
+    else:
+        vecs = take_fill(table, indices, 0) * weights[..., None]
+        out = torch.where(valid[..., None], vecs, 0).sum(dim=-2)
+    if mode == "mean":
+        out = out / valid.sum(dim=-1, keepdim=True).clamp(min=1)
+    return out
+
+
+def hashed_lookup(table: torch.Tensor, raw_ids: torch.Tensor,
+                  n_hashes: int = 2) -> torch.Tensor:
+    """Hashing-trick lookup: the sum of ``n_hashes`` independently hashed
+    rows. The reference's uint32 arithmetic is done on int64 with 32-bit
+    masks (torch has no ``>>`` on uint32), bit for bit."""
+    V = table.shape[0]
+    out = 0
+    x = raw_ids.long() & _M32
+    for i in range(n_hashes):
+        x = _mul32(x ^ (x >> 16), 0x45D9F3B + 2 * i + 1)
+        x = _mul32(x ^ (x >> 13), 0xC2B2AE35)
+        h = (x ^ (x >> 16)) % V
+        out = out + table.index_select(0, h.reshape(-1)).reshape(
+            *h.shape, *table.shape[1:])
+    return out

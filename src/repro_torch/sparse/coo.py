@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.sparse.segment import (segment_max, segment_sum, take_fill)
 
 
@@ -66,7 +67,8 @@ class COO:
 
 def coo_from_arrays(row, col, val, n_rows: int, n_cols: int,
                     capacity: int | None = None, device=None) -> COO:
-    """Build a COO from host arrays, padding to ``capacity``."""
+    """Build a COO from host arrays, padding to ``capacity``, on ``device``
+    (default: the CUDA card, see :func:`repro_torch.device.resolve_device`)."""
     row = np.asarray(row, np.int32)
     col = np.asarray(col, np.int32)
     val = np.asarray(val, np.float32)
@@ -80,7 +82,7 @@ def coo_from_arrays(row, col, val, n_rows: int, n_cols: int,
     r[:nnz] = row
     c[:nnz] = col
     v[:nnz] = val
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    dev = resolve_device(device)
     return COO(torch.from_numpy(r).to(dev), torch.from_numpy(c).to(dev),
                torch.from_numpy(v).to(dev), n_rows, n_cols)
 

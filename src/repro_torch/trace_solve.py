@@ -45,10 +45,49 @@ def _stage_seconds(prof: cProfile.Profile) -> dict:
     return {k: round(out[k], 3) for k in SETUP_STAGES if k in out}
 
 
+def profile_call(torch, fn, trace_path=None, top: int = 10):
+    """Run ``fn`` once to warm up, once untraced (host clock, ending in a
+    synchronise) and once under ``torch.profiler``. Returns the traced
+    call's result and its device time: busy ms by kernel name (the port
+    runs on one stream, so kernel times add up), the busy share against
+    the untraced wall time and, as a lower bound, against the traced one,
+    which the profiler's own host overhead stretches; ``trace_path``
+    writes the Chrome trace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as p:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in p.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if trace_path:
+        p.export_chrome_trace(trace_path)
+    return out, dict(
+        untraced_ms=round(untraced_ms, 3), traced_ms=round(wall_ms, 3),
+        device_busy_ms=round(busy_ms, 3),
+        device_busy_share=round(busy_ms / untraced_ms, 4),
+        device_busy_share_of_traced=round(busy_ms / wall_ms, 4),
+        kernel_launches=int(sum(e.count for e in kernels)),
+        top_kernels=[dict(name=e.key[:80], count=e.count,
+                          ms=round(e.self_device_time_total / 1e3, 4))
+                     for e in sorted(kernels,
+                                     key=lambda e: -e.self_device_time_total)
+                     [:top]])
+
+
 def main(argv=None) -> int:
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core.hierarchy import SetupConfig
     from repro_torch.core.solver import LaplacianSolver
@@ -78,36 +117,13 @@ def main(argv=None) -> int:
 
     b = np.random.default_rng(100).normal(size=n).astype(np.float32)
     b -= b.mean()
-    solver.solve(b, tol=1e-6)                       # warm
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    solver.solve(b, tol=1e-6)
-    torch.cuda.synchronize()
-    untraced_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as p:
-        t0 = time.perf_counter()
-        _, info = solver.solve(b, tol=1e-6)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in p.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
-    if args.trace:
-        p.export_chrome_trace(args.trace)
+    (_, info), prof_solve = profile_call(
+        torch, lambda: solver.solve(b, tol=1e-6), args.trace, top=12)
     print(json.dumps(dict(
         device=torch.cuda.get_device_name(0), n=n, nnz=len(r),
         setup_s=round(setup_s, 3), setup_stage_s=_stage_seconds(prof),
-        solve_iters=info.iters, solve_untraced_ms=round(untraced_ms, 3),
-        solve_traced_ms=round(wall_ms, 3),
-        solve_device_busy_ms=round(busy_ms, 3),
-        solve_device_busy_share=round(busy_ms / untraced_ms, 4),
-        solve_device_busy_share_of_traced=round(busy_ms / wall_ms, 4),
-        solve_kernel_launches=int(sum(e.count for e in kernels)),
-        solve_top_kernels=[dict(name=e.key[:80], count=e.count,
-                                ms=round(e.self_device_time_total / 1e3, 4))
-                           for e in top])))
+        solve_iters=info.iters,
+        **{f"solve_{k}": val for k, val in prof_solve.items()})))
     return 0
 
 

@@ -7,7 +7,9 @@ it runs on a machine that has only the port's dependencies:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances: ``spmv_ell``/``jacobi`` rtol 1e-5 / atol 1e-6 (the float32
-summation order differs), ``agg_vote`` bit-exact.
+summation order differs), ``agg_vote`` bit-exact, ``embedding_bag`` rtol /
+atol 1e-6 (the same float32 sum in the same order), DeepFM logits rtol /
+atol 1e-5 (the card's matrix products sum in another order).
 """
 
 import numpy as np
@@ -16,6 +18,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels.agg_vote import vote_reduce, vote_reduce_ref  # noqa: E402
+from repro_torch.kernels.embedding_bag import (  # noqa: E402
+    embedding_bag_kernel, embedding_bag_ref)
 from repro_torch.kernels.jacobi import jacobi_step, jacobi_step_ref  # noqa: E402
 from repro_torch.kernels.spmv_ell import spmv_ell, spmv_ell_ref  # noqa: E402
 
@@ -76,3 +80,63 @@ def test_cuda_launch_counts_and_width_zero():
     spmv_ell(torch.zeros((5, 1), dtype=torch.int32, device="cuda"),
              torch.ones((5, 1), device="cuda"), x)
     assert spmv_ell.launches == n0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bags,hot,d,n_vocab", [(100_003, 2, 10, 50_000),
+                                                  (4099, 5, 1, 300),
+                                                  (257, 1, 33, 10),
+                                                  (7, 3, 10, 4)])
+def test_cuda_embedding_bag_matches_plain_version(n_bags, hot, d, n_vocab):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(n_bags + hot)
+    table = rng.normal(size=(n_vocab, d)).astype(np.float32)
+    idx = rng.integers(-2, n_vocab + 4, (n_bags, hot)).astype(np.int32)
+    T, I = _t(table).cuda(), _t(idx).cuda()
+    n0 = embedding_bag_kernel.launches
+    got = embedding_bag_kernel(T, I)
+    assert embedding_bag_kernel.launches == n0 + 1
+    torch.testing.assert_close(got, embedding_bag_ref(T, I), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_cuda_embedding_bag_hot_zero_and_argument_checks():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    table = torch.ones((10, 4), device="cuda")
+    n0 = embedding_bag_kernel.launches
+    out = embedding_bag_kernel(table, torch.zeros((5, 0), dtype=torch.int32,
+                                                  device="cuda"))
+    assert embedding_bag_kernel.launches == n0        # hot 0: no launch
+    assert out.shape == (5, 4) and not out.any()
+    with pytest.raises(TypeError):
+        embedding_bag_kernel(table, torch.zeros((5, 2), dtype=torch.int64,
+                                                device="cuda"))
+    with pytest.raises(NotImplementedError):
+        embedding_bag_kernel(table.requires_grad_(),
+                             torch.zeros((5, 2), dtype=torch.int32,
+                                         device="cuda"))
+
+
+@pytest.mark.cuda
+def test_cuda_deepfm_smoke_matches_cpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs.deepfm import SMOKE
+    from repro_torch.data.synthetic import recsys_batch_stream
+    from repro_torch.models.recsys.deepfm import DeepFM
+
+    cpu = DeepFM(SMOKE, torch.Generator().manual_seed(0), device="cpu")
+    card = DeepFM(SMOKE, torch.Generator().manual_seed(0))
+    idx = _t(next(recsys_batch_stream(SMOKE.vocab_per_field, 300,
+                                      SMOKE.multi_hot))[1])
+    n0 = embedding_bag_kernel.launches
+    got = card(idx.cuda())
+    assert embedding_bag_kernel.launches == n0 + 2
+    torch.testing.assert_close(got.cpu(), cpu(idx), rtol=1e-5, atol=1e-5)
+    cand = torch.arange(SMOKE.vocab_per_field[0], dtype=torch.int32)
+    torch.testing.assert_close(
+        card.retrieval_scores(idx[:1].cuda(), cand.cuda()).cpu(),
+        cpu.retrieval_scores(idx[:1], cand), rtol=1e-5, atol=1e-5)

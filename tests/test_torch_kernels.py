@@ -7,7 +7,10 @@ interpret mode and the pure-jnp ``ref.py`` oracles, on random ELL tables
 from a numpy seed with sentinel slots, row counts that are not multiples
 of the Pallas block size, and width 0. Tolerances: the float kernels at
 rtol 1e-5 / atol 1e-6 (float32 summation order differs); the vote
-reduction bit-exact (integer ⊕).
+reduction bit-exact (integer ⊕). The embedding bag: multi-hot id tables
+with the sentinel ids −2, −1, V and V + 3, bag counts that are not
+multiples of the Pallas block of 128, hot 0 to 5 and d = 1 and 10, at
+rtol / atol 1e-6.
 """
 
 import numpy as np
@@ -19,12 +22,16 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.agg_vote import vote_reduce as j_vote  # noqa: E402
 from repro.kernels.agg_vote import vote_reduce_ref as j_vote_ref  # noqa: E402
+from repro.kernels.embedding_bag import embedding_bag_kernel as j_bag  # noqa: E402
+from repro.kernels.embedding_bag import embedding_bag_ref as j_bag_ref  # noqa: E402
 from repro.kernels.jacobi import jacobi_step as j_jacobi  # noqa: E402
 from repro.kernels.jacobi import jacobi_step_ref as j_jacobi_ref  # noqa: E402
 from repro.kernels.spmv_ell import spmv_ell as j_spmv  # noqa: E402
 from repro.kernels.spmv_ell import spmv_ell_ref as j_spmv_ref  # noqa: E402
 from repro_torch.kernels import on_cuda  # noqa: E402
 from repro_torch.kernels.agg_vote import vote_reduce, vote_reduce_ref  # noqa: E402
+from repro_torch.kernels.embedding_bag import (  # noqa: E402
+    embedding_bag_kernel, embedding_bag_ref)
 from repro_torch.kernels.jacobi import jacobi_step, jacobi_step_ref  # noqa: E402
 from repro_torch.kernels.spmv_ell import spmv_ell, spmv_ell_ref  # noqa: E402
 
@@ -131,3 +138,46 @@ def test_wrappers_refuse_other_devices():
         on_cuda("spmv_ell", t, torch.zeros(2))
     with pytest.raises(ValueError):
         spmv_ell(t, t.float(), torch.zeros(4, device="meta"))
+
+
+BAG_SHAPES = [(300, 2, 10), (100, 1, 10), (257, 3, 1), (50, 5, 10),
+              (129, 4, 1), (64, 0, 10)]
+PALLAS_BAG = (300, 2, 10)    # 300 bags: not a multiple of the 128-bag block
+
+
+def _bag_case(rng, n_bags, hot, d, n_vocab=200):
+    table = rng.normal(size=(n_vocab, d)).astype(np.float32)
+    idx = rng.integers(0, n_vocab, (n_bags, hot)).astype(np.int32)
+    flat = idx.reshape(-1)
+    sentinels = np.array([-2, -1, n_vocab, n_vocab + 3], np.int32)
+    flat[::7] = np.resize(sentinels, flat[::7].shape)
+    return table, idx
+
+
+@pytest.mark.parametrize("n_bags,hot,d", BAG_SHAPES)
+def test_embedding_bag_plain_matches_pallas_and_ref(n_bags, hot, d):
+    rng = np.random.default_rng(13 * n_bags + 5 * hot + d)
+    table, idx = _bag_case(rng, n_bags, hot, d)
+    got = embedding_bag_kernel(_t(table), _t(idx)).numpy()
+    assert got.shape == (n_bags, d) and got.dtype == np.float32
+    np.testing.assert_array_equal(
+        got, embedding_bag_ref(_t(table), _t(idx)).numpy())
+    want = [j_bag_ref(jnp.asarray(table), jnp.asarray(idx))]
+    if (n_bags, hot, d) == PALLAS_BAG:     # interpret mode is slow
+        want.append(j_bag(jnp.asarray(table), jnp.asarray(idx),
+                          interpret=True))
+    for w in want:
+        np.testing.assert_allclose(got, np.asarray(w), 1e-6, 1e-6)
+    if hot == 0:
+        assert not got.any()
+
+
+def test_embedding_bag_wrapper_on_cpu_and_other_devices():
+    rng = np.random.default_rng(1)
+    table, idx = _bag_case(rng, 40, 2, 10)
+    before = embedding_bag_kernel.launches
+    embedding_bag_kernel(_t(table), _t(idx))
+    assert embedding_bag_kernel.launches == before
+    with pytest.raises(ValueError, match="CUDA"):
+        embedding_bag_kernel(torch.zeros((4, 2), device="meta"),
+                             _t(idx))

@@ -37,7 +37,8 @@ def _np(t):
 
 def _levels(n, r, c, v):
     return (jgraph.graph_from_adjacency(jgen.to_laplacian_coo(n, r, c, v)),
-            tgraph.graph_from_adjacency(tgen.to_laplacian_coo(n, r, c, v)))
+            tgraph.graph_from_adjacency(
+                tgen.to_laplacian_coo(n, r, c, v, device="cpu")))
 
 
 @pytest.fixture(scope="module")

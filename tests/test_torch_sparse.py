@@ -37,7 +37,8 @@ def _random_coo(seed, n=97, nnz=600, cap=700):
     c = rng.integers(0, n, nnz).astype(np.int32)
     v = rng.normal(size=nnz).astype(np.float32)
     return (jcoo.coo_from_arrays(r, c, v, n, n, capacity=cap),
-            tcoo.coo_from_arrays(r, c, v, n, n, capacity=cap))
+            tcoo.coo_from_arrays(r, c, v, n, n, capacity=cap,
+                                  device="cpu"))
 
 
 def test_take_fill_and_segment_conventions():
@@ -153,7 +154,7 @@ def test_select_width_and_split_hybrid_match():
 
     n, r, c, v = barabasi_albert(400, m=3, seed=1, weighted=True)
     ja = to_laplacian_coo(n, r, c, v)
-    ta = tcoo.coo_from_arrays(r, c, v, n, n)
+    ta = tcoo.coo_from_arrays(r, c, v, n, n, device="cpu")
     counts = np.bincount(r, minlength=n)
     for backend in ("coo", "ell", "auto"):
         assert tmv.select_ell_width(counts, backend) == \
