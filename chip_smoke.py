@@ -21,7 +21,11 @@ Phases, one line each (any failure exits non-zero):
              the main path's shapes (spmv_ell and jacobi at rtol 1e-5 /
              atol 1e-6, agg_vote bit-exact), with its time, the plain
              version's, its bound, and for spmv_ell a
-             ``torch.sparse_csr_tensor`` product as a yardstick.
+             ``torch.sparse_csr_tensor`` product as a yardstick. Then
+             spmv_ell and jacobi at every ELL level of the main path: the
+             tile plan, time against bound, launches per solve at that
+             level (counted on the main path's last solve), a check
+             against the plain version and a bitwise repeat.
 4. e2e     — the same path at n = 2^16 with the kernels and with the plain
              versions: identical levels, iteration counts within ±1 and
              ‖x_k − x_p‖/‖x_p‖ ≤ 1e-4.
@@ -112,6 +116,34 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+@contextlib.contextmanager
+def shapes_launched():
+    """Within the block, tally each float ELL kernel's calls by table
+    shape: yields {kernel: {(n_rows, width): calls}}. The wrapper is
+    rebound to a function that counts and calls it, so its own launch
+    count rises as before."""
+    tally = {}
+    saved = {}
+    for mod_name in SOLVER_KERNELS[:2]:       # spmv_ell, jacobi
+        mod = importlib.import_module(mod_name)
+        wrapper_name = WRAPPERS[mod_name][0]
+        real = saved[mod_name] = getattr(mod, wrapper_name)
+        counts = tally[mod_name.rsplit(".", 1)[1]] = {}
+
+        def counted(col, *args, _real=real, _counts=counts, **kw):
+            key = tuple(col.shape)
+            _counts[key] = _counts.get(key, 0) + 1
+            return _real(col, *args, **kw)
+
+        setattr(mod, wrapper_name, counted)
+    try:
+        yield tally
+    finally:
+        for mod_name, real in saved.items():
+            setattr(importlib.import_module(mod_name),
+                    WRAPPERS[mod_name][0], real)
 
 
 @contextlib.contextmanager
@@ -238,7 +270,8 @@ def phase_main(torch, np):
         check(rel <= 1e-4, f"solve {k}: host residual {rel:.3e} > 1e-4")
     x1, _ = solver.solve(first_b, tol=1e-6, maxiter=200)
     mark = (spmv_ell.launches, jacobi_step.launches)
-    x2, info = solver.solve(first_b, tol=1e-6, maxiter=200)
+    with shapes_launched() as per_shape:
+        x2, info = solver.solve(first_b, tol=1e-6, maxiter=200)
     torch.cuda.synchronize()
     launches = dict(spmv_ell=spmv_ell.launches, jacobi=jacobi_step.launches,
                     agg_vote=vote_reduce.launches)
@@ -246,10 +279,19 @@ def phase_main(torch, np):
     say("main", bitwise_repeat=True, launches=json.dumps(launches),
         one_solve_iters=info.iters,
         one_solve_spmv_ell=spmv_ell.launches - mark[0],
-        one_solve_jacobi=jacobi_step.launches - mark[1])
+        one_solve_jacobi=jacobi_step.launches - mark[1],
+        one_solve_by_shape=json.dumps({k: {f"{n}x{w}": c for (n, w), c
+                                           in v.items()}
+                                       for k, v in per_shape.items()}))
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the main path")
-    return solver, launches
+    for name, mod, start in (("spmv_ell", spmv_ell, mark[0]),
+                             ("jacobi", jacobi_step, mark[1])):
+        tallied = sum(per_shape[name].values())
+        check(tallied == mod.launches - start,
+              f"{name}: {tallied} calls tallied by shape, "
+              f"{mod.launches - start} launches in the same solve")
+    return solver, launches, per_shape
 
 
 def phase_kernels(torch, np, solver, launches):
@@ -347,6 +389,62 @@ def phase_kernels(torch, np, solver, launches):
     check(all(a > b for a, b in zip(after, before)),
           "a kernel was not launched in the comparison phase")
     return records
+
+
+def phase_levels(torch, solver, per_shape) -> None:
+    """spmv_ell and jacobi at every ELL level where the main path runs
+    them: tile plan, time against bound, and launches per solve at that
+    level (``per_shape``, from the main path's last solve); each checked
+    against its plain version and for a bitwise repeat."""
+    from repro_torch.kernels import ell_tile_plan
+    from repro_torch.kernels.jacobi import jacobi_step, jacobi_step_ref
+    from repro_torch.kernels.spmv_ell import spmv_ell, spmv_ell_ref
+
+    ts = solver.hierarchy.transfers
+    levels = [t.fine for t in ts] + [ts[-1].coarse] if ts else []
+    gen = torch.Generator(device=solver.device).manual_seed(1)
+    gap = {"spmv_ell": 0.0, "jacobi": 0.0}
+    measured = {"spmv_ell": 0, "jacobi": 0}
+    for i, level in enumerate(levels):
+        ell = getattr(level, "ell", None)
+        if ell is None or ell.width == 0:
+            continue
+        col, val = ell.col, ell.val
+        n, w = col.shape
+        x = torch.randn(ell.n_cols, generator=gen, device=solver.device)
+        b = torch.randn(n, generator=gen, device=solver.device)
+        real = int((col < ell.n_cols).sum())
+        runs = {
+            "spmv_ell": (lambda: spmv_ell(col, val, x),
+                         lambda: spmv_ell_ref(col, val, x),
+                         8 * n * w + 4 * ell.n_cols + 4 * n, 2 * real),
+            "jacobi": (lambda: jacobi_step(col, val, x, b, level.deg),
+                       lambda: jacobi_step_ref(col, val, x, b, level.deg),
+                       8 * n * w + 16 * n, 2 * real + 6 * n),
+        }
+        for name, (kernel, plain, bytes_moved, ops) in runs.items():
+            calls = per_shape[name].get((n, w), 0)
+            if calls == 0:                 # not run at this level
+                continue
+            got, want = kernel(), plain()
+            again = kernel()
+            torch.cuda.synchronize()
+            check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+                  f"{name} disagrees with its plain version at level {i}")
+            check(torch.equal(got, again),
+                  f"{name} is not bitwise repeatable at level {i}")
+            ms = time_ms(torch, kernel)
+            b_ms, b_by = bound(bytes_moved, ops)
+            gap[name] += calls * (ms - b_ms)
+            measured[name] += 1
+            say("levels", kernel=name, level=i, n=n, width=w,
+                plan=json.dumps(ell_tile_plan(w)), kernel_ms=ms,
+                bound_ms=b_ms, bound_by=b_by,
+                of_bound=round(b_ms / ms, 4), launches_per_solve=calls,
+                max_abs_err=float((got - want).abs().max()))
+    for name, count in measured.items():
+        check(count > 0, f"{name}: no ELL level of the main path measured")
+    say("levels", launches_x_gap_ms_per_solve=json.dumps(gap))
 
 
 def phase_e2e(torch, np):
@@ -581,8 +679,9 @@ def main() -> int:
     # the coarse solve's dense product in full float32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = phase_build(torch)
-    solver, launches = phase_main(torch, np)
+    solver, launches, per_shape = phase_main(torch, np)
     records = phase_kernels(torch, np, solver, launches)
+    phase_levels(torch, solver, per_shape)
     del solver
     phase_e2e(torch, np)
     model, flat, bag_launches = phase_deepfm(torch, np)

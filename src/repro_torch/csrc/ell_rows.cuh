@@ -1,5 +1,7 @@
-// The row loop shared by the port's ELL kernels (spmv_ell, jacobi,
-// agg_vote), for Hopper (sm_90a).
+// The row loop of the port's integer ELL kernel, agg_vote, for Hopper
+// (sm_90a). The float kernels (spmv_ell, jacobi) moved to the TMA-staged,
+// one-thread-per-row tiles of ell_tiles.cuh; this header now serves
+// agg_vote alone, unchanged in behaviour.
 //
 // Layout: a [n_rows, width] table, row-major, whose slots with a column
 // outside [0, n_cols) are padding. A group of G lanes (G the power of two

@@ -8,45 +8,38 @@
 // col (int32) and val (float32) tables once, gathers x, and writes y:
 // about 8 * n_rows * width + 4 * (n_cols + n_rows) bytes against no more
 // than 2 flops per slot, far below the card's 67 TFLOP/s float32 line.
+// Reaching that bound takes memory-level parallelism: about 3 MB in
+// flight across the card at 3.35 TB/s.
 //
 // Design: the Pallas kernel kept all of x in VMEM; at n = 2^20 that is
 // 4 MB, far over the 227 KB of shared memory a block may use, so x is
-// gathered through L2 instead. The row loop (G lanes per row, coalesced
-// table reads, in-kernel masking, shuffle butterfly) is ell_rows.cuh's.
+// gathered through L2 instead. The tables stream into shared memory by
+// bulk copies (TMA) a tile ahead of the rows being summed, and each
+// thread sums one row with its gathers issued in passes, so neither the
+// stream nor the gathers wait on the other (ell_tiles.cuh). The store of
+// y is coalesced. Staged this way the stream alone runs near the byte
+// bound; the gathers of x are what is left (PERF.md).
 
-#include "ell_rows.cuh"
+#include "ell_tiles.cuh"
 
 namespace {
 
-template <int G>
-__global__ void __launch_bounds__(ell_rows::kBlock)
-spmv_ell_kernel(const int* __restrict__ col, const float* __restrict__ val,
-                const float* __restrict__ x, float* __restrict__ y,
-                int n_rows, int width, int n_cols) {
-  const ell_rows::RowGroup<G> g;
-  float acc = 0.0f;
-  ell_rows::for_each_slot<G>(col, g, n_rows, width, n_cols,
-                             [&](long long i, int c) {
-                               acc += __ldg(val + i) * __ldg(x + c);
-                             });
-  ell_rows::merge_lanes<G>(acc, [](float& a, float o) { a += o; });
-  if (g.lane == 0 && g.row < n_rows) y[g.row] = acc;
-}
+struct StoreRow {
+  float* y;
+  __device__ __forceinline__ void operator()(long long r, float acc) const {
+    y[r] = acc;
+  }
+};
 
 }  // namespace
 
 extern "C" int repro_spmv_ell_f32(const void* col, const void* val,
                                   const void* x, void* y, int n_rows,
-                                  int width, int n_cols, void* stream) {
-  const int* c = static_cast<const int*>(col);
-  const float* v = static_cast<const float*>(val);
-  const float* xx = static_cast<const float*>(x);
-  float* yy = static_cast<float*>(y);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ell_rows::dispatch_width(n_rows, width, [&](auto group, unsigned grid) {
-    constexpr int G = decltype(group)::value;
-    spmv_ell_kernel<G><<<grid, ell_rows::kBlock, 0, s>>>(c, v, xx, yy, n_rows,
-                                                         width, n_cols);
-  });
-  return static_cast<int>(cudaGetLastError());
+                                  int width, int n_cols, int rows_per_tile,
+                                  int stages, int smem_bytes, void* stream) {
+  return ell_tiles::launch(
+      static_cast<const int*>(col), static_cast<const float*>(val),
+      static_cast<const float*>(x), n_rows, width, n_cols, rows_per_tile,
+      stages, smem_bytes, StoreRow{static_cast<float*>(y)},
+      static_cast<cudaStream_t>(stream));
 }

@@ -35,3 +35,49 @@ def require(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
 
 def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def require_aligned(name: str, t: torch.Tensor, align: int = 16) -> None:
+    """Raise unless ``t``'s data starts on an ``align``-byte boundary (a
+    bulk copy's source must be 16-B aligned)."""
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: data must be {align}-byte aligned")
+
+
+# an H100 block's shared memory (232,448 B), less 1 KB kept for the
+# kernel's static shared memory (its mbarriers)
+SMEM_PER_BLOCK = 232_448 - 1024
+_TILE_ROWS = 128                # rows of a tile, one a consumer thread ...
+_TILE_MAX_BYTES = 32 * 1024     # ... halved while col + val pass this,
+_TILE_MIN_BYTES = 8 * 1024      # doubled (rows a thread) while under this
+
+
+def ell_tile_plan(width: int) -> tuple[int, int, int]:
+    """The tile plan of the float ELL kernels (``csrc/ell_tiles.cuh``) at
+    ``width``: ``(rows_per_tile, stages, smem_bytes)``.
+
+    A tile is R rows of both tables (8·width bytes a row), R a power of
+    two from 32 to 2048: 128 rows, one a consumer thread, halved while a
+    tile would pass 32 KB and doubled (several rows a thread) while it
+    would stay under 8 KB. Two stages: the copy of one tile overlaps the
+    use of the other. The kernels' speed follows the consumer threads
+    resident on an SM (their gathers set the pace once the stream is
+    staged), so the plan keeps a block's shared memory small: on an H100
+    more stages or larger tiles were slower at widths 19, 34 and 64
+    (PERF.md). Width 0 stages nothing. Where two stages of 32 rows would
+    not fit in a block's shared memory (width > 452; the solver's widths
+    stop at ``select_ell_width``'s cap, 64 by default), the plan has no
+    stages either: the kernels read every row with plain loads.
+    """
+    if width < 0:
+        raise ValueError(f"ell_tile_plan: negative width {width}")
+    row_bytes = 8 * width
+    rows = _TILE_ROWS
+    while rows > 32 and rows * row_bytes > _TILE_MAX_BYTES:
+        rows //= 2
+    while 0 < rows * row_bytes < _TILE_MIN_BYTES and rows < 2048:
+        rows *= 2
+    smem = 2 * rows * row_bytes
+    if width == 0 or smem > SMEM_PER_BLOCK:
+        return _TILE_ROWS, 0, 0
+    return rows, 2, smem

@@ -1,9 +1,11 @@
 """Build and bind the port's CUDA kernels.
 
 The sources in ``repro_torch/csrc/*.cu`` have a plain C interface; the
-three ELL kernels share the row loop of ``csrc/ell_rows.cuh``. On
-first use they are compiled for ``sm_90a`` with ``nvcc`` (one process per
-source, all started together, then one link) into a shared library under
+float ELL kernels (``spmv_ell``, ``jacobi``) share the TMA-staged row
+tiles of ``csrc/ell_tiles.cuh``, ``agg_vote`` the row loop of
+``csrc/ell_rows.cuh``. On first use they are compiled for ``sm_90a``
+with ``nvcc`` (one process per source, all started together, then one
+link) into a shared library under
 ``<repo>/build/repro_torch_kernels/``, named by a hash of the sources and
 flags, and loaded with ``ctypes``. Nothing here runs at import time: the
 CPU tests import every module of the package on a machine without
@@ -24,15 +26,15 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch_kernels"
 SOURCES = ("spmv_ell.cu", "jacobi.cu", "agg_vote.cu", "embedding_bag.cu")
-HEADERS = ("ell_rows.cuh",)
+HEADERS = ("ell_rows.cuh", "ell_tiles.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
 _SIGNATURES = {
-    "repro_spmv_ell_f32": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "repro_jacobi_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    "repro_spmv_ell_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "repro_jacobi_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
     "repro_agg_vote_i32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "repro_embedding_bag_f32": (_P, _P, _P, _L, _I, _I, _I, _P),
 }

@@ -4,14 +4,17 @@ PyTorch version.
 Replaces ``repro/kernels/jacobi/jacobi.py::jacobi_step_pallas``. The
 kernel (``repro_torch/csrc/jacobi.cu``) is bound by bytes: one pass over
 (col, val, x, b, deg) per sweep instead of an SpMV and three elementwise
-passes. It writes a new buffer, never ``x`` in place.
+passes, with the tables staged in shared memory by bulk copies (the plan
+is :func:`repro_torch.kernels.ell_tile_plan`). It writes a new buffer,
+never ``x`` in place.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import on_cuda, require, stream_of
+from repro_torch.kernels import (ell_tile_plan, on_cuda, require,
+                                 require_aligned, stream_of)
 from repro_torch.sparse.segment import take_fill
 
 
@@ -36,6 +39,9 @@ def jacobi_step(col, val, x, b, deg, omega: float = 2.0 / 3.0):
     require("jacobi val", val, torch.float32, (n, width))
     for name, t in (("x", x), ("b", b), ("deg", deg)):
         require(f"jacobi {name}", t, torch.float32, (n,))
+    for name, t in (("col", col), ("val", val), ("x", x)):
+        require_aligned(f"jacobi {name}", t)
+    rows, stages, smem = ell_tile_plan(width)
     out = torch.empty(n, dtype=torch.float32, device=x.device)
     if n == 0:
         return out
@@ -44,7 +50,8 @@ def jacobi_step(col, val, x, b, deg, omega: float = 2.0 / 3.0):
         check(lib.repro_jacobi_f32(col.data_ptr(), val.data_ptr(),
                                    x.data_ptr(), b.data_ptr(),
                                    deg.data_ptr(), out.data_ptr(), n, width,
-                                   float(omega), stream_of(x)),
+                                   float(omega), rows, stages, smem,
+                                   stream_of(x)),
               "jacobi_step")
     jacobi_step.launches += 1
     return out

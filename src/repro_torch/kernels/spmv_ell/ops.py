@@ -2,16 +2,18 @@
 
 Replaces ``repro/kernels/spmv_ell/spmv_ell.py::spmv_ell_pallas``. The
 kernel (``repro_torch/csrc/spmv_ell.cu``) is bound by bytes on the card:
-it streams the col/val tables once and gathers ``x`` through L2, since
-``x`` does not fit in shared memory at the main path's sizes. See the
-source for the design.
+it streams the col/val tables once, in tiles that bulk copies stage in
+shared memory (the plan is :func:`repro_torch.kernels.ell_tile_plan`),
+and gathers ``x`` through L2, since ``x`` does not fit in shared memory
+at the main path's sizes. See the source for the design.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import on_cuda, require, stream_of
+from repro_torch.kernels import (ell_tile_plan, on_cuda, require,
+                                 require_aligned, stream_of)
 from repro_torch.sparse.segment import take_fill
 
 
@@ -33,6 +35,9 @@ def spmv_ell(col: torch.Tensor, val: torch.Tensor,
     require("spmv_ell col", col, torch.int32, (n_rows, width))
     require("spmv_ell val", val, torch.float32, (n_rows, width))
     require("spmv_ell x", x, torch.float32, (x.shape[0],))
+    for name, t in (("col", col), ("val", val), ("x", x)):
+        require_aligned(f"spmv_ell {name}", t)
+    rows, stages, smem = ell_tile_plan(width)
     y = torch.empty(n_rows, dtype=torch.float32, device=x.device)
     if width == 0 or n_rows == 0:
         return y.zero_()
@@ -40,7 +45,8 @@ def spmv_ell(col: torch.Tensor, val: torch.Tensor,
     with torch.cuda.device(x.device):
         check(lib.repro_spmv_ell_f32(col.data_ptr(), val.data_ptr(),
                                      x.data_ptr(), y.data_ptr(), n_rows,
-                                     width, x.shape[0], stream_of(x)),
+                                     width, x.shape[0], rows, stages, smem,
+                                     stream_of(x)),
               "spmv_ell")
     spmv_ell.launches += 1
     return y

@@ -125,14 +125,17 @@ def fm_retrieval_scores(cfg: DeepFMConfig, params: dict,
 
     user_indices [1, F, H] (the item field's slots are ignored);
     candidate_ids [n_cand]. score(c) = w1[c] + ⟨Σ v_user, v_c⟩: one
-    ``[n_cand, d] @ [d]`` product. The candidate rows are a plain gather
-    with fill, as in the reference.
+    ``[n_cand, d] @ [d]`` product. The candidate rows are gathered as the
+    reference's ``jnp.take(mode="fill")`` does: a fused id in ``[-V, 0)``
+    wraps to ``id + V`` (V table rows), ids below ``-V`` or from ``V`` on
+    give 0.
     """
     v = _field_embeddings(cfg, params, user_indices)         # [1, F, d]
     mask = (torch.arange(cfg.n_fields, device=v.device)
             != item_field)[None, :, None]
     v_user = torch.where(mask, v, 0).sum(dim=1)[0]           # [d]
     ids = candidate_ids + int(cfg.field_offsets()[item_field])
+    ids = torch.where(ids < 0, ids + params["table"].shape[0], ids)
     cand_vec = take_fill(params["table"], ids, 0)            # [n_cand, d]
     cand_w1 = take_fill(params["first_order"], ids, 0)[:, 0]
     return cand_w1 + cand_vec @ v_user

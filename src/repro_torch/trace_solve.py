@@ -12,7 +12,8 @@ connected) and:
   with ``torch.profiler``: device time by kernel name, and the device's
   busy share against the untraced wall time (the profiler's own host
   overhead stretches the traced solve's wall time, so the share against
-  that is reported too, as a lower bound). The port runs on one stream, so
+  that is reported too, as a lower bound), and each of the port's own
+  kernels' device time and launches. The port runs on one stream, so
   kernel times add up. ``--trace`` writes the Chrome trace.
 
 Prints one JSON object. It needs a CUDA device.
@@ -45,14 +46,21 @@ def _stage_seconds(prof: cProfile.Profile) -> dict:
     return {k: round(out[k], 3) for k in SETUP_STAGES if k in out}
 
 
+# the port's own kernels, by a part of the name the profiler reports
+PORT_KERNELS = {"StoreRow": "spmv_ell", "JacobiRow": "jacobi",
+                "vote_kernel": "agg_vote",
+                "embedding_bag_kernel": "embedding_bag"}
+
+
 def profile_call(torch, fn, trace_path=None, top: int = 10):
     """Run ``fn`` once to warm up, once untraced (host clock, ending in a
     synchronise) and once under ``torch.profiler``. Returns the traced
     call's result and its device time: busy ms by kernel name (the port
     runs on one stream, so kernel times add up), the busy share against
     the untraced wall time and, as a lower bound, against the traced one,
-    which the profiler's own host overhead stretches; ``trace_path``
-    writes the Chrome trace."""
+    which the profiler's own host overhead stretches; the device time and
+    launches of each of the port's kernels (all its instantiations
+    together); ``trace_path`` writes the Chrome trace."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -72,12 +80,21 @@ def profile_call(torch, fn, trace_path=None, top: int = 10):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if trace_path:
         p.export_chrome_trace(trace_path)
+    port = {}
+    for e in kernels:
+        for part, name in PORT_KERNELS.items():
+            if part in e.key:
+                count, us = port.get(name, (0, 0.0))
+                port[name] = (count + e.count,
+                              us + e.self_device_time_total)
     return out, dict(
         untraced_ms=round(untraced_ms, 3), traced_ms=round(wall_ms, 3),
         device_busy_ms=round(busy_ms, 3),
         device_busy_share=round(busy_ms / untraced_ms, 4),
         device_busy_share_of_traced=round(busy_ms / wall_ms, 4),
         kernel_launches=int(sum(e.count for e in kernels)),
+        port_kernels={name: dict(count=c, ms=round(us / 1e3, 4))
+                      for name, (c, us) in port.items()},
         top_kernels=[dict(name=e.key[:80], count=e.count,
                           ms=round(e.self_device_time_total / 1e3, 4))
                      for e in sorted(kernels,

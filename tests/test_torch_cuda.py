@@ -6,8 +6,9 @@ it runs on a machine that has only the port's dependencies:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances: ``spmv_ell``/``jacobi`` rtol 1e-5 / atol 1e-6 (the float32
-summation order differs), ``agg_vote`` bit-exact, ``embedding_bag`` rtol /
+Tolerances: ``spmv_ell``/``jacobi`` rtol 1e-5 / atol 1e-6 against their
+plain versions (the float32 summation order differs) and bitwise equal
+from one call to the next, ``agg_vote`` bit-exact, ``embedding_bag`` rtol /
 atol 1e-6 (the same float32 sum in the same order), DeepFM logits rtol /
 atol 1e-5 (the card's matrix products sum in another order).
 """
@@ -17,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.kernels import ell_tile_plan  # noqa: E402
 from repro_torch.kernels.agg_vote import vote_reduce, vote_reduce_ref  # noqa: E402
 from repro_torch.kernels.embedding_bag import (  # noqa: E402
     embedding_bag_kernel, embedding_bag_ref)
@@ -39,29 +41,89 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
+def _tile_rows(width):
+    return ell_tile_plan(width)[0]
+
+
+# (n_rows, width, padding density): the first kernels' cases, then the
+# tiled design's edges: one row, a tile minus a row, a ragged last tile,
+# the widest width, rows that are all padding, and many tiles a block
+# (each block's ring of stages wraps several times)
+CASES = [(70000, 19, 0.7), (4099, 8, 0.7), (3000, 33, 0.7), (7, 0, 0.7),
+         (1, 1, 0.7), (3, 3, 0.7), (_tile_rows(19) - 1, 19, 0.7),
+         (_tile_rows(34) * 7 + 5, 34, 0.7), (50_001, 64, 0.7),
+         (5000, 12, 0.0), (1 << 20, 19, 0.7), (1 << 21, 3, 0.7)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_rows,width", [(70000, 19), (4099, 8), (3000, 33),
-                                          (7, 0)])
-def test_cuda_kernels_match_plain_versions(n_rows, width):
+@pytest.mark.parametrize("n_rows,width,density", CASES)
+def test_cuda_kernels_match_plain_versions(n_rows, width, density):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(n_rows)
-    col, val = _ell(rng, n_rows, n_rows, width)
+    col, val = _ell(rng, n_rows, n_rows, width, density)
     x, b = (rng.normal(size=n_rows).astype(np.float32) for _ in range(2))
     deg = np.abs(rng.normal(size=n_rows)).astype(np.float32)
     deg[::7] = 0.0
     C, V, X, B, D = (_t(a).cuda() for a in (col, val, x, b, deg))
-    torch.testing.assert_close(spmv_ell(C, V, X), spmv_ell_ref(C, V, X),
+    y = spmv_ell(C, V, X)
+    torch.testing.assert_close(y, spmv_ell_ref(C, V, X), rtol=RTOL,
+                               atol=ATOL)
+    out = jacobi_step(C, V, X, B, D)
+    torch.testing.assert_close(out, jacobi_step_ref(C, V, X, B, D),
                                rtol=RTOL, atol=ATOL)
-    torch.testing.assert_close(jacobi_step(C, V, X, B, D),
-                               jacobi_step_ref(C, V, X, B, D),
-                               rtol=RTOL, atol=ATOL)
+    assert torch.equal(out[::7], X[::7])             # deg == 0: x, bit for bit
+    assert torch.equal(spmv_ell(C, V, X), y)         # repeat: bitwise equal
+    assert torch.equal(jacobi_step(C, V, X, B, D), out)
     sq = rng.integers(0, 4, (n_rows, width)).astype(np.int32)  # many ties
     state = rng.integers(0, 3, n_rows).astype(np.int32)     # 0 = Decided
     S, Q = _t(state).cuda(), _t(sq).cuda()
     got = vote_reduce(C, Q, S, levels=1 << 20)
     want = vote_reduce_ref(C, Q, S, levels=1 << 20)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_rows,width", [(300, 453), (1000, 700)])
+def test_cuda_rows_too_wide_to_stage_run_unstaged(n_rows, width):
+    """Past width 452 two stages of a tile do not fit in shared memory:
+    the plan stages nothing and the kernels read rows with plain loads.
+    Small integers make every sum exact, so any summation order gives the
+    plain version's bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    assert ell_tile_plan(width)[1:] == (0, 0)
+    rng = np.random.default_rng(width)
+    col, _ = _ell(rng, n_rows, n_rows, width)
+    val = rng.integers(-3, 4, (n_rows, width)).astype(np.float32)
+    x = rng.integers(-8, 9, n_rows).astype(np.float32)
+    b = rng.integers(-8, 9, n_rows).astype(np.float32)
+    deg = 2.0 ** rng.integers(-2, 6, n_rows).astype(np.float32)
+    deg[::5] = 0.0
+    C, V, X, B, D = (_t(a).cuda() for a in (col, val, x, b, deg))
+    s0, j0 = spmv_ell.launches, jacobi_step.launches
+    y, out = spmv_ell(C, V, X), jacobi_step(C, V, X, B, D)
+    assert (spmv_ell.launches, jacobi_step.launches) == (s0 + 1, j0 + 1)
+    assert torch.equal(y, spmv_ell_ref(C, V, X))
+    assert torch.equal(out, jacobi_step_ref(C, V, X, B, D))
+    assert torch.equal(out[::5], X[::5])
+
+
+@pytest.mark.cuda
+def test_cuda_misaligned_table_raises_and_launches_nothing():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n, w = 100, 3
+    buf = torch.zeros(n * w + 4, dtype=torch.int32, device="cuda")
+    col = buf[1:1 + n * w].view(n, w)                # 4 bytes off 16
+    val = torch.ones((n, w), device="cuda")
+    x = torch.ones(n, device="cuda")
+    s0, j0 = spmv_ell.launches, jacobi_step.launches
+    with pytest.raises(ValueError):
+        spmv_ell(col, val, x)
+    with pytest.raises(ValueError):
+        jacobi_step(col, val, x, x, x)
+    assert (spmv_ell.launches, jacobi_step.launches) == (s0, j0)
 
 
 @pytest.mark.cuda

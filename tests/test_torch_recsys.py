@@ -187,16 +187,18 @@ def test_deepfm_forward_and_loss_match_reference(carried):
 def test_fm_retrieval_scores_match_reference(carried, item_field):
     jc, tc, jp, tp, idx, _ = carried
     n = jc.vocab_per_field[item_field]
-    cand = np.concatenate([np.arange(n), [n + 50]]).astype(np.int32)
+    n_rows = jp["table"].shape[0]
+    off = int(jc.field_offsets()[item_field])
+    # candidates whose fused ids are -1, -V, -V - 1 (jnp.take wraps the
+    # first two and fills the third), the valid range and past the table
+    cand = np.concatenate([np.arange(n), [n + 50, n_rows - off],
+                           np.array([-1, -n_rows, -n_rows - 1]) - off])
+    cand = cand.astype(np.int32)
     got = td.fm_retrieval_scores(tc, tp, _t(idx[:1]), _t(cand), item_field)
     want = jd.fm_retrieval_scores(jc, jp, jnp.asarray(idx[:1]),
                                   jnp.asarray(cand), item_field)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **MODEL_TOL)
-    # a fused id below 0 scores 0 (take_fill); jnp.take wraps it instead
-    if item_field == 0:
-        neg = td.fm_retrieval_scores(tc, tp, _t(idx[:1]),
-                                     torch.tensor([-1], dtype=torch.int32))
-        assert neg.item() == 0.0
+    assert got[-1].item() == 0.0 and got[-2].item() != 0.0
 
 
 def test_deepfm_module_is_the_functional_path(carried):
