@@ -19,13 +19,25 @@ Phases, one line each (any failure exits non-zero):
              before and read just after, must be above 0.
 3. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes (spmv_ell and jacobi at rtol 1e-5 /
-             atol 1e-6, agg_vote bit-exact), with its time, the plain
+             atol 1e-6, agg_vote bit-exact), with its times, the plain
              version's, its bound, and for spmv_ell a
-             ``torch.sparse_csr_tensor`` product as a yardstick. Then
-             spmv_ell and jacobi at every ELL level of the main path: the
-             tile plan, time against bound, launches per solve at that
-             level (counted on the main path's last solve), a check
-             against the plain version and a bitwise repeat.
+             ``torch.sparse_csr_tensor`` product as a yardstick. Two
+             times per kernel: ``kernel_ms``, CUDA events over 20
+             back-to-back wrapper calls (the wrapper's host time included,
+             which is what such a call costs where the host is slower
+             than the kernel), and ``device_ms``, the kernel's own device
+             time per launch from ``torch.profiler`` over another 20
+             calls (``trace_solve.kernel_device_ms``); a record whose
+             profile shows no launch of its kernel fails. ``ms``,
+             ``of_bound`` and the launches × (time − bound) sums use
+             ``device_ms``. Then, as ``[levels]`` lines, spmv_ell and
+             jacobi at every ELL level of the main path (launches per
+             solve at that level, counted on the main path's last solve)
+             and agg_vote at every aggregation level of the main setup,
+             on the inputs of the setup's last vote at that level
+             (launches per setup): the tile plan, both times against the
+             bound, a check against the plain version and a bitwise
+             repeat.
 4. e2e     — the same path at n = 2^16 with the kernels and with the plain
              versions: identical levels, iteration counts within ±1 and
              ‖x_k − x_p‖/‖x_p‖ ≤ 1e-4.
@@ -42,8 +54,11 @@ Phases, one line each (any failure exits non-zero):
              rtol 1e-5 / atol 1e-5 and launch no kernel; 64 retrieval scores
              must match a float64 host computation. Then the kernels phase's
              ``embedding_bag`` record at the bulk batch's shapes (10,223,616
-             bags, hot 2, d 10), with ``F.embedding_bag`` as a yardstick, and
-             a case with the sentinel ids −2, −1, V and V + 3.
+             bags, hot 2, d 10; bitwise equal to the plain version), with
+             ``F.embedding_bag`` as a yardstick, the d = 1 ``first_order``
+             launch's device time, a case with the sentinel ids −2, −1, V
+             and V + 3, and an ids view that does not start on a 16-byte
+             boundary (``flat[1:]``), which must launch the kernel.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -97,8 +112,9 @@ def say(phase: str, **kw) -> None:
 
 
 def time_ms(torch, fn, reps: int = 20) -> float:
-    """Mean device time of one call, by CUDA events over ``reps`` calls
-    after a warm-up."""
+    """Mean time of one call, by CUDA events over ``reps`` back-to-back
+    calls after a warm-up: the device time where the device is the slower
+    side, the host's time per call where the host is."""
     for _ in range(3):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -112,6 +128,19 @@ def time_ms(torch, fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(torch, fn, kernel: str, reps: int = 20) -> float:
+    """The device time of one launch of ``kernel`` in ``fn`` (which launches
+    it once a call), from ``torch.profiler`` over ``reps`` calls: the mean
+    over the launches the profiler saw (it may miss one at the window's
+    start); fails if it saw none, or more than one a call."""
+    from repro_torch.trace_solve import kernel_device_ms
+
+    ms, count = kernel_device_ms(torch, fn, kernel, reps)
+    check(0 < count <= reps, f"{kernel}: the profiler saw {count} launches "
+          f"of its kernel in {reps} calls")
+    return ms
+
+
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -119,14 +148,15 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
 
 
 @contextlib.contextmanager
-def shapes_launched():
-    """Within the block, tally each float ELL kernel's calls by table
-    shape: yields {kernel: {(n_rows, width): calls}}. The wrapper is
+def shapes_launched(mods):
+    """Within the block, tally the calls of the ELL kernels of ``mods`` by
+    table shape: yields {kernel: {(n_rows, width): [calls, args, kw]}},
+    with the arguments of the last call at that shape. The wrapper is
     rebound to a function that counts and calls it, so its own launch
     count rises as before."""
     tally = {}
     saved = {}
-    for mod_name in SOLVER_KERNELS[:2]:       # spmv_ell, jacobi
+    for mod_name in mods:
         mod = importlib.import_module(mod_name)
         wrapper_name = WRAPPERS[mod_name][0]
         real = saved[mod_name] = getattr(mod, wrapper_name)
@@ -134,7 +164,8 @@ def shapes_launched():
 
         def counted(col, *args, _real=real, _counts=counts, **kw):
             key = tuple(col.shape)
-            _counts[key] = _counts.get(key, 0) + 1
+            calls = _counts[key][0] if key in _counts else 0
+            _counts[key] = [calls + 1, (col, *args), kw]
             return _real(col, *args, **kw)
 
         setattr(mod, wrapper_name, counted)
@@ -173,19 +204,24 @@ def launch_counts(mods=SOLVER_KERNELS) -> tuple:
                          WRAPPERS[m][0]).launches for m in mods)
 
 
-def kernel_record(name, launches, err, ms, plain_ms, bytes_moved, ops,
-                  library_ms=None) -> dict:
+def kernel_record(torch, name, launches, err, kernel, plain, bytes_moved,
+                  ops, library=None) -> dict:
     """One kernel's entry of the ``kernels`` JSON line, printed as it is
-    made."""
+    made: ``kernel``, ``plain`` and ``library`` are calls to time."""
     b_ms, b_by = bound(bytes_moved, ops)
-    say("kernels", name=name, max_abs_err=err, kernel_ms=ms,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=library_ms, bytes=int(bytes_moved))
+    k_ms, d_ms = time_ms(torch, kernel), device_ms(torch, kernel, name)
+    plain_ms = time_ms(torch, plain)
+    library_ms = time_ms(torch, library) if library else None
+    say("kernels", name=name, max_abs_err=err, kernel_ms=k_ms,
+        device_ms=d_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        of_bound=round(b_ms / d_ms, 4), library_ms=library_ms,
+        bytes=int(bytes_moved))
     return dict(name=name, route="cuda",
                 source=f"src/repro_torch/csrc/{name}.cu",
                 replaces=REPLACES[name], launches=launches,
-                max_abs_err=err, ms=ms, kernel_ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+                max_abs_err=err, ms=d_ms, kernel_ms=k_ms, device_ms=d_ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms)
 
 
 def graph(n: int, seed: int):
@@ -243,8 +279,9 @@ def phase_main(torch, np):
     spmv_ell.launches = jacobi_step.launches = vote_reduce.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    solver = LaplacianSolver.setup(n, r, c, v,
-                                   SetupConfig(matvec_backend="ell"))
+    with shapes_launched(SOLVER_KERNELS[2:]) as per_setup:     # agg_vote
+        solver = LaplacianSolver.setup(n, r, c, v,
+                                       SetupConfig(matvec_backend="ell"))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     for i, row in enumerate(solver.stats()["levels"]):
@@ -270,7 +307,7 @@ def phase_main(torch, np):
         check(rel <= 1e-4, f"solve {k}: host residual {rel:.3e} > 1e-4")
     x1, _ = solver.solve(first_b, tol=1e-6, maxiter=200)
     mark = (spmv_ell.launches, jacobi_step.launches)
-    with shapes_launched() as per_shape:
+    with shapes_launched(SOLVER_KERNELS[:2]) as per_shape:  # spmv, jacobi
         x2, info = solver.solve(first_b, tol=1e-6, maxiter=200)
     torch.cuda.synchronize()
     launches = dict(spmv_ell=spmv_ell.launches, jacobi=jacobi_step.launches,
@@ -280,18 +317,24 @@ def phase_main(torch, np):
         one_solve_iters=info.iters,
         one_solve_spmv_ell=spmv_ell.launches - mark[0],
         one_solve_jacobi=jacobi_step.launches - mark[1],
-        one_solve_by_shape=json.dumps({k: {f"{n}x{w}": c for (n, w), c
+        one_solve_by_shape=json.dumps({k: {f"{n}x{w}": c[0] for (n, w), c
                                            in v.items()}
-                                       for k, v in per_shape.items()}))
+                                       for k, v in per_shape.items()}),
+        setup_agg_vote_by_shape=json.dumps({
+            f"{n}x{w}": c[0] for (n, w), c in per_setup["agg_vote"].items()}))
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the main path")
     for name, mod, start in (("spmv_ell", spmv_ell, mark[0]),
                              ("jacobi", jacobi_step, mark[1])):
-        tallied = sum(per_shape[name].values())
+        tallied = sum(c[0] for c in per_shape[name].values())
         check(tallied == mod.launches - start,
               f"{name}: {tallied} calls tallied by shape, "
               f"{mod.launches - start} launches in the same solve")
-    return solver, launches, per_shape
+    tallied = sum(c[0] for c in per_setup["agg_vote"].values())
+    check(tallied == launches["agg_vote"],
+          f"agg_vote: {tallied} calls tallied by shape, "
+          f"{launches['agg_vote']} launches in the setup")
+    return solver, launches, {**per_shape, **per_setup}
 
 
 def phase_kernels(torch, np, solver, launches):
@@ -310,7 +353,8 @@ def phase_kernels(torch, np, solver, launches):
     records = []
 
     def record(name, *args, **kw):
-        records.append(kernel_record(name, launches[name], *args, **kw))
+        records.append(kernel_record(torch, name, launches[name], *args,
+                                     **kw))
 
     # spmv_ell: the finest level's ELL table (every PCG matvec)
     top = solver.hierarchy.transfers[0].fine
@@ -330,10 +374,9 @@ def phase_kernels(torch, np, solver, launches):
         csr = torch.sparse_csr_tensor(crow, col[real].long(), val[real],
                                       (n, n), check_invariants=False)
     record("spmv_ell", (y - y_ref).abs().max().item(),
-           time_ms(torch, lambda: spmv_ell(col, val, x)),
-           time_ms(torch, lambda: spmv_ell_ref(col, val, x)),
+           lambda: spmv_ell(col, val, x), lambda: spmv_ell_ref(col, val, x),
            8 * n * w + 4 * n + 4 * n, 2 * int(real.sum()),
-           library_ms=time_ms(torch, lambda: torch.mv(csr, x)))
+           library=lambda: torch.mv(csr, x))
 
     # jacobi: the first aggregation level's ELL table (its smoothing sweeps)
     agg = next(t for t in solver.hierarchy.transfers
@@ -351,8 +394,8 @@ def phase_kernels(torch, np, solver, launches):
           "jacobi disagrees with its plain version")
     check(torch.equal(out[::97], x[::97]), "jacobi changed a deg == 0 row")
     record("jacobi", (out - out_ref).abs().max().item(),
-           time_ms(torch, lambda: jacobi_step(col, val, x, b, deg)),
-           time_ms(torch, lambda: jacobi_step_ref(col, val, x, b, deg)),
+           lambda: jacobi_step(col, val, x, b, deg),
+           lambda: jacobi_step_ref(col, val, x, b, deg),
            8 * n * w + 16 * n, 2 * int((col < n).sum()) + 6 * n)
 
     # agg_vote: the first aggregation level's vote layout (width 8) with its
@@ -380,10 +423,9 @@ def phase_kernels(torch, np, solver, launches):
                and (ei == torch.iinfo(torch.int32).max).all()),
           "agg_vote width 0 is not the identity")
     record("agg_vote", err,
-           time_ms(torch, lambda: vote_reduce(col, sq, state,
-                                              levels=cfg.strength_levels)),
-           time_ms(torch, lambda: vote_reduce_ref(
-               col, sq, state, levels=cfg.strength_levels)),
+           lambda: vote_reduce(col, sq, state, levels=cfg.strength_levels),
+           lambda: vote_reduce_ref(col, sq, state,
+                                   levels=cfg.strength_levels),
            8 * n * w + 4 * n + 8 * n, 4 * int((col < n).sum()))
     after = (spmv_ell.launches, jacobi_step.launches, vote_reduce.launches)
     check(all(a > b for a, b in zip(after, before)),
@@ -392,19 +434,42 @@ def phase_kernels(torch, np, solver, launches):
 
 
 def phase_levels(torch, solver, per_shape) -> None:
-    """spmv_ell and jacobi at every ELL level where the main path runs
-    them: tile plan, time against bound, and launches per solve at that
-    level (``per_shape``, from the main path's last solve); each checked
-    against its plain version and for a bitwise repeat."""
+    """spmv_ell and jacobi at every ELL level where the main path's last
+    solve ran them, agg_vote at every aggregation level where its setup
+    did (``per_shape``, from ``phase_main``): tile plan, both times against
+    the bound, and launches per solve or per setup at that level; each
+    checked against its plain version and for a bitwise repeat."""
     from repro_torch.kernels import ell_tile_plan
+    from repro_torch.kernels.agg_vote import vote_reduce, vote_reduce_ref
     from repro_torch.kernels.jacobi import jacobi_step, jacobi_step_ref
     from repro_torch.kernels.spmv_ell import spmv_ell, spmv_ell_ref
 
     ts = solver.hierarchy.transfers
     levels = [t.fine for t in ts] + [ts[-1].coarse] if ts else []
     gen = torch.Generator(device=solver.device).manual_seed(1)
-    gap = {"spmv_ell": 0.0, "jacobi": 0.0}
-    measured = {"spmv_ell": 0, "jacobi": 0}
+    gap = {"spmv_ell": 0.0, "jacobi": 0.0, "agg_vote": 0.0}
+    measured = {"spmv_ell": 0, "jacobi": 0, "agg_vote": 0}
+
+    def line(name, i, n, w, kernel, plain, same, bytes_moved, ops, calls,
+             unit):
+        got, want = kernel(), plain()
+        again = kernel()
+        torch.cuda.synchronize()
+        check(same(got, want),
+              f"{name} disagrees with its plain version at level {i}")
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"{name} is not bitwise repeatable at level {i}")
+        k_ms, d_ms = time_ms(torch, kernel), device_ms(torch, kernel, name)
+        b_ms, b_by = bound(bytes_moved, ops)
+        gap[name] += calls * (d_ms - b_ms)
+        measured[name] += 1
+        say("levels", kernel=name, level=i, n=n, width=w,
+            plan=json.dumps(ell_tile_plan(w)), kernel_ms=k_ms,
+            device_ms=d_ms, bound_ms=b_ms, bound_by=b_by,
+            of_bound=round(b_ms / d_ms, 4), **{f"launches_per_{unit}": calls},
+            max_abs_err=max(float((g.double() - r.double()).abs().max())
+                            for g, r in zip(got, want)))
+
     for i, level in enumerate(levels):
         ell = getattr(level, "ell", None)
         if ell is None or ell.width == 0:
@@ -415,36 +480,39 @@ def phase_levels(torch, solver, per_shape) -> None:
         b = torch.randn(n, generator=gen, device=solver.device)
         real = int((col < ell.n_cols).sum())
         runs = {
-            "spmv_ell": (lambda: spmv_ell(col, val, x),
-                         lambda: spmv_ell_ref(col, val, x),
+            "spmv_ell": (lambda: (spmv_ell(col, val, x),),
+                         lambda: (spmv_ell_ref(col, val, x),),
                          8 * n * w + 4 * ell.n_cols + 4 * n, 2 * real),
-            "jacobi": (lambda: jacobi_step(col, val, x, b, level.deg),
-                       lambda: jacobi_step_ref(col, val, x, b, level.deg),
+            "jacobi": (lambda: (jacobi_step(col, val, x, b, level.deg),),
+                       lambda: (jacobi_step_ref(col, val, x, b, level.deg),),
                        8 * n * w + 16 * n, 2 * real + 6 * n),
         }
         for name, (kernel, plain, bytes_moved, ops) in runs.items():
-            calls = per_shape[name].get((n, w), 0)
+            calls = per_shape[name].get((n, w), [0])[0]
             if calls == 0:                 # not run at this level
                 continue
-            got, want = kernel(), plain()
-            again = kernel()
-            torch.cuda.synchronize()
-            check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
-                  f"{name} disagrees with its plain version at level {i}")
-            check(torch.equal(got, again),
-                  f"{name} is not bitwise repeatable at level {i}")
-            ms = time_ms(torch, kernel)
-            b_ms, b_by = bound(bytes_moved, ops)
-            gap[name] += calls * (ms - b_ms)
-            measured[name] += 1
-            say("levels", kernel=name, level=i, n=n, width=w,
-                plan=json.dumps(ell_tile_plan(w)), kernel_ms=ms,
-                bound_ms=b_ms, bound_by=b_by,
-                of_bound=round(b_ms / ms, 4), launches_per_solve=calls,
-                max_abs_err=float((got - want).abs().max()))
+            line(name, i, n, w, kernel, plain,
+                 lambda g, r: torch.allclose(g[0], r[0], rtol=1e-5,
+                                             atol=1e-6),
+                 bytes_moved, ops, calls, "solve")
+    sizes = [lv.n for lv in levels]
+    for (n, w), (calls, args, kw) in sorted(
+            per_shape["agg_vote"].items(), reverse=True):
+        col, sq, state = args
+        n_cols = state.shape[0]
+        real = int(((col >= 0) & (col < n_cols)).sum())
+        line("agg_vote", sizes.index(n) if n in sizes else -1, n, w,
+             lambda: vote_reduce(*args, **kw),
+             lambda: vote_reduce_ref(*args, **kw),
+             lambda g, r: all(torch.equal(a, b) for a, b in zip(g, r)),
+             8 * n * w + 4 * n_cols + 8 * n, 4 * real, calls,
+             "setup")
     for name, count in measured.items():
-        check(count > 0, f"{name}: no ELL level of the main path measured")
-    say("levels", launches_x_gap_ms_per_solve=json.dumps(gap))
+        check(count > 0, f"{name}: no level of the main path measured")
+    say("levels", launches_x_gap_ms=json.dumps(
+        dict(spmv_ell_per_solve=gap["spmv_ell"],
+             jacobi_per_solve=gap["jacobi"],
+             agg_vote_per_setup=gap["agg_vote"])))
 
 
 def phase_e2e(torch, np):
@@ -609,19 +677,19 @@ def phase_kernels_deepfm(torch, model, flat, launches):
                                                    embedding_bag_ref)
 
     table = model.table.detach()
+    w1 = model.first_order.detach()
     n_vocab, d = table.shape
     n_bags, hot = flat.shape
     before = embedding_bag_kernel.launches
-    got, want = embedding_bag_kernel(table, flat), embedding_bag_ref(table,
-                                                                     flat)
-    w1 = model.first_order.detach()
-    got1, want1 = embedding_bag_kernel(w1, flat), embedding_bag_ref(w1, flat)
-    torch.cuda.synchronize()
-    err = max(float((got - want).abs().max()),
-              float((got1 - want1).abs().max()))
-    check(torch.allclose(got, want, rtol=1e-6, atol=1e-6)
-          and torch.allclose(got1, want1, rtol=1e-6, atol=1e-6),
-          "embedding_bag disagrees with its plain version")
+    err = 0.0
+    for name, t in (("table", table), ("first_order", w1)):
+        got, want = embedding_bag_kernel(t, flat), embedding_bag_ref(t, flat)
+        torch.cuda.synchronize()
+        err = max(err, float((got - want).abs().max()))
+        check(torch.equal(got, want), f"embedding_bag on the {name} is not "
+              "bitwise equal to its plain version")
+        check(torch.equal(embedding_bag_kernel(t, flat), got),
+              f"embedding_bag on the {name} is not bitwise repeatable")
 
     # sentinel ids: −2, −1, V (the reference's pad row) and V + 3
     sent = flat[:100_003].clone()
@@ -629,34 +697,53 @@ def phase_kernels_deepfm(torch, model, flat, launches):
     bad = torch.tensor([-2, -1, n_vocab, n_vocab + 3], dtype=torch.int32,
                        device=sent.device)
     sent.view(-1)[pos] = bad[torch.arange(len(pos), device=sent.device) % 4]
+    sent[:7] = bad[:2]                     # bags of sentinels alone sum to 0
     s_got, s_want = (embedding_bag_kernel(table, sent),
                      embedding_bag_ref(table, sent))
+    # an ids view 8 bytes past a 16-byte boundary: read with plain loads
+    k0 = embedding_bag_kernel.launches
+    view = flat[1:]
+    u_got, u_want = (embedding_bag_kernel(table, view),
+                     embedding_bag_ref(table, view))
+    check(embedding_bag_kernel.launches == k0 + 1 and view.data_ptr() % 16,
+          "embedding_bag did not launch on an unaligned ids view")
     empty = flat[:1000, :0]
     k0 = embedding_bag_kernel.launches
     e_got = embedding_bag_kernel(table, empty)
     torch.cuda.synchronize()
-    check(torch.allclose(s_got, s_want, rtol=1e-6, atol=1e-6),
+    check(torch.equal(s_got, s_want) and not s_got[:7].any(),
           "embedding_bag disagrees with its plain version on sentinel ids")
+    check(torch.equal(u_got, u_want),
+          "embedding_bag disagrees with its plain version on an unaligned "
+          "ids view")
     check(embedding_bag_kernel.launches == k0 and not e_got.any(),
           "embedding_bag at hot 0 launched or did not return zeros")
-    say("kernels", name="embedding_bag", bit_exact=bool(
-        torch.equal(got, want) and torch.equal(got1, want1)),
-        sentinel_max_abs=float((s_got - s_want).abs().max()))
+    say("kernels", name="embedding_bag", bit_exact=True,
+        sentinel_max_abs=float((s_got - s_want).abs().max()),
+        unaligned_view_max_abs=float((u_got - u_want).abs().max()))
 
     valid = (flat >= 0) & (flat < n_vocab)
     distinct = int(torch.unique(flat[valid]).numel())
     padded = torch.cat([table, table.new_zeros((1, d))])   # yardstick only
     mapped = torch.where(valid, flat, n_vocab)
     rec = kernel_record(
-        "embedding_bag", launches, err,
-        time_ms(torch, lambda: embedding_bag_kernel(table, flat)),
-        time_ms(torch, lambda: embedding_bag_ref(table, flat)),
+        torch, "embedding_bag", launches, err,
+        lambda: embedding_bag_kernel(table, flat),
+        lambda: embedding_bag_ref(table, flat),
         4 * n_bags * hot + 4 * n_bags * d + 4 * d * distinct,
         n_bags * hot * d,
-        library_ms=time_ms(torch, lambda: F.embedding_bag(
-            mapped, padded, mode="sum", padding_idx=n_vocab)))
+        library=lambda: F.embedding_bag(mapped, padded, mode="sum",
+                                        padding_idx=n_vocab))
     say("kernels", name="embedding_bag", bags=n_bags, hot=hot, d=d,
         vocab=n_vocab, distinct_valid_ids=distinct)
+    # the d = 1 first-order launch of every forward, at the same ids
+    fo = lambda: embedding_bag_kernel(w1, flat)            # noqa: E731
+    b_ms, b_by = bound(4 * n_bags * hot + 4 * n_bags + 4 * distinct,
+                       n_bags * hot)
+    d_ms = device_ms(torch, fo, "embedding_bag")
+    say("kernels", name="embedding_bag", shape="first_order", d=1,
+        kernel_ms=time_ms(torch, fo), device_ms=d_ms, bound_ms=b_ms,
+        bound_by=b_by, of_bound=round(b_ms / d_ms, 4))
     check(embedding_bag_kernel.launches > before,
           "embedding_bag was not launched in the comparison phase")
     return rec

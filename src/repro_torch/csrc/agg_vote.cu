@@ -13,18 +13,24 @@
 // tables once (8 bytes a slot), gathers state, and writes two int32 per
 // row; the integer work is a multiply-add and two compares a slot.
 //
-// Design: the row loop of ell_rows.cuh, with state gathered through L2.
-// Each lane keeps a running lexicographic best (key, id) with the
-// reference's update rule (larger key, or equal key and smaller id), and
-// the butterfly merges the lanes with the same rule. The merge is exact
-// because the integer ⊕ is associative and commutative: the result is
-// bit-exact whatever the lane split. Padding and Decided neighbours are
-// tested in the kernel (on the gathered state, not only on col), so no
-// sentinel slot is appended to state and no padding rows are added.
+// Design: the TMA-staged row tiles of ell_tiles.cuh, with sq in the place
+// of val (4 bytes a slot, so the float kernels' tile plan applies as it
+// is). One consumer thread per row reads a pass of P slots from shared
+// memory and issues all P gathers of state (2.8 MB at 699,024 rows; it
+// stays in L2) before it merges any of them, keeping the lexicographic
+// best in registers with the reference's rule (larger key, or equal key
+// and smaller id). The ⊕ is associative and commutative, so a row may
+// start at any slot: the thread at tile position r starts each pass at
+// rotation(r, g) and wraps around, which spreads a warp's shared-memory
+// reads over the banks (at width 8 the rows are 8 words apart) with no
+// shifter back, and the result is bit-exact whatever the order. Padding
+// and Decided neighbours are tested in the kernel (on the gathered state,
+// not only on col), so no sentinel slot is appended to state and no
+// padding rows are added.
 
 #include <climits>
 
-#include "ell_rows.cuh"
+#include "ell_tiles.cuh"
 
 namespace {
 
@@ -33,28 +39,51 @@ __device__ __forceinline__ void lex_merge(int2& best, int2 kv) {
   if (kv.x > best.x || (kv.x == best.x && kv.y < best.y)) best = kv;
 }
 
-template <int G>
-__global__ void __launch_bounds__(ell_rows::kBlock)
-vote_kernel(const int* __restrict__ col, const int* __restrict__ sq,
-            const int* __restrict__ state, int* __restrict__ best_key,
-            int* __restrict__ best_id, int n_rows, int width, int n_cols,
-            int levels, int decided) {
-  const ell_rows::RowGroup<G> g;
-  int2 best = make_int2(INT_MIN, INT_MAX);
-  ell_rows::for_each_slot<G>(col, g, n_rows, width, n_cols,
-                             [&](long long i, int c) {
-                               const int s = __ldg(state + c);
-                               if (s != decided) {
-                                 lex_merge(best, make_int2(
-                                     s * (levels + 2) + __ldg(sq + i), c));
-                               }
-                             });
-  ell_rows::merge_lanes<G>(best, [](int2& a, int2 o) { lex_merge(a, o); });
-  if (g.lane == 0 && g.row < n_rows) {
-    best_key[g.row] = best.x;
-    best_id[g.row] = best.y;
+template <int P>
+struct VoteRow {
+  using Val = int;
+  const int* state;
+  int n_cols;
+  int levels;
+  int decided;
+  int g;  // ell_tiles::bank_group(width)
+  __device__ __forceinline__ int2 operator()(const int* c, const int* q,
+                                             int width, int r) const {
+    const int rot = ell_tiles::rotation(r, g);  // < g <= P
+    int2 best = identity();
+    for (int k0 = 0; k0 < width; k0 += P) {
+      int cc[P], qq[P], s[P];
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const int k = k0 + ((j + rot) & (P - 1));
+        cc[j] = k < width ? c[k] : -1;
+        qq[j] = k < width ? q[k] : 0;
+        s[j] = static_cast<unsigned>(cc[j]) < static_cast<unsigned>(n_cols)
+                   ? __ldg(state + cc[j])
+                   : decided;
+      }
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        if (s[j] != decided) {
+          lex_merge(best, make_int2(s[j] * (levels + 2) + qq[j], cc[j]));
+        }
+      }
+    }
+    return best;
   }
-}
+  __device__ __forceinline__ static int2 identity() {
+    return make_int2(INT_MIN, INT_MAX);
+  }
+};
+
+struct StoreVote {
+  int* best_key;
+  int* best_id;
+  __device__ __forceinline__ void operator()(long long r, int2 best) const {
+    best_key[r] = best.x;
+    best_id[r] = best.y;
+  }
+};
 
 }  // namespace
 
@@ -62,17 +91,18 @@ extern "C" int repro_agg_vote_i32(const void* col, const void* sq,
                                   const void* state, void* best_key,
                                   void* best_id, int n_rows, int width,
                                   int n_cols, int levels, int decided,
-                                  void* stream) {
+                                  int rows_per_tile, int stages,
+                                  int smem_bytes, void* stream) {
   const int* c = static_cast<const int*>(col);
   const int* q = static_cast<const int*>(sq);
   const int* st = static_cast<const int*>(state);
-  int* k = static_cast<int*>(best_key);
-  int* i = static_cast<int*>(best_id);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  ell_rows::dispatch_width(n_rows, width, [&](auto group, unsigned grid) {
-    constexpr int G = decltype(group)::value;
-    vote_kernel<G><<<grid, ell_rows::kBlock, 0, s>>>(
-        c, q, st, k, i, n_rows, width, n_cols, levels, decided);
+  const StoreVote epi{static_cast<int*>(best_key), static_cast<int*>(best_id)};
+  const int g = ell_tiles::bank_group(width);
+  return ell_tiles::dispatch_width(width, [&](auto lanes) {
+    constexpr int P = decltype(lanes)::value;
+    return ell_tiles::launch_kernel(
+        c, q, n_rows, width, rows_per_tile, stages, smem_bytes,
+        VoteRow<P>{st, n_cols, levels, decided, g}, epi,
+        static_cast<cudaStream_t>(stream));
   });
-  return static_cast<int>(cudaGetLastError());
 }

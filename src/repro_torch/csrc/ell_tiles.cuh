@@ -1,10 +1,13 @@
-// The row loop of the port's float ELL kernels (spmv_ell, jacobi) for
+// The row loop of the port's ELL kernels (spmv_ell, jacobi, agg_vote) for
 // Hopper (sm_90a): TMA-staged row tiles, one consumer thread per row.
 //
-// Layout: a [n_rows, width] row-major pair of tables, int32 col and
-// float32 val, whose slots with a column outside [0, n_cols) are padding.
+// Layout: a [n_rows, width] row-major pair of tables, int32 col and a
+// 4-byte payload (float32 val for the float kernels, int32 sq for
+// agg_vote), whose slots with a column outside [0, n_cols) are padding.
 // Because the tables are row-major, the rows [t·R, (t+1)·R) of tile t are
-// one contiguous run of R·width·4 bytes in each table.
+// one contiguous run of R·width·4 bytes in each table. What a row
+// computes is a template parameter (Row): SumRow below for the float
+// kernels, the vote's ⊕ in agg_vote.cu.
 //
 // Design (what bounds these kernels is bytes: the two tables are read
 // once, 8 bytes a slot, against 2 flops a slot):
@@ -22,7 +25,7 @@
 //   row's slots from shared memory in passes of P (P = min(last_pow2(w),
 //   32)) and issues a pass's gathers of x (through L2, __ldg; x does not
 //   fit in shared memory) before it adds any of them: P loads in flight
-//   per thread, no shuffle.
+//   per thread, no shuffle. (The float kernels; agg_vote's row is alike.)
 // - Summation order: the rounded products are added in the order of
 //   PyTorch's row sum on the card (row_sum), which the plain version uses:
 //   at widths ≤ 128 the kernel and the plain version round alike, which
@@ -53,87 +56,15 @@
 
 #pragma once
 
-#include <cuda_runtime.h>
+#include <type_traits>
 
-#include <cstdint>
+#include "bulk_copy.cuh"
 
 namespace ell_tiles {
 
 constexpr int kMaxThreads = 256;   // consumer threads of a block
 constexpr int kMaxStages = 8;
 constexpr int kWarp = 32;
-// a wait longer than this many SM clocks (~10 s) is a broken pipeline:
-// trap, so the launch fails instead of hanging the card
-constexpr long long kSpinClocks = 1ll << 34;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
-                   smem_addr(bar)),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
-                                               uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
-                                              uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(smem_addr(bar)), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait until the phase of parity `parity` of `bar` has completed.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long t0 = clock64();
-  while (!mbar_try_wait(bar, parity)) {
-    if (clock64() - t0 > kSpinClocks) __trap();
-  }
-}
-
-// An L2 policy that evicts the streamed tables first, so that the
-// gathered x (4 MB at n = 2^20) stays in L2 while 160–200 MB of tables
-// pass through it.
-__device__ __forceinline__ uint64_t evict_first_policy() {
-  uint64_t policy;
-  asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
-               : "=l"(policy));
-  return policy;
-}
-
-// Bulk copy of `bytes` (a multiple of 16; both addresses 16-B aligned)
-// from global to shared memory, completing on `bar`'s transaction count.
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar,
-                                          uint64_t policy) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".L2::cache_hint [%0], [%1], %2, [%3], %4;\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar)), "l"(policy)
-      : "memory");
-}
 
 // a ? x : y as one selp, in PTX so that the compiler keeps the barrel
 // shifter below in registers.
@@ -255,49 +186,79 @@ __device__ __forceinline__ int rotation(int row_in_tile, int g) {
   return ((row_in_tile & 31) * g) >> 5;
 }
 
-// epi(row, acc) is called once for every row with the row's sum.
-template <int P, bool kRotate, class Epi>
+// The float kernels' per-row work: the row's Σ val · x[col] in PyTorch's
+// order (row_sum), read with the rotation that the width's bank group
+// asks for. Width 0 sums nothing.
+template <int P, bool kRotate>
+struct SumRow {
+  using Val = float;
+  const float* x;
+  int n_cols;
+  int g;  // bank_group(width)
+  __device__ __forceinline__ float operator()(const int* c, const float* v,
+                                              int width, int r) const {
+    return row_sum<P, kRotate>(c, v, width, rotation(r, g), g, x, n_cols);
+  }
+  __device__ __forceinline__ static float identity() { return 0.0f; }
+};
+
+// The unstaged rows' call of row(): not inlined, so that the kernel holds
+// one inlined copy of the unrolled row loop, the staged path's. With both
+// copies inlined, jacobi at width 34 and both kernels at width 64 ran 2–11 %
+// slower on an H100 (PERF.md).
+template <class Row>
+__device__ __noinline__ auto unstaged_row(const Row& row, const int* c,
+                                          const typename Row::Val* v,
+                                          int width, int r) {
+  return row(c, v, width, r);
+}
+
+// row(c, v, width, r) is a row's result from its slots c[0 .. width) and
+// v[0 .. width) (in shared memory for a staged tile, in global memory
+// otherwise), r its position in its tile; Row::identity() is a row's
+// result at width 0. epi(row, result) is called once for every row.
+template <class Row, class Epi>
 __global__ void __launch_bounds__(kMaxThreads + kWarp)
-tiles_kernel(const int* __restrict__ col, const float* __restrict__ val,
-             const float* __restrict__ x, int n_rows, int width, int n_cols,
-             int rows_per_tile, int stages, Epi epi) {
+tiles_kernel(const int* __restrict__ col,
+             const typename Row::Val* __restrict__ val, int n_rows,
+             int width, int rows_per_tile, int stages, Row row, Epi epi) {
+  using Val = typename Row::Val;
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t full[kMaxStages];
   __shared__ __align__(8) uint64_t empty[kMaxStages];
 
   const int n_consumers = blockDim.x - kWarp;
-  const int g = bank_group(width);
   const int rows = rows_per_tile;
   const long long tile_slots = static_cast<long long>(rows) * width;
   const bool staged = width > 0 && stages > 0;
   const int n_full = n_rows / rows;
   const int n_tiles = (n_rows + rows - 1) / rows;
   int* s_col = reinterpret_cast<int*>(smem);
-  float* s_val = reinterpret_cast<float*>(smem + stages * tile_slots * 4);
+  Val* s_val = reinterpret_cast<Val*>(smem + stages * tile_slots * 4);
 
   if (threadIdx.x == 0 && staged) {
     for (int s = 0; s < stages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], n_consumers / kWarp);
+      bulk::mbar_init(&full[s], 1);
+      bulk::mbar_init(&empty[s], n_consumers / kWarp);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    bulk::fence_mbar_init();
   }
   __syncthreads();
 
   if (threadIdx.x >= n_consumers) {  // the producer warp
     if (threadIdx.x == n_consumers && staged) {
       const uint32_t bytes = static_cast<uint32_t>(tile_slots * 4);
-      const uint64_t policy = evict_first_policy();
+      const uint64_t policy = bulk::evict_first_policy();
       int stage = 0;
       uint32_t phase = 0;
       for (int t = blockIdx.x; t < n_full; t += gridDim.x) {
-        mbar_wait(&empty[stage], phase ^ 1);
-        mbar_expect_tx(&full[stage], 2 * bytes);
+        bulk::mbar_wait(&empty[stage], phase ^ 1);
+        bulk::mbar_expect_tx(&full[stage], 2 * bytes);
         const long long off = static_cast<long long>(t) * tile_slots;
-        bulk_load(s_col + stage * tile_slots, col + off, bytes, &full[stage],
-                  policy);
-        bulk_load(s_val + stage * tile_slots, val + off, bytes, &full[stage],
-                  policy);
+        bulk::bulk_load(s_col + stage * tile_slots, col + off, bytes,
+                        &full[stage], policy);
+        bulk::bulk_load(s_val + stage * tile_slots, val + off, bytes,
+                        &full[stage], policy);
         if (++stage == stages) {
           stage = 0;
           phase ^= 1;
@@ -313,16 +274,15 @@ tiles_kernel(const int* __restrict__ col, const float* __restrict__ val,
   for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const long long row0 = static_cast<long long>(t) * rows;
     if (staged && t < n_full) {
-      mbar_wait(&full[stage], phase);
+      bulk::mbar_wait(&full[stage], phase);
       const int* c = s_col + stage * tile_slots;
-      const float* v = s_val + stage * tile_slots;
+      const Val* v = s_val + stage * tile_slots;
       for (int r = tid; r < rows; r += n_consumers) {
         const int o = r * width;
-        epi(row0 + r, row_sum<P, kRotate>(c + o, v + o, width,
-                                          rotation(r, g), g, x, n_cols));
+        epi(row0 + r, row(c + o, v + o, width, r));
       }
       __syncwarp();
-      if (tid % kWarp == 0) mbar_arrive(&empty[stage]);
+      if (tid % kWarp == 0) bulk::mbar_arrive(&empty[stage]);
       if (++stage == stages) {
         stage = 0;
         phase ^= 1;
@@ -330,22 +290,21 @@ tiles_kernel(const int* __restrict__ col, const float* __restrict__ val,
     } else {  // the ragged last tile, width 0 or no stages: plain loads
       for (int r = tid; r < rows && row0 + r < n_rows; r += n_consumers) {
         const long long o = (row0 + r) * width;
-        epi(row0 + r, width > 0
-                          ? row_sum<P, kRotate>(col + o, val + o, width,
-                                                rotation(r, g), g, x, n_cols)
-                          : 0.0f);
+        epi(row0 + r,
+            width > 0 ? unstaged_row(row, col + o, val + o, width, r)
+                      : Row::identity());
       }
     }
   }
 }
 
-// Checks the plan, sets the kernel's shared-memory limit (once per
-// instantiation) and launches a persistent grid: the blocks that fit on
+// Checks the plan and launches a persistent grid: the blocks that fit on
 // the card at once, at most one per tile. Returns a cudaError_t.
-template <int P, bool kRotate, class Epi>
-int launch_kernel(const int* col, const float* val, const float* x,
-                  int n_rows, int width, int n_cols, int rows_per_tile,
-                  int stages, int smem_bytes, Epi epi, cudaStream_t stream) {
+template <class Row, class Epi>
+int launch_kernel(const int* col, const typename Row::Val* val, int n_rows,
+                  int width, int rows_per_tile, int stages, int smem_bytes,
+                  Row row, Epi epi, cudaStream_t stream) {
+  static_assert(sizeof(typename Row::Val) == 4, "4-byte table slots");
   if (n_rows <= 0) return cudaSuccess;
   const int threads =
       rows_per_tile < kMaxThreads ? rows_per_tile : kMaxThreads;
@@ -357,77 +316,49 @@ int launch_kernel(const int* col, const float* val, const float* x,
       smem_bytes != stages * tile_bytes || (width == 0 && stages != 0)) {
     return cudaErrorInvalidValue;
   }
-  auto* kern = tiles_kernel<P, kRotate, Epi>;
-  static const cudaError_t attr = [&] {
-    int dev = 0, optin = 0;
-    cudaFuncAttributes fa;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&optin,
-                                 cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (e == cudaSuccess) e = cudaFuncGetAttributes(&fa, kern);
-    if (e == cudaSuccess)
-      e = cudaFuncSetAttribute(kern,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin - static_cast<int>(fa.sharedSizeBytes));
-    return e;
-  }();
-  if (attr != cudaSuccess) return attr;
-  // blocks that fit on the card at once, kept for the last (device,
-  // block shape) this instantiation was launched with
-  static int last_dev = -1, last_threads = -1, last_smem = -1;
-  static long long fit = 0;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  if (dev != last_dev || threads != last_threads || smem_bytes != last_smem) {
-    int sms = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e == cudaSuccess)
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, kern, threads + kWarp, smem_bytes);
-    if (e != cudaSuccess) return e;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    fit = static_cast<long long>(per_sm) * sms;
-    last_dev = dev;
-    last_threads = threads;
-    last_smem = smem_bytes;
-  }
   const long long n_tiles = (n_rows + rows_per_tile - 1) / rows_per_tile;
-  const unsigned grid = static_cast<unsigned>(n_tiles < fit ? n_tiles : fit);
-  kern<<<grid, threads + kWarp, smem_bytes, stream>>>(
-      col, val, x, n_rows, width, n_cols, rows_per_tile, stages, epi);
+  unsigned grid = 0;
+  const cudaError_t e = bulk::persistent_grid<tiles_kernel<Row, Epi>>(
+      threads + kWarp, smem_bytes, n_tiles, &grid);
+  if (e != cudaSuccess) return e;
+  tiles_kernel<Row, Epi><<<grid, threads + kWarp, smem_bytes, stream>>>(
+      col, val, n_rows, width, rows_per_tile, stages, row, epi);
   return cudaGetLastError();
 }
 
-// Picks the lane count P = min(last_pow2(width), 32) of row_sum, and the
-// read rotation where the width's bank group asks for one, and launches
-// (width 0 sums nothing).
+// Calls launch(std::integral_constant<int, P>{}) with the lane count
+// P = min(last_pow2(width), 32) of a row's passes.
+template <class Launch>
+int dispatch_width(int width, Launch&& launch) {
+  if (width < 2) return launch(std::integral_constant<int, 1>{});
+  if (width < 4) return launch(std::integral_constant<int, 2>{});
+  if (width < 8) return launch(std::integral_constant<int, 4>{});
+  if (width < 16) return launch(std::integral_constant<int, 8>{});
+  if (width < 32) return launch(std::integral_constant<int, 16>{});
+  return launch(std::integral_constant<int, 32>{});
+}
+
+// The float kernels: picks the lane count of row_sum, and the read
+// rotation where the width's bank group asks for one (from P = 4 up), and
+// launches (width 0 sums nothing).
 template <class Epi>
 int launch(const int* col, const float* val, const float* x, int n_rows,
            int width, int n_cols, int rows_per_tile, int stages,
            int smem_bytes, Epi epi, cudaStream_t stream) {
-#define ELL_TILES_LAUNCH(P, R)                                           \
-  return launch_kernel<P, R>(col, val, x, n_rows, width, n_cols,         \
-                             rows_per_tile, stages, smem_bytes, epi, stream)
-  if (width < 2) ELL_TILES_LAUNCH(1, false);
-  if (width < 4) ELL_TILES_LAUNCH(2, false);
-  const bool rotate = bank_group(width) > 1;
-  if (width < 8) {
-    if (rotate) ELL_TILES_LAUNCH(4, true);
-    ELL_TILES_LAUNCH(4, false);
-  }
-  if (width < 16) {
-    if (rotate) ELL_TILES_LAUNCH(8, true);
-    ELL_TILES_LAUNCH(8, false);
-  }
-  if (width < 32) {
-    if (rotate) ELL_TILES_LAUNCH(16, true);
-    ELL_TILES_LAUNCH(16, false);
-  }
-  if (rotate) ELL_TILES_LAUNCH(32, true);
-  ELL_TILES_LAUNCH(32, false);
-#undef ELL_TILES_LAUNCH
+  const int g = bank_group(width);
+  return dispatch_width(width, [&](auto lanes) {
+    constexpr int P = decltype(lanes)::value;
+    if constexpr (P >= 4) {
+      if (g > 1) {
+        return launch_kernel(col, val, n_rows, width, rows_per_tile, stages,
+                             smem_bytes, SumRow<P, true>{x, n_cols, g}, epi,
+                             stream);
+      }
+    }
+    return launch_kernel(col, val, n_rows, width, rows_per_tile, stages,
+                         smem_bytes, SumRow<P, false>{x, n_cols, g}, epi,
+                         stream);
+  });
 }
 
 }  // namespace ell_tiles

@@ -81,3 +81,42 @@ def ell_tile_plan(width: int) -> tuple[int, int, int]:
     if width == 0 or smem > SMEM_PER_BLOCK:
         return _TILE_ROWS, 0, 0
     return rows, 2, smem
+
+
+_BAG_THREADS = 256              # consumer threads of a block, halved ...
+_BAG_TILE_MAX_BYTES = 32 * 1024  # ... while ids + sums of a tile pass this
+_BAG_STAGES = 3                 # tiles of ids in the ring
+
+
+def bag_tile_plan(hot: int, d: int) -> tuple[int, int, int]:
+    """The tile plan of the embedding-bag kernel (``csrc/embedding_bag.cu``)
+    for ``hot`` ids a bag and rows of ``d`` floats: ``(bags_per_tile,
+    stages, smem_bytes)``.
+
+    A consumer thread sums K bags of a tile: K = 8 // C for rows of up to
+    8 floats (C, the power of two >= d, the floats of a row it gathers at
+    once), else 1, so that it issues 8–16 floats of gathers at once. A
+    tile is 256 threads' bags, halved (down to 32 threads) while its ids
+    and sums (4·(hot + d) bytes a bag) would pass 32 KB. Three stages of
+    ids (R·hot·4 bytes each, a multiple of 16 since R is a multiple of
+    32: on an H100 three ran 3–9 % faster than two at DeepFM's shapes,
+    PERF.md) and two buffers of sums (R·d·4 bytes each), so that the
+    copies of the next tiles' ids and the store of one tile's sums overlap
+    the work on a tile. Where that would not fit in a block's shared
+    memory, or there is nothing to sum (hot or d 0), the plan has no
+    stages: the kernel reads ids and stores sums with plain loads and
+    stores.
+    """
+    if hot < 0 or d < 0:
+        raise ValueError(f"bag_tile_plan: negative shape ({hot}, {d})")
+    per_thread = 8 // (1 << (d - 1).bit_length()) if 0 < d <= 8 else 1
+    bag_bytes = 4 * (hot + d)
+    threads = _BAG_THREADS
+    while threads > 32 and threads * per_thread * bag_bytes \
+            > _BAG_TILE_MAX_BYTES:
+        threads //= 2
+    bags = threads * per_thread
+    smem = 4 * bags * (_BAG_STAGES * hot + 2 * d)
+    if hot == 0 or d == 0 or smem > SMEM_PER_BLOCK:
+        return bags, 0, 0
+    return bags, _BAG_STAGES, smem

@@ -1,9 +1,9 @@
 """Build and bind the port's CUDA kernels.
 
 The sources in ``repro_torch/csrc/*.cu`` have a plain C interface; the
-float ELL kernels (``spmv_ell``, ``jacobi``) share the TMA-staged row
-tiles of ``csrc/ell_tiles.cuh``, ``agg_vote`` the row loop of
-``csrc/ell_rows.cuh``. On first use they are compiled for ``sm_90a``
+ELL kernels (``spmv_ell``, ``jacobi``, ``agg_vote``) share the TMA-staged
+row tiles of ``csrc/ell_tiles.cuh``, and they and ``embedding_bag`` the
+bulk-copy primitives of ``csrc/bulk_copy.cuh``. On first use they are compiled for ``sm_90a``
 with ``nvcc`` (one process per source, all started together, then one
 link) into a shared library under
 ``<repo>/build/repro_torch_kernels/``, named by a hash of the sources and
@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch_kernels"
 SOURCES = ("spmv_ell.cu", "jacobi.cu", "agg_vote.cu", "embedding_bag.cu")
-HEADERS = ("ell_rows.cuh", "ell_tiles.cuh")
+HEADERS = ("bulk_copy.cuh", "ell_tiles.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,8 +35,9 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _SIGNATURES = {
     "repro_spmv_ell_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "repro_jacobi_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
-    "repro_agg_vote_i32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    "repro_embedding_bag_f32": (_P, _P, _P, _L, _I, _I, _I, _P),
+    "repro_agg_vote_i32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _I, _P),
+    "repro_embedding_bag_f32": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lib = None

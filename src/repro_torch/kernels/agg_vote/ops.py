@@ -3,15 +3,18 @@ PyTorch version.
 
 Replaces ``repro/kernels/agg_vote/agg_vote.py::vote_reduce_pallas``. The
 kernel (``repro_torch/csrc/agg_vote.cu``) is bound by bytes: one pass over
-the int32 (col, sq) tables per round. The ⊕ is an integer reduction, so
-kernel and plain version agree bit for bit.
+the int32 (col, sq) tables per round, in the row tiles of the float ELL
+kernels (bulk copies into shared memory, the plan of
+:func:`repro_torch.kernels.ell_tile_plan`). The ⊕ is an integer
+reduction, so kernel and plain version agree bit for bit.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import on_cuda, require, stream_of
+from repro_torch.kernels import (ell_tile_plan, on_cuda, require,
+                                 require_aligned, stream_of)
 from repro_torch.sparse.segment import take_fill
 
 _I32_MIN = torch.iinfo(torch.int32).min
@@ -52,6 +55,9 @@ def vote_reduce(col, sq, state, *, levels: int, decided: int = 0):
     require("vote col", col, torch.int32, (n_rows, width))
     require("vote sq", sq, torch.int32, (n_rows, width))
     require("vote state", state, torch.int32, (state.shape[0],))
+    for name, t in (("col", col), ("sq", sq)):
+        require_aligned(f"vote {name}", t)
+    rows, stages, smem = ell_tile_plan(width)
     best_k = torch.empty(n_rows, dtype=torch.int32, device=col.device)
     best_i = torch.empty(n_rows, dtype=torch.int32, device=col.device)
     lib = library()
@@ -60,7 +66,8 @@ def vote_reduce(col, sq, state, *, levels: int, decided: int = 0):
                                      state.data_ptr(), best_k.data_ptr(),
                                      best_i.data_ptr(), n_rows, width,
                                      state.shape[0], int(levels),
-                                     int(decided), stream_of(col)),
+                                     int(decided), rows, stages, smem,
+                                     stream_of(col)),
               "vote_reduce")
     vote_reduce.launches += 1
     return best_k, best_i

@@ -3,16 +3,20 @@
 Replaces ``repro/kernels/embedding_bag/embedding_bag.py::
 embedding_bag_pallas`` (with its padding wrapper ``ops.py::
 embedding_bag_kernel``). The kernel (``repro_torch/csrc/embedding_bag.cu``)
-is bound by bytes on the card: it reads the ids once, gathers each bag's
-rows through L2 and writes ``[n_bags, d]``, with no padded copy of the
-table or the batch. It has no backward yet.
+is bound by bytes on the card: it streams the ids in tiles that bulk
+copies stage in shared memory (the plan is
+:func:`repro_torch.kernels.bag_tile_plan`), gathers each bag's rows through
+L1/L2 and writes ``[n_bags, d]`` by bulk copies of whole output tiles, with
+no padded copy of the table or the batch. Ids that do not start on a
+16-byte boundary (a view such as ``idx[3:]``) are read with plain loads
+inside the same kernel. It has no backward yet.
 """
 
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import on_cuda, require, stream_of
+from repro_torch.kernels import bag_tile_plan, on_cuda, require, stream_of
 from repro_torch.sparse.segment import take_fill
 
 
@@ -42,11 +46,13 @@ def embedding_bag_kernel(table: torch.Tensor,
     out = torch.empty((n_bags, d), dtype=torch.float32, device=table.device)
     if n_bags == 0 or hot == 0 or d == 0:
         return out.zero_()
+    bags, stages, smem = bag_tile_plan(hot, d)
     lib = library()
     with torch.cuda.device(table.device):
         check(lib.repro_embedding_bag_f32(
             table.data_ptr(), indices.data_ptr(), out.data_ptr(), n_bags,
-            hot, d, n_vocab, stream_of(table)), "embedding_bag")
+            hot, d, n_vocab, bags, stages, smem, stream_of(table)),
+            "embedding_bag")
     embedding_bag_kernel.launches += 1
     return out
 

@@ -48,8 +48,40 @@ def _stage_seconds(prof: cProfile.Profile) -> dict:
 
 # the port's own kernels, by a part of the name the profiler reports
 PORT_KERNELS = {"StoreRow": "spmv_ell", "JacobiRow": "jacobi",
-                "vote_kernel": "agg_vote",
-                "embedding_bag_kernel": "embedding_bag"}
+                "VoteRow": "agg_vote", "bag_tiles_kernel": "embedding_bag"}
+
+
+def kernel_device_ms(torch, fn, kernel: str, reps: int = 20):
+    """The device time of one launch of the port's kernel ``kernel`` (a
+    value of ``PORT_KERNELS``) in ``fn``: three warm-up calls, then
+    ``reps`` calls under ``torch.profiler`` (CUDA activity only: on an
+    H100, windows that also traced the CPU lost their device events about
+    once in a hundred, CUDA-only ones none in 450); the kernel's self
+    device time there over its launches, in ms, and the number of
+    launches the profiler saw. A window that saw no launch is profiled
+    again, up to three in all; ``(nan, 0)`` means none saw one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    parts = [part for part, name in PORT_KERNELS.items() if name == kernel]
+    if not parts:
+        raise ValueError(f"kernel_device_ms: unknown kernel {kernel!r}")
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as p:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        count, us = 0, 0.0
+        for e in p.key_averages():
+            if (e.device_type == torch.autograd.DeviceType.CUDA
+                    and any(part in e.key for part in parts)):
+                count += e.count
+                us += e.self_device_time_total
+        if count:
+            return us / 1e3 / count, count
+    return float("nan"), 0
 
 
 def profile_call(torch, fn, trace_path=None, top: int = 10):

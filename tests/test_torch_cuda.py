@@ -8,9 +8,11 @@ it runs on a machine that has only the port's dependencies:
 
 Tolerances: ``spmv_ell``/``jacobi`` rtol 1e-5 / atol 1e-6 against their
 plain versions (the float32 summation order differs) and bitwise equal
-from one call to the next, ``agg_vote`` bit-exact, ``embedding_bag`` rtol /
-atol 1e-6 (the same float32 sum in the same order), DeepFM logits rtol /
-atol 1e-5 (the card's matrix products sum in another order).
+from one call to the next, ``agg_vote`` bit-exact, ``embedding_bag``
+bitwise equal at hot <= 2 (a sum of two floats from 0 has one rounding)
+and rtol / atol 1e-6 above (PyTorch's sum may add in another order), and
+bitwise equal from one call to the next, DeepFM logits rtol / atol 1e-5
+(the card's matrix products sum in another order).
 """
 
 import numpy as np
@@ -18,7 +20,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import ell_tile_plan  # noqa: E402
+from repro_torch.kernels import bag_tile_plan, ell_tile_plan  # noqa: E402
 from repro_torch.kernels.agg_vote import vote_reduce, vote_reduce_ref  # noqa: E402
 from repro_torch.kernels.embedding_bag import (  # noqa: E402
     embedding_bag_kernel, embedding_bag_ref)
@@ -87,7 +89,8 @@ def test_cuda_kernels_match_plain_versions(n_rows, width, density):
 @pytest.mark.parametrize("n_rows,width", [(300, 453), (1000, 700)])
 def test_cuda_rows_too_wide_to_stage_run_unstaged(n_rows, width):
     """Past width 452 two stages of a tile do not fit in shared memory:
-    the plan stages nothing and the kernels read rows with plain loads.
+    the plan stages nothing and the kernels (agg_vote too) read rows with
+    plain loads.
     Small integers make every sum exact, so any summation order gives the
     plain version's bits."""
     if not torch.cuda.is_available():
@@ -100,13 +103,20 @@ def test_cuda_rows_too_wide_to_stage_run_unstaged(n_rows, width):
     b = rng.integers(-8, 9, n_rows).astype(np.float32)
     deg = 2.0 ** rng.integers(-2, 6, n_rows).astype(np.float32)
     deg[::5] = 0.0
-    C, V, X, B, D = (_t(a).cuda() for a in (col, val, x, b, deg))
-    s0, j0 = spmv_ell.launches, jacobi_step.launches
+    sq = rng.integers(0, 4, (n_rows, width)).astype(np.int32)
+    state = rng.integers(0, 3, n_rows).astype(np.int32)
+    C, V, X, B, D, Q, S = (_t(a).cuda()
+                           for a in (col, val, x, b, deg, sq, state))
+    s0, j0, v0 = spmv_ell.launches, jacobi_step.launches, vote_reduce.launches
     y, out = spmv_ell(C, V, X), jacobi_step(C, V, X, B, D)
-    assert (spmv_ell.launches, jacobi_step.launches) == (s0 + 1, j0 + 1)
+    got = vote_reduce(C, Q, S, levels=1 << 20)
+    assert (spmv_ell.launches, jacobi_step.launches,
+            vote_reduce.launches) == (s0 + 1, j0 + 1, v0 + 1)
     assert torch.equal(y, spmv_ell_ref(C, V, X))
     assert torch.equal(out, jacobi_step_ref(C, V, X, B, D))
     assert torch.equal(out[::5], X[::5])
+    want = vote_reduce_ref(C, Q, S, levels=1 << 20)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.cuda
@@ -118,12 +128,16 @@ def test_cuda_misaligned_table_raises_and_launches_nothing():
     col = buf[1:1 + n * w].view(n, w)                # 4 bytes off 16
     val = torch.ones((n, w), device="cuda")
     x = torch.ones(n, device="cuda")
-    s0, j0 = spmv_ell.launches, jacobi_step.launches
+    s0, j0, v0 = spmv_ell.launches, jacobi_step.launches, vote_reduce.launches
     with pytest.raises(ValueError):
         spmv_ell(col, val, x)
     with pytest.raises(ValueError):
         jacobi_step(col, val, x, x, x)
-    assert (spmv_ell.launches, jacobi_step.launches) == (s0, j0)
+    with pytest.raises(ValueError):
+        vote_reduce(col, col, torch.ones(n, dtype=torch.int32,
+                                         device="cuda"), levels=4)
+    assert (spmv_ell.launches, jacobi_step.launches,
+            vote_reduce.launches) == (s0, j0, v0)
 
 
 @pytest.mark.cuda
@@ -202,3 +216,87 @@ def test_cuda_deepfm_smoke_matches_cpu():
     torch.testing.assert_close(
         card.retrieval_scores(idx[:1].cuda(), cand.cuda()).cpu(),
         cpu.retrieval_scores(idx[:1], cand), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_vote_main_path_shape_ragged_with_ties_and_all_decided():
+    """agg_vote at the main setup's first aggregation level's shape
+    (699,024 × 8: 5,461 full tiles of 128 rows and a ragged one of 16),
+    with strengths in 0..3 so that many keys tie; then every neighbour
+    Decided, which gives every row the identity."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n, w = 699_024, 8
+    assert n % ell_tile_plan(w)[0] != 0
+    rng = np.random.default_rng(8)
+    col, _ = _ell(rng, n, n, w, density=0.8)
+    sq = rng.integers(0, 4, (n, w)).astype(np.int32)
+    state = rng.integers(0, 3, n).astype(np.int32)
+    C, Q, S = (_t(a).cuda() for a in (col, sq, state))
+    v0 = vote_reduce.launches
+    got = vote_reduce(C, Q, S, levels=1 << 20)
+    assert vote_reduce.launches == v0 + 1
+    want = vote_reduce_ref(C, Q, S, levels=1 << 20)
+    assert all(torch.equal(g, r) for g, r in zip(got, want))
+    again = vote_reduce(C, Q, S, levels=1 << 20)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    k, i = vote_reduce(C, Q, torch.zeros_like(S), levels=1 << 20)
+    assert (k == torch.iinfo(torch.int32).min).all()
+    assert (i == torch.iinfo(torch.int32).max).all()
+
+
+def _bags(n_bags, hot, d, n_vocab, seed):
+    rng = np.random.default_rng(seed)
+    table = rng.normal(size=(n_vocab, d)).astype(np.float32)
+    idx = rng.integers(-2, n_vocab + 3, (n_bags, hot)).astype(np.int32)
+    return _t(table).cuda(), _t(idx).cuda()
+
+
+def _check_bag(T, I):
+    """One launch, the plain version's sums (bitwise at hot <= 2), and a
+    bitwise repeat."""
+    n0 = embedding_bag_kernel.launches
+    got = embedding_bag_kernel(T, I)
+    assert embedding_bag_kernel.launches == n0 + 1
+    want = embedding_bag_ref(T, I)
+    if I.shape[1] <= 2:
+        assert torch.equal(got, want)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert torch.equal(embedding_bag_kernel(T, I), got)
+
+
+_R = bag_tile_plan(2, 10)[0]
+# (n_bags, hot, d, n_vocab): a ragged last tile, fewer bags than a tile,
+# many tiles a block (each block's ring of stages wraps), d = 1, 2 and 4
+# (8, 4 and 2 bags a thread), d = 33, hot 8, and rows too wide for a
+# staged plan (0 stages)
+BAG_CASES = [(_R * 7 + 5, 2, 10, 1000), (_R - 3, 2, 10, 1000),
+             (1 << 22, 2, 10, 43_429), (100_003, 2, 1, 5000),
+             (50_001, 2, 2, 900), (30_001, 3, 4, 800),
+             (20_001, 1, 33, 700), (9_999, 8, 10, 3000),
+             (3_001, 1, 1000, 50)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bags,hot,d,n_vocab", BAG_CASES)
+def test_cuda_embedding_bag_tiles(n_bags, hot, d, n_vocab):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    if d == 1000:
+        assert bag_tile_plan(hot, d)[1] == 0
+    _check_bag(*_bags(n_bags, hot, d, n_vocab, n_bags + d))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hot", [1, 3])
+def test_cuda_embedding_bag_unaligned_ids_view(hot):
+    """``I[1:]`` starts 4·hot bytes past the buffer's start, so not on a
+    16-byte boundary: the kernel reads its ids with plain loads, and still
+    launches once and matches the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    T, I = _bags(10_001, hot, 10, 2000, hot)
+    view = I[1:]
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    _check_bag(T, view)

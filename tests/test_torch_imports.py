@@ -1,6 +1,7 @@
 """The port imports neither JAX nor the reference package.
 
-Every module of ``src/repro_torch/`` and ``chip_smoke.py`` is parsed with
+Every module of ``src/repro_torch/``, the port's benchmarks
+(``benchmarks/port_*.py``) and ``chip_smoke.py`` is parsed with
 ``ast``; an import of ``jax``, ``jaxlib`` or ``repro`` anywhere in it (at
 top level or inside a function) fails. Only the tests import both.
 """
@@ -13,7 +14,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(
     [p.relative_to(ROOT).as_posix()
-     for p in (ROOT / "src" / "repro_torch").rglob("*.py")]
+     for p in [*(ROOT / "src" / "repro_torch").rglob("*.py"),
+               *(ROOT / "benchmarks").glob("port_*.py")]]
     + ["chip_smoke.py"])
 
 
