@@ -12,11 +12,17 @@ Phases, one line each (any failure exits non-zero):
 2. main    — the paper's solver at the per-process scale of its largest
              run: Barabási–Albert n = 2^20, m = 4 (about 4.2 M undirected
              edges), ``LaplacianSolver.setup(SetupConfig(matvec_backend=
-             "ell"))`` and four seeded mean-free solves at tol 1e-6. Every
-             solve must converge and pass a float64 host residual
-             certificate (‖b − Lx‖/‖b‖ ≤ 1e-4); a repeated solve must be
-             bitwise equal; each kernel's launch count, reset to 0 just
-             before and read just after, must be above 0.
+             "ell"))`` (the super-step setup, the default) and four seeded
+             mean-free solves at tol 1e-6. Every solve must converge and
+             pass a float64 host residual certificate (‖b − Lx‖/‖b‖ ≤
+             1e-4); a repeated solve must be bitwise equal; each kernel's
+             launch count, reset to 0 just before and read just after, must
+             be above 0. Then, as the ``[superstep]`` line, the eager setup
+             of the same graph: the levels must agree, the aggregate ids
+             and elimination masks and the PCG residual history must be
+             bitwise equal, and the super-step setup must have made at most
+             one host fetch per constructed level plus 3; with its time,
+             peak device memory and registry entries/calls per step.
 3. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes (spmv_ell and jacobi at rtol 1e-5 /
              atol 1e-6, agg_vote bit-exact), with its times, the plain
@@ -35,12 +41,22 @@ Phases, one line each (any failure exits non-zero):
              solve at that level, counted on the main path's last solve)
              and agg_vote at every aggregation level of the main setup,
              on the inputs of the setup's last vote at that level
-             (launches per setup): the tile plan, both times against the
-             bound, a check against the plain version and a bitwise
-             repeat.
+             (launches per setup; the rows padded to the level's bucket):
+             the tile plan, both times against the bound, a check against
+             the plain version and a bitwise repeat.
 4. e2e     — the same path at n = 2^16 with the kernels and with the plain
-             versions: identical levels, iteration counts within ±1 and
-             ‖x_k − x_p‖/‖x_p‖ ≤ 1e-4.
+             versions (the setup registry cleared between the two):
+             identical levels, iteration counts within ±1 and ‖x_k −
+             x_p‖/‖x_p‖ ≤ 1e-4. Then the super-step contracts, at a bucket
+             floor of 2^20 so that two graphs of the generator (seeds 1
+             and 2) land in the same buckets: a cold super-step setup with
+             ``torch.cuda.set_sync_debug_mode("error")`` on from the
+             plan's start to its end (lifted only in its host fetches and
+             the host work after the last) completes and launches
+             ``agg_vote``; the eager loop's host syncs (mode ``"warn"``)
+             are counted beside the super-step's fetches; the second graph
+             adds no registry entry; the batched setup of both graphs is
+             bitwise equal, tensor by tensor, to their single builds.
 5. deepfm  — DeepFM serving at full width (``configs/deepfm.py::FULL``: 39
              fields, d = 10, H = 2, MLP 390-400-400-400-1, 3,729,408 table
              rows), weights from a seeded generator: 8 serve_p99 requests
@@ -79,6 +95,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 MAIN_N, E2E_N = 1 << 20, 1 << 16
+E2E_FLOOR = 1 << 20     # above every level's n and nnz of the e2e graphs
 REPLACES = {
     "spmv_ell": "src/repro/kernels/spmv_ell/spmv_ell.py:41",
     "jacobi": "src/repro/kernels/jacobi/jacobi.py:35",
@@ -204,6 +221,44 @@ def launch_counts(mods=SOLVER_KERNELS) -> tuple:
                          WRAPPERS[m][0]).launches for m in mods)
 
 
+def hierarchy_tensors(obj, path=""):
+    """Every tensor of a hierarchy with its path, in a fixed order."""
+    import dataclasses
+
+    if hasattr(obj, "data_ptr"):
+        yield path, obj
+    elif dataclasses.is_dataclass(obj):
+        for f in dataclasses.fields(obj):
+            yield from hierarchy_tensors(getattr(obj, f.name),
+                                         f"{path}.{f.name}")
+    elif isinstance(obj, (tuple, list)):
+        for i, x in enumerate(obj):
+            yield from hierarchy_tensors(x, f"{path}[{i}]")
+
+
+def bitwise_equal(torch, ha, hb) -> bool:
+    """Two hierarchies with the same structure and every tensor equal bit
+    for bit."""
+    la, lb = list(hierarchy_tensors(ha)), list(hierarchy_tensors(hb))
+    if [p for p, _ in la] != [p for p, _ in lb]:
+        return False
+    for (_, x), (_, y) in zip(la, lb):
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return False
+        if x.dtype == torch.float32:
+            x, y = x.reshape(-1).view(torch.int32), y.reshape(-1).view(
+                torch.int32)
+        if not torch.equal(x, y):
+            return False
+    return True
+
+
+def registry_line(ledger: dict) -> str:
+    """The setup registry's entries/calls per step."""
+    return json.dumps({k: f"{v['compiles']}/{v['calls']}"
+                       for k, v in ledger["steps"].items()})
+
+
 def kernel_record(torch, name, launches, err, kernel, plain, bytes_moved,
                   ops, library=None) -> dict:
     """One kernel's entry of the ``kernels`` JSON line, printed as it is
@@ -263,6 +318,7 @@ def phase_build(torch):
 
 
 def phase_main(torch, np):
+    from repro_torch.core import setup_step
     from repro_torch.core.hierarchy import SetupConfig
     from repro_torch.core.solver import LaplacianSolver
     from repro_torch.kernels.agg_vote import vote_reduce
@@ -277,13 +333,17 @@ def phase_main(torch, np):
         generate_s=round(gen_s, 1))
 
     spmv_ell.launches = jacobi_step.launches = vote_reduce.launches = 0
+    setup_step.reset_counters()
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with shapes_launched(SOLVER_KERNELS[2:]) as per_setup:     # agg_vote
         solver = LaplacianSolver.setup(n, r, c, v,
                                        SetupConfig(matvec_backend="ell"))
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    setup = dict(setup_s=setup_s, ledger=setup_step.counters(),
+                 peak_gib=torch.cuda.max_memory_allocated() / 2**30)
     for i, row in enumerate(solver.stats()["levels"]):
         say("main", level=i, kind=row["kind"], n=row["n"], nnz=row["nnz"],
             ell_width=row["ell_width"], ell_spill=row["ell_spill"])
@@ -334,18 +394,61 @@ def phase_main(torch, np):
     check(tallied == launches["agg_vote"],
           f"agg_vote: {tallied} calls tallied by shape, "
           f"{launches['agg_vote']} launches in the setup")
-    return solver, launches, {**per_shape, **per_setup}
+    setup.update(graph=(n, r, c, v), b=first_b, info=info)
+    return solver, launches, {**per_shape, **per_setup}, setup
 
 
-def phase_kernels(torch, np, solver, launches):
-    from repro_torch.core.aggregation import AggregationConfig, \
-        quantise_strength
+def phase_superstep(torch, solver, setup) -> None:
+    """The main path's super-step setup against the eager loop on the same
+    graph: levels, aggregate ids and elimination masks, iterations and the
+    residual history of the main path's last solve; and its host fetches
+    against the one-per-level contract."""
     from repro_torch.core.coarsen import AggregationLevel
-    from repro_torch.core.strength import algebraic_distance_strength
+    from repro_torch.core.hierarchy import SetupConfig
+    from repro_torch.core.solver import LaplacianSolver
+
+    n, r, c, v = setup["graph"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = LaplacianSolver.setup(n, r, c, v, SetupConfig(
+        matvec_backend="ell", setup_mode="eager"))
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    keys = ("kind", "n", "nnz", "ell_width", "ell_spill")   # capacities differ
+    levels_equal = [[row[k] for k in keys] for row in solver.stats()["levels"]] \
+        == [[row[k] for k in keys] for row in eager.stats()["levels"]]
+    pairs = list(zip(solver.hierarchy.transfers, eager.hierarchy.transfers))
+    ids_equal = levels_equal and all(
+        torch.equal(ts.coarse_id, te.coarse_id)
+        if isinstance(ts, AggregationLevel)
+        else torch.equal(ts.elim_mask, te.elim_mask) for ts, te in pairs)
+    _, info_e = eager.solve(setup["b"], tol=1e-6, maxiter=200)
+    info_s = setup["info"]
+    bitwise = info_s.residual_norms == info_e.residual_norms
+    syncs = setup["ledger"]["host_syncs"]
+    constructed = len(solver.hierarchy.transfers)
+    say("superstep", n=n, setup_s=round(setup["setup_s"], 3),
+        eager_setup_s=round(eager_s, 3), host_syncs=syncs,
+        constructed_levels=constructed, levels_equal=levels_equal,
+        ids_bitwise=ids_equal, iters=f"{info_s.iters}/{info_e.iters}",
+        residual_norms_bitwise=bitwise,
+        peak_gib=round(setup["peak_gib"], 3),
+        registry=registry_line(setup["ledger"]))
+    check(levels_equal, "super-step and eager setups built different levels")
+    check(ids_equal, "super-step and eager aggregates or elimination masks "
+          "differ")
+    check(info_s.iters == info_e.iters and bitwise,
+          "super-step and eager residual histories differ")
+    check(syncs <= constructed + 3,
+          f"super-step setup fetched {syncs} times for {constructed} levels")
+
+
+def phase_kernels(torch, np, solver, launches, per_shape):
+    from repro_torch.core.aggregation import AggregationConfig
+    from repro_torch.core.coarsen import AggregationLevel
     from repro_torch.kernels.agg_vote import vote_reduce, vote_reduce_ref
     from repro_torch.kernels.jacobi import jacobi_step, jacobi_step_ref
     from repro_torch.kernels.spmv_ell import spmv_ell, spmv_ell_ref
-    from repro_torch.sparse.ell import ell_layout_traced
 
     dev = solver.device
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -398,15 +501,14 @@ def phase_kernels(torch, np, solver, launches):
            lambda: jacobi_step_ref(col, val, x, b, deg),
            8 * n * w + 16 * n, 2 * int((col < n).sum()) + 6 * n)
 
-    # agg_vote: the first aggregation level's vote layout (width 8) with its
-    # quantised strengths, and a mid-round state with Decided neighbours
+    # agg_vote: the main setup's largest vote layout (the first aggregation
+    # level, its rows padded to the bucket) with its quantised strengths,
+    # and a mid-round state with Decided neighbours
     cfg = AggregationConfig()
-    lay = ell_layout_traced(agg.adj.row, agg.adj.col, agg.n, 8)
-    sq = lay.table(quantise_strength(algebraic_distance_strength(agg), cfg))
-    state = torch.randint(0, 3, (agg.n,), generator=gen, device=dev,
-                          dtype=torch.int32)
-    col = lay.col_table
+    col, sq, _ = per_shape["agg_vote"][max(per_shape["agg_vote"])][1]
     n, w = col.shape
+    state = torch.randint(0, 3, (n,), generator=gen, device=dev,
+                          dtype=torch.int32)
     err = 0
     for table in (sq, sq % 4):             # real strengths, then many ties
         got = vote_reduce(col, table, state, levels=cfg.strength_levels)
@@ -439,6 +541,8 @@ def phase_levels(torch, solver, per_shape) -> None:
     did (``per_shape``, from ``phase_main``): tile plan, both times against
     the bound, and launches per solve or per setup at that level; each
     checked against its plain version and for a bitwise repeat."""
+    from repro_torch.core.coarsen import AggregationLevel
+    from repro_torch.core.graph import pow2_bucket
     from repro_torch.kernels import ell_tile_plan
     from repro_torch.kernels.agg_vote import vote_reduce, vote_reduce_ref
     from repro_torch.kernels.jacobi import jacobi_step, jacobi_step_ref
@@ -451,7 +555,7 @@ def phase_levels(torch, solver, per_shape) -> None:
     measured = {"spmv_ell": 0, "jacobi": 0, "agg_vote": 0}
 
     def line(name, i, n, w, kernel, plain, same, bytes_moved, ops, calls,
-             unit):
+             unit, **extra):
         got, want = kernel(), plain()
         again = kernel()
         torch.cuda.synchronize()
@@ -463,7 +567,7 @@ def phase_levels(torch, solver, per_shape) -> None:
         b_ms, b_by = bound(bytes_moved, ops)
         gap[name] += calls * (d_ms - b_ms)
         measured[name] += 1
-        say("levels", kernel=name, level=i, n=n, width=w,
+        say("levels", kernel=name, level=i, n=n, **extra, width=w,
             plan=json.dumps(ell_tile_plan(w)), kernel_ms=k_ms,
             device_ms=d_ms, bound_ms=b_ms, bound_by=b_by,
             of_bound=round(b_ms / d_ms, 4), **{f"launches_per_{unit}": calls},
@@ -495,18 +599,21 @@ def phase_levels(torch, solver, per_shape) -> None:
                  lambda g, r: torch.allclose(g[0], r[0], rtol=1e-5,
                                              atol=1e-6),
                  bytes_moved, ops, calls, "solve")
-    sizes = [lv.n for lv in levels]
-    for (n, w), (calls, args, kw) in sorted(
+    # the setup votes at the aggregation levels' rows padded to buckets
+    agg_levels = [i for i, t in enumerate(ts)
+                  if isinstance(t, AggregationLevel)]
+    for (n_cap, w), (calls, args, kw) in sorted(
             per_shape["agg_vote"].items(), reverse=True):
         col, sq, state = args
-        n_cols = state.shape[0]
-        real = int(((col >= 0) & (col < n_cols)).sum())
-        line("agg_vote", sizes.index(n) if n in sizes else -1, n, w,
+        real = int(((col >= 0) & (col < n_cap)).sum())
+        at = [i for i in agg_levels if pow2_bucket(levels[i].n) == n_cap]
+        line("agg_vote", at[0] if at else -1,
+             ",".join(str(levels[i].n) for i in at), w,
              lambda: vote_reduce(*args, **kw),
              lambda: vote_reduce_ref(*args, **kw),
              lambda g, r: all(torch.equal(a, b) for a, b in zip(g, r)),
-             8 * n * w + 4 * n_cols + 8 * n, 4 * real, calls,
-             "setup")
+             8 * n_cap * w + 4 * n_cap + 8 * n_cap, 4 * real, calls,
+             "setup", n_cap=n_cap)
     for name, count in measured.items():
         check(count > 0, f"{name}: no level of the main path measured")
     say("levels", launches_x_gap_ms=json.dumps(
@@ -516,6 +623,7 @@ def phase_levels(torch, solver, per_shape) -> None:
 
 
 def phase_e2e(torch, np):
+    from repro_torch.core import setup_step
     from repro_torch.core.hierarchy import SetupConfig
     from repro_torch.core.solver import LaplacianSolver
 
@@ -525,6 +633,7 @@ def phase_e2e(torch, np):
     out = {}
     for mode, ctx in (("kernel", contextlib.nullcontext),
                       ("plain", plain_versions)):
+        setup_step.clear_cache()
         before = launch_counts()
         with ctx():
             s = LaplacianSolver.setup(n, r, c, v,
@@ -542,6 +651,69 @@ def phase_e2e(torch, np):
     check(lk == lp, "kernel and plain runs built different levels")
     check(abs(ik - ip) <= 1, "iteration counts differ by more than 1")
     check(rel <= 1e-4, f"kernel vs plain solutions differ: {rel:.3e}")
+    phase_e2e_superstep(torch, [(n, r, c, v), graph(E2E_N, seed=2)])
+
+
+def phase_e2e_superstep(torch, graphs) -> None:
+    """The super-step contracts on two graphs of one generator: steps that
+    never sync, the registry reused, batched builds equal to single ones."""
+    from repro_torch.core import setup_step as ss
+    from repro_torch.core.graph import pow2_bucket
+    from repro_torch.core.hierarchy import SetupConfig, build_hierarchy_eager
+    from repro_torch.graphs.generators import to_laplacian_coo
+
+    cfg = SetupConfig(matvec_backend="ell", setup_bucket_floor=E2E_FLOOR)
+    # one input capacity for both graphs: the ingest step's key holds it
+    adjs = [to_laplacian_coo(n, r, c, v, capacity=pow2_bucket(len(r)))
+            for n, r, c, v in graphs]
+    ss.clear_cache()
+    ss.reset_counters()
+    votes = launch_counts(SOLVER_KERNELS[2:])[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        first = ss.build_hierarchy_superstep(adjs[0], cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    cold_s = time.perf_counter() - t0
+    votes = launch_counts(SOLVER_KERNELS[2:])[0] - votes
+    ledger = ss.counters()
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            build_hierarchy_eager(adjs[0], cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    eager_syncs = sum("synchroniz" in str(w.message) for w in caught)
+
+    ss.reset_counters()
+    t0 = time.perf_counter()
+    second = ss.build_hierarchy_superstep(adjs[1], cfg)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    new_entries = sum(st["compiles"]
+                      for st in ss.counters()["steps"].values())
+    ss.reset_counters()
+    batch = ss.build_hierarchy_superstep_batch(adjs, cfg)
+    batch_ledger = ss.counters()
+    same = [bitwise_equal(torch, h, hb)
+            for h, hb in zip((first, second), batch)]
+    say("e2e", superstep_floor=E2E_FLOOR, sync_debug="error",
+        no_sync_in_steps=True, cold_setup_s=round(cold_s, 3),
+        host_syncs=ledger["host_syncs"], eager_host_syncs=eager_syncs,
+        agg_vote_launches=votes, registry=registry_line(ledger),
+        second_graph_new_entries=new_entries, second_setup_s=round(warm_s, 3),
+        batch_bitwise=json.dumps(same),
+        batch_registry=registry_line(batch_ledger),
+        batch_host_syncs=batch_ledger["host_syncs"])
+    check(votes > 0, "the super-step setup launched no agg_vote kernel")
+    check(new_entries == 0,
+          f"a second same-bucket graph added {new_entries} registry entries")
+    check(all(same), "batched setups differ from single ones")
 
 
 def _bag_launches() -> int:
@@ -766,10 +938,11 @@ def main() -> int:
     # the coarse solve's dense product in full float32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     smi = phase_build(torch)
-    solver, launches, per_shape = phase_main(torch, np)
-    records = phase_kernels(torch, np, solver, launches)
+    solver, launches, per_shape, setup = phase_main(torch, np)
+    phase_superstep(torch, solver, setup)
+    records = phase_kernels(torch, np, solver, launches, per_shape)
     phase_levels(torch, solver, per_shape)
-    del solver
+    del solver, setup
     phase_e2e(torch, np)
     model, flat, bag_launches = phase_deepfm(torch, np)
     records.append(phase_kernels_deepfm(torch, model, flat, bag_launches))

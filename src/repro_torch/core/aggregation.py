@@ -124,17 +124,23 @@ def aggregation_round(level: GraphLevel, strength_q, state, votes,
 
 def aggregate(level: GraphLevel, strength,
               cfg: AggregationConfig = AggregationConfig(),
-              edge_reduce=None):
+              n_valid=None, edge_reduce=None):
     """Run Alg 2. Returns (aggregates [n] int32 root-vertex ids, state).
 
-    ``edge_reduce``: optional ``state -> (best_key, best_id)`` override of
-    the per-round ⊕; with it ``strength`` may be None.
+    ``n_valid``: the count of real vertices (an int or a 0-d tensor) when
+    ``level`` is bucket-padded. Padding vertices start Decided, so they
+    never vote, join or seed: the first ``n_valid`` outputs are those of
+    the unpadded run. ``edge_reduce``: optional ``state -> (best_key,
+    best_id)`` override of the per-round ⊕; with it ``strength`` may be
+    None.
     """
     n = level.n
     dev = level.deg.device
-    state = torch.full((n,), UNDECIDED, dtype=torch.int32, device=dev)
-    votes = torch.zeros(n, dtype=torch.int32, device=dev)
     iota = torch.arange(n, dtype=torch.int32, device=dev)
+    state = torch.full((n,), UNDECIDED, dtype=torch.int32, device=dev)
+    if n_valid is not None:
+        state = torch.where(iota < n_valid, state, DECIDED)
+    votes = torch.zeros(n, dtype=torch.int32, device=dev)
     aggregates = iota.clone()
     if edge_reduce is None:
         strength_q = quantise_strength(strength, cfg)
@@ -152,16 +158,22 @@ def aggregate(level: GraphLevel, strength,
     return aggregates, state
 
 
-def renumber_device(aggregates: torch.Tensor):
+def renumber_device(aggregates: torch.Tensor, n_valid=None):
     """Contiguous renumbering in increasing root-vertex order. Returns
     ``(coarse_id int32 [n], n_coarse, ok)`` as tensors, where ``ok`` says
-    every non-root pointer hits a root."""
+    every non-root pointer hits a root. ``n_valid`` masks bucket padding:
+    padding vertices point at themselves but are neither roots nor
+    checked."""
     n = aggregates.shape[0]
     iota = torch.arange(n, dtype=torch.int32, device=aggregates.device)
     roots = aggregates == iota
+    if n_valid is not None:
+        roots = roots & (iota < n_valid)
     root_rank = (torch.cumsum(roots.to(torch.int32), 0) - 1).to(torch.int32)
     coarse_id = take_fill(root_rank, aggregates, 0)
     hits_root = take_fill(roots, aggregates, False)
+    if n_valid is not None:
+        hits_root = hits_root | (iota >= n_valid)
     return coarse_id, roots.sum(), hits_root.all()
 
 

@@ -41,11 +41,14 @@ class AggregationLevel:
         return take_fill(x_c, self.coarse_id, 0)
 
 
-def contract_arrays(adj: COO, coarse_id: torch.Tensor, n_coarse: int,
+def contract_arrays(adj: COO, coarse_id: torch.Tensor, n_coarse,
                     sentinel=None, out_capacity: int | None = None):
     """Relabel both endpoints of every edge by aggregate id and coalesce,
-    dropping self-loops. Returns ``(row, col, val, nnz)`` of length
-    ``out_capacity`` (default ``adj.capacity``), padding last."""
+    dropping self-loops. ``n_coarse`` may be an int or a 0-d tensor (the
+    bucket-padded setup); ``sentinel`` is the padding id of the output
+    (default ``n_coarse``). Returns ``(row, col, val, nnz)``: arrays of
+    length ``out_capacity`` (default ``adj.capacity``), padding last, and
+    ``nnz`` as a 0-d tensor."""
     n = adj.n_rows
     if sentinel is None:
         sentinel = n_coarse

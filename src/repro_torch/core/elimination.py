@@ -28,14 +28,20 @@ MAX_ELIM_DEGREE = 4  # paper: "like LAMG, we eliminate vertices of degree 4 or l
 _U32_TO_I32 = 1 << 31   # h - 2^31 maps uint32 order onto signed order
 
 
-def select_eliminated(level: GraphLevel,
-                      max_degree: int = MAX_ELIM_DEGREE) -> torch.Tensor:
+def select_eliminated(level: GraphLevel, max_degree: int = MAX_ELIM_DEGREE,
+                      n_valid=None) -> torch.Tensor:
     """Boolean [n] mask of the vertices to eliminate (Alg 1's semiring
-    SpMV as a lexicographic segment reduction)."""
+    SpMV as a lexicographic segment reduction).
+
+    ``n_valid``: the count of real vertices (an int or a 0-d tensor) when
+    ``level`` is bucket-padded: padding vertices have degree 0 and would
+    all be candidates otherwise."""
     adj = level.adj
     n = level.n
     iota = torch.arange(n, device=adj.device)
     cand = level.unweighted_degrees() <= max_degree
+    if n_valid is not None:
+        cand = cand & (iota < n_valid)
     h = hash32(iota)
     # ⊗: keep only candidate neighbours and carry their hash; the vertex
     # itself is folded in after the edge reduction.
@@ -93,21 +99,25 @@ class EliminationLevel:
         return torch.where(self.elim_mask, x_from_f, x)
 
 
-def schur_arrays(adj: COO, deg: torch.Tensor, elim: torch.Tensor, n: int, *,
+def schur_arrays(adj: COO, deg: torch.Tensor, elim: torch.Tensor, n, *,
                  f_cap: int, max_degree: int = MAX_ELIM_DEGREE,
                  out_capacity: int | None = None, sentinel=None) -> dict:
     """The Schur-complement formula on the padded arrays of one level.
 
-    ``elim`` is the bool [n_cap] elimination mask and ``f_cap`` sizes every
-    F-slot array (>= the eliminated count). Returns the P_F triple
-    (sentinel ``f_cap``), the F-slot maps, and the coalesced coarse
-    adjacency (sentinel ``sentinel``, default ``n_cap``, padding last).
+    ``adj``/``deg`` describe the fine level at capacity ``n_cap =
+    adj.n_rows``, of which the first ``n`` vertices are real (an int, or a
+    0-d tensor in the bucket-padded setup). ``elim`` is the bool [n_cap]
+    elimination mask and ``f_cap`` sizes every F-slot array (>= the
+    eliminated count). Returns the P_F triple (sentinel ``f_cap``), the
+    F-slot maps, the coalesced coarse adjacency (sentinel ``sentinel``,
+    default ``n_cap``, padding last) and the counts ``n_f`` and
+    ``co_nnz`` as 0-d tensors: nothing here makes the host wait.
     """
     n_cap = adj.n_rows
     dev = adj.device
     if sentinel is None:
         sentinel = n_cap
-    n_f = int(elim.sum())
+    n_f = elim.sum()
     n_c = n - n_f
     iota = torch.arange(n_cap, dtype=torch.int32, device=dev)
 

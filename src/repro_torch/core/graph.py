@@ -48,10 +48,27 @@ def graph_from_adjacency(adj: COO) -> GraphLevel:
     return GraphLevel(adj=adj, deg=row_sums(adj))
 
 
-def pow2_bucket(n: int) -> int:
-    """Round up to the next power of two: the padded shape of the strength
-    and λmax iterations (shape-dependent draws, as in the reference)."""
-    return 1 << max(int(math.ceil(math.log2(max(n, 1)))), 0)
+def pow2_bucket(n: int, floor: int = 0) -> int:
+    """Round up to the next power of two, and to at least ``floor``.
+
+    The one bucket rule of the hierarchy's capacities, the super-step
+    setup's padded shapes (``repro_torch.core.setup_step``) and the
+    strength and λmax iterations' padded state: the eager and super-step
+    setups compute over identical shapes only while these agree.
+    """
+    b = 1 << max(int(math.ceil(math.log2(max(n, 1)))), 0)
+    return max(b, floor, 1)
+
+
+def count_tensor(n, device) -> torch.Tensor:
+    """A vertex count as a 0-d int32 tensor on ``device`` (a tensor count
+    is returned as it is): the divisor of the strength and λmax means.
+    The super-step setup knows its counts only on the device; the eager
+    setup divides by the same kind of operand, since CUDA divides by a
+    host scalar through its reciprocal, which may round differently."""
+    if isinstance(n, torch.Tensor):
+        return n
+    return torch.full((), n, dtype=torch.int32, device=device)
 
 
 def laplacian_dense(level: GraphLevel) -> torch.Tensor:

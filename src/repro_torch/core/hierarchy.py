@@ -3,13 +3,22 @@
 
 The level schedule follows the paper: one low-degree elimination pass,
 then aggregation; repeat until the coarsest graph is dense-solvable. Each
-constructed level's capacity shrinks to a power-of-two bucket.
+constructed level's capacity shrinks to a power-of-two bucket, and each
+Alg 2 round's ⊕ goes through the fused ``agg_vote`` kernel on an ELL
+layout of width ``setup_ell_width``.
 
-The port has one setup loop, the reference's eager loop, with each Alg 2
-round's ⊕ going through the fused vote kernel on an ELL layout of width
-``setup_ell_width`` — the wiring of the reference's default super-step
-setup. ``setup_mode`` ``"superstep"`` and ``"eager"`` both run it: the
-reference pins the two modes as giving equivalent hierarchies.
+Two execution modes (``SetupConfig.setup_mode``):
+
+* ``"superstep"`` (default) — the per-level work runs as steps on arrays
+  padded to power-of-two capacity buckets, with the level sizes on the
+  device and one batched host fetch per constructed level
+  (``repro_torch.core.setup_step``); :func:`build_hierarchy_batch` builds
+  N graphs in lockstep, each bit-identical to its own build.
+* ``"eager"`` — the host-driven loop, which reads sizes back inside every
+  stage and builds each level at its exact shapes.
+
+Both give the same hierarchy: the same levels, aggregates and elimination
+masks, and bitwise the same PCG residuals.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ from repro_torch.core.elimination import (EliminationLevel,
                                           select_eliminated)
 from repro_torch.core.graph import (GraphLevel, graph_from_adjacency,
                                     laplacian_dense, pow2_bucket)
+from repro_torch.core.setup_step import (build_hierarchy_superstep,
+                                         build_hierarchy_superstep_batch)
 from repro_torch.core.smoothers import estimate_lambda_max
 from repro_torch.core.strength import STRENGTH_METRICS
 from repro_torch.sparse.coo import COO
@@ -58,8 +69,17 @@ class SetupConfig:
     matvec_backend: str = "coo"
     ell_width_percentile: float = 95.0
     ell_width_cap: int = 64
-    # "superstep" and "eager" both run the one eager loop (see module doc)
+    # "superstep" (bucket-padded steps, repro_torch.core.setup_step) or
+    # "eager" (the host-driven loop); both give the same hierarchy
     setup_mode: str = "superstep"
+    # power-of-two floor on the super-step buckets: levels smaller than it
+    # share the floor-sized registry entries; 0 = exact power-of-two buckets
+    setup_bucket_floor: int = 0
+    # super-step elimination: "conservative" sizes the F-slot arrays at the
+    # vertex bucket, so selection and the Schur build are one step with one
+    # fetch; "exact" sizes them at bucket(n_elim), two fetches. The
+    # hierarchies are bit-identical.
+    elim_sizing: str = "conservative"
     # width of the ELL layout the Alg 2 vote kernel reduces over; longer
     # rows spill to the staged reduction, so any width is exact
     setup_ell_width: int = 8
@@ -133,17 +153,42 @@ def coarse_inverse(level: GraphLevel, alpha: float, row_h: np.ndarray,
     return torch.linalg.inv(L + alpha * reg)
 
 
-def build_hierarchy(adj: COO, cfg: SetupConfig = SetupConfig()) -> Hierarchy:
-    """Build the multigrid hierarchy."""
+def _check_mode(cfg: SetupConfig) -> None:
     if cfg.setup_mode not in SETUP_MODES:
         raise ValueError(f"setup_mode must be one of {SETUP_MODES}, "
                          f"got {cfg.setup_mode!r}")
+
+
+def build_hierarchy(adj: COO, cfg: SetupConfig = SetupConfig()) -> Hierarchy:
+    """Build the multigrid hierarchy in the configured ``setup_mode``."""
+    _check_mode(cfg)
+    if cfg.setup_mode == "superstep":
+        return build_hierarchy_superstep(adj, cfg)
     return build_hierarchy_eager(adj, cfg)
+
+
+def build_hierarchy_batch(adjs: Sequence[COO],
+                          cfg: SetupConfig = SetupConfig()) -> list:
+    """Build N hierarchies (graphs on one device) as one batched run.
+
+    The setup plans of all graphs advance in lockstep rounds: steps whose
+    levels land in the same capacity buckets share one registry entry, and
+    all pending level decisions share one host fetch a round
+    (``repro_torch.core.setup_step.build_hierarchy_superstep_batch``).
+    Every hierarchy is bit-identical to a looped :func:`build_hierarchy`
+    of the same graph; a ``setup_bucket_floor`` covering the batch keeps
+    same-family graphs in one group end to end. ``setup_mode="eager"``
+    loops over :func:`build_hierarchy_eager`.
+    """
+    _check_mode(cfg)
+    if cfg.setup_mode == "superstep":
+        return build_hierarchy_superstep_batch(adjs, cfg)
+    return [build_hierarchy_eager(adj, cfg) for adj in adjs]
 
 
 def build_hierarchy_eager(adj: COO,
                           cfg: SetupConfig = SetupConfig()) -> Hierarchy:
-    """The host-driven setup loop."""
+    """The host-driven setup loop (``setup_mode="eager"``)."""
     level = graph_from_adjacency(adj)
     transfers: List[Transfer] = []
     lam_maxes: list = []

@@ -11,7 +11,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.core.graph import GraphLevel, pow2_bucket
+from repro_torch.core.graph import GraphLevel, count_tensor, pow2_bucket
 from repro_torch.core.prng import normal
 from repro_torch.sparse.coo import spmv
 
@@ -43,24 +43,33 @@ def _jacobi_ell(level, b: torch.Tensor, x: torch.Tensor, n_sweeps: int,
 
 
 def estimate_lambda_max(level: GraphLevel, n_iters: int = 15,
-                        seed: int = 0) -> torch.Tensor:
+                        seed: int = 0, n_valid=None,
+                        v0: torch.Tensor | None = None) -> torch.Tensor:
     """Power iteration on D⁻¹L (setup time). The iteration state is padded
     to the power-of-two bucket of ``n``, as in the reference, and starts
-    from the reference's ``jax.random.normal`` draw."""
+    from the reference's ``jax.random.normal`` draw.
+
+    ``n_valid``: the count of real vertices (an int or a 0-d tensor) when
+    ``level`` is itself bucket-padded. ``v0``: the start vector already
+    drawn, equal to ``prng.normal(seed, (pow2_bucket(n),))`` (the
+    super-step setup draws it once per bucket)."""
     n = level.n
     n_pad = pow2_bucket(n)
     dev = level.deg.device
-    row_ok = torch.arange(n_pad, device=dev) < n
+    n_real = count_tensor(n if n_valid is None else n_valid, dev)
+    row_ok = torch.arange(n_pad, device=dev) < n_real
     inv_d = torch.zeros(n_pad, dtype=torch.float32, device=dev)
     inv_d[:n] = 1.0 / torch.clamp(level.deg, min=1e-30)
-    v = torch.where(row_ok, normal(seed, (n_pad,), dev), 0.0)
-    v = torch.where(row_ok, v - v.sum() / n, 0.0)
+    if v0 is None:
+        v0 = normal(seed, (n_pad,), dev)
+    v = torch.where(row_ok, v0, 0.0)
+    v = torch.where(row_ok, v - v.sum() / n_real, 0.0)
     v = v / torch.linalg.norm(v)
     lam = torch.zeros((), device=dev)
     for _ in range(n_iters):
         w = torch.zeros_like(v)
         w[:n] = inv_d[:n] * level.laplacian_matvec(v[:n])
-        w = torch.where(row_ok, w - w.sum() / n, 0.0)
+        w = torch.where(row_ok, w - w.sum() / n_real, 0.0)
         lam = torch.linalg.norm(w)
         v = w / torch.clamp(lam, min=1e-30)
     return lam * 1.05

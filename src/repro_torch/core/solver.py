@@ -2,6 +2,7 @@
 
     solver = LaplacianSolver.setup(n, rows, cols, vals)   # multigrid setup
     x, info = solver.solve(b, tol=1e-8)                   # PCG + V-cycle
+    solvers = LaplacianSolver.setup_batch([(n, rows, cols, vals), ...])
 
 Runs on the CUDA card unless ``device`` names another device; without a
 card and without ``device="cpu"`` it raises. ``random_ordering=True``
@@ -17,7 +18,9 @@ import torch
 
 from repro_torch.core.cycles import CycleConfig
 from repro_torch.core.hierarchy import (Hierarchy, SetupConfig, apply_cycle,
-                                        build_hierarchy, hierarchy_stats)
+                                        build_hierarchy,
+                                        build_hierarchy_batch,
+                                        hierarchy_stats)
 from repro_torch.core.krylov import pcg
 from repro_torch.core.wda import pcg_iteration_work, wda
 from repro_torch.device import resolve_device
@@ -32,6 +35,27 @@ class LaplacianSolveInfo:
     wda: float
     work_per_iteration: float
     status: str = "max_iters"
+
+
+def _prepare(n, rows, cols, vals, seed, random_ordering, capacity, dev):
+    """The host-side part of a setup: the paper's random relabeling, the
+    component labels and the Laplacian's adjacency on ``dev``. Returns the
+    solver fields and the adjacency."""
+    from repro_torch.core.components import connected_components
+
+    rows = np.asarray(rows)
+    cols = np.asarray(cols)
+    vals = np.asarray(vals, np.float32)
+    perm = inv_perm = None
+    if random_ordering:
+        rows, cols, perm, inv_perm = random_relabel(n, rows, cols, seed)
+    comp, n_comp = connected_components(n, rows, cols)
+    if n_comp == 1:
+        comp = None
+    adj = to_laplacian_coo(n, rows, cols, vals, capacity=capacity,
+                           device=dev)
+    return dict(n=n, perm=perm, inv_perm=inv_perm, comp=comp,
+                n_comp=n_comp), adj
 
 
 @dataclasses.dataclass
@@ -53,25 +77,35 @@ class LaplacianSolver:
               random_ordering: bool = True, capacity: int | None = None,
               device=None) -> "LaplacianSolver":
         """Build the hierarchy on ``device`` (default: the CUDA card)."""
-        from repro_torch.core.components import connected_components
-
         dev = resolve_device(device)
-        rows = np.asarray(rows)
-        cols = np.asarray(cols)
-        vals = np.asarray(vals, np.float32)
-        perm = inv_perm = None
-        if random_ordering:
-            rows, cols, perm, inv_perm = random_relabel(
-                n, rows, cols, setup_config.seed)
-        comp, n_comp = connected_components(n, rows, cols)
-        if n_comp == 1:
-            comp = None
-        adj = to_laplacian_coo(n, rows, cols, vals, capacity=capacity,
-                               device=dev)
-        h = build_hierarchy(adj, setup_config)
-        return LaplacianSolver(hierarchy=h, cycle_config=cycle_config, n=n,
-                               device=dev, perm=perm, inv_perm=inv_perm,
-                               comp=comp, n_comp=n_comp)
+        prep, adj = _prepare(n, rows, cols, vals, setup_config.seed,
+                             random_ordering, capacity, dev)
+        return LaplacianSolver(hierarchy=build_hierarchy(adj, setup_config),
+                               cycle_config=cycle_config, device=dev, **prep)
+
+    @staticmethod
+    def setup_batch(problems, setup_config: SetupConfig = SetupConfig(),
+                    cycle_config: CycleConfig = CycleConfig(),
+                    random_ordering: bool = True,
+                    device=None) -> "list[LaplacianSolver]":
+        """Batched :meth:`setup` on ``device`` (default: the CUDA card).
+
+        ``problems`` is a sequence of ``(n, rows, cols, vals)`` tuples. The
+        hierarchies come from ``build_hierarchy_batch``: graphs whose
+        levels land in the same capacity buckets share one registry entry
+        a level round, and each solver is bit-identical to a looped
+        :meth:`setup` of the same problem."""
+        dev = resolve_device(device)
+        preps, adjs = [], []
+        for n, rows, cols, vals in problems:
+            prep, adj = _prepare(n, rows, cols, vals, setup_config.seed,
+                                 random_ordering, None, dev)
+            preps.append(prep)
+            adjs.append(adj)
+        hs = build_hierarchy_batch(adjs, setup_config)
+        return [LaplacianSolver(hierarchy=h, cycle_config=cycle_config,
+                                device=dev, **prep)
+                for h, prep in zip(hs, preps)]
 
     @property
     def projector(self):

@@ -131,12 +131,14 @@ def sort_key(row: torch.Tensor, col: torch.Tensor) -> torch.Tensor:
     return (row.long() << 32) | col.long()
 
 
-def coalesce_arrays(row, col, val, n_rows: int, capacity: int,
-                    sentinel=None):
+def coalesce_arrays(row, col, val, n_rows, capacity: int, sentinel=None):
     """Sum duplicate (row, col) entries and drop padding.
 
-    Returns ``(row, col, val, nnz)`` arrays of length ``capacity``, sorted
-    by (row, col) with padding (``sentinel``, default ``n_rows``) last.
+    Returns ``(row, col, val, nnz)``: arrays of length ``capacity``, sorted
+    by (row, col) with padding (``sentinel``, default ``n_rows``) last,
+    and the count of real entries as a 0-d tensor. ``n_rows`` may be an
+    int or a 0-d tensor on the arrays' device (the bucket-padded setup
+    steps), so nothing here makes the host wait on the device.
     Duplicates are summed in their input order, so the result is
     deterministic and matches the reference's ``coalesce_arrays``.
     """
@@ -160,8 +162,7 @@ def coalesce_arrays(row, col, val, n_rows: int, capacity: int,
     out_row = torch.where(is_pad, sentinel, rep_row).to(torch.int32)
     out_col = torch.where(is_pad, sentinel, rep_col).to(torch.int32)
     out_val = torch.where(is_pad, 0.0, summed)
-    nnz = int((~is_pad).sum())
-    return out_row, out_col, out_val, nnz
+    return out_row, out_col, out_val, (~is_pad).sum()
 
 
 def coalesce(row, col, val, n_rows: int, n_cols: int, capacity: int) -> COO:

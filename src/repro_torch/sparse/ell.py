@@ -33,11 +33,13 @@ class ELL:
         return self.col.shape[1]
 
 
-def _ranks(r: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """Rank of each entry within its row for row-sorted ids < n_rows."""
-    counts = torch.bincount(r.long(), minlength=n_rows)
-    starts = torch.cumsum(counts, 0) - counts
-    return torch.arange(r.shape[0], device=r.device) - starts[r.long()]
+def _ranks(r: torch.Tensor) -> torch.Tensor:
+    """Rank of each entry within its row, for row-sorted ids: its position
+    less the position of its row's first entry (found by a binary search,
+    so the host never waits on the device)."""
+    r = r.contiguous()
+    return (torch.arange(r.shape[0], device=r.device)
+            - torch.searchsorted(r, r))
 
 
 def coo_to_ell(a: COO, width: int | None = None) -> tuple[ELL, COO]:
@@ -50,7 +52,7 @@ def coo_to_ell(a: COO, width: int | None = None) -> tuple[ELL, COO]:
     row, col, val = a.row[ok], a.col[ok], a.val[ok]
     order = torch.argsort(sort_key(row, col), stable=True)
     row, col, val = row[order], col[order], val[order]
-    rank = _ranks(row, a.n_rows)
+    rank = _ranks(row)
     if width is None:
         w = int(torch.bincount(row.long(), minlength=a.n_rows).max()) \
             if a.n_rows else 0
@@ -131,8 +133,8 @@ def ell_layout_traced(row: torch.Tensor, col: torch.Tensor, n_rows: int,
 
     Same arrays as the reference's in-jit planner, padding entries
     included, so a payload scattered through either lands identically.
+    Nothing here makes the host wait on the device.
     """
-    cap = row.shape[0]
     dev = row.device
     valid = row < n_rows
     row = torch.where(valid, row, n_rows).to(torch.int32)
@@ -141,8 +143,7 @@ def ell_layout_traced(row: torch.Tensor, col: torch.Tensor, n_rows: int,
     r = row[order]
     c = col[order]
     real = r < n_rows
-    rank = torch.zeros(cap, dtype=torch.int64, device=dev)
-    rank[real] = _ranks(r[real], n_rows)
+    rank = _ranks(r)            # padding sorts last; masked out below
     ok = real & (rank < width)
     rr = torch.where(ok, r, n_rows).long()
     kk = torch.where(ok, rank, 0)

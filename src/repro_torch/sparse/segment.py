@@ -15,7 +15,8 @@ stably sorted by segment id and each segment is summed in entry order
 (``torch.segment_reduce``), never with atomic ``index_add_``. On the CPU
 that is exactly the order of XLA's scatter-add, so sums match the
 reference bit for bit. Integer sums may use ``index_add_``: integer
-addition is associative, so atomics cannot change the result.
+addition is associative, so atomics cannot change the result. No
+reduction here makes the host wait on the device.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from __future__ import annotations
 import torch
 
 _I32_MAX = torch.iinfo(torch.int32).max
+_DROP_CHUNK = 1024
 
 
 def _big(dtype):
@@ -64,9 +66,18 @@ def segment_sum(data: torch.Tensor, ids: torch.Tensor,
         out = data.new_zeros((num_segments + 1,) + data.shape[1:])
         return out.index_add_(0, seg, data)[:num_segments]
     order = torch.argsort(seg, stable=True)
-    lengths = torch.bincount(seg, minlength=num_segments + 1)
+    m, dev = seg.shape[0], seg.device
+    # segment starts from the sorted ids (a CUDA bincount would read the
+    # largest id back to the host); the dropped entries, sorted last, go
+    # in chunks of _DROP_CHUNK so that no one segment holds them all: the
+    # CUDA reduction of a 2-D segment runs one thread a column
+    bounds = torch.searchsorted(seg.index_select(0, order),
+                                torch.arange(num_segments + 1, device=dev))
+    tail = torch.arange(1, m // _DROP_CHUNK + 2, device=dev) * _DROP_CHUNK
+    bounds = torch.cat([bounds, torch.clamp(bounds[-1] + tail, max=m)])
     out = torch.segment_reduce(data.index_select(0, order), "sum",
-                               lengths=lengths, axis=0, unsafe=True)
+                               lengths=bounds[1:] - bounds[:-1], axis=0,
+                               unsafe=True)
     return out[:num_segments]
 
 

@@ -5,9 +5,13 @@
 Builds the main path's graph (Barabási–Albert, m = 4, seed 0, weighted,
 connected) and:
 
-* times ``LaplacianSolver.setup`` per stage with ``cProfile``: setup is a
-  host-driven loop whose host reads synchronise the device, so the wall
-  time of each stage's function is its cost;
+* times ``LaplacianSolver.setup`` (the super-step setup) per stage with
+  ``cProfile``; the stages' host reads, and the super-step's fetches
+  (``_fetch``), wait for the device, so a stage's wall time holds the
+  device work queued before its next wait. Then a second, warm super-step
+  build of the same adjacency with ``profile=``: the seconds of each
+  constructed level (each level ends in a device wait), its host fetches
+  and its registry entries/calls; then a warm eager build of it;
 * times one warm solve (tol 1e-6) untraced, then traces the same solve
   with ``torch.profiler``: device time by kernel name, and the device's
   busy share against the untraced wall time (the profiler's own host
@@ -30,10 +34,10 @@ import time
 
 SETUP_STAGES = (
     "random_relabel", "connected_components", "to_laplacian_coo",
-    "select_eliminated", "build_elimination_level",
-    "algebraic_distance_strength", "ell_layout_traced", "aggregate",
-    "renumber_aggregates", "contract", "estimate_lambda_max",
-    "coarse_inverse", "attach_ell_transfers")
+    "select_eliminated", "schur_arrays", "algebraic_distance_strength",
+    "ell_layout_traced", "aggregate", "renumber_device", "contract_arrays",
+    "estimate_lambda_max", "_fetch", "coarse_inverse",
+    "attach_ell_transfers")
 
 
 def _stage_seconds(prof: cProfile.Profile) -> dict:
@@ -138,7 +142,8 @@ def main(argv=None) -> int:
     import numpy as np
     import torch
 
-    from repro_torch.core.hierarchy import SetupConfig
+    from repro_torch.core import setup_step
+    from repro_torch.core.hierarchy import SetupConfig, build_hierarchy_eager
     from repro_torch.core.solver import LaplacianSolver
     from repro_torch.graphs.generators import barabasi_albert, ensure_connected
 
@@ -154,15 +159,27 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     n, r, c, v = ensure_connected(*barabasi_albert(args.n, m=4, seed=0,
                                                    weighted=True))
+    cfg = SetupConfig(matvec_backend="ell")
     prof = cProfile.Profile()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     prof.enable()
-    solver = LaplacianSolver.setup(n, r, c, v,
-                                   SetupConfig(matvec_backend="ell"))
+    solver = LaplacianSolver.setup(n, r, c, v, cfg)
     torch.cuda.synchronize()
     prof.disable()
     setup_s = time.perf_counter() - t0
+    levels: list = []
+    setup_step.reset_counters()
+    t0 = time.perf_counter()
+    adj = solver.hierarchy.transfers[0].fine.adj       # the input, as is
+    setup_step.build_hierarchy_superstep(adj, cfg, profile=levels)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    ledger = setup_step.counters()
+    t0 = time.perf_counter()
+    build_hierarchy_eager(adj, cfg)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
 
     b = np.random.default_rng(100).normal(size=n).astype(np.float32)
     b -= b.mean()
@@ -171,6 +188,12 @@ def main(argv=None) -> int:
     print(json.dumps(dict(
         device=torch.cuda.get_device_name(0), n=n, nnz=len(r),
         setup_s=round(setup_s, 3), setup_stage_s=_stage_seconds(prof),
+        superstep_warm_s=round(warm_s, 3), eager_warm_s=round(eager_s, 3),
+        superstep_level_s=[[k, n_fine, round(sec, 4)]
+                           for k, n_fine, sec in levels],
+        superstep_host_syncs=ledger["host_syncs"],
+        superstep_registry={k: f"{st['compiles']}/{st['calls']}"
+                            for k, st in ledger["steps"].items()},
         solve_iters=info.iters,
         **{f"solve_{k}": val for k, val in prof_solve.items()})))
     return 0

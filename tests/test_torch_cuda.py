@@ -300,3 +300,98 @@ def test_cuda_embedding_bag_unaligned_ids_view(hot):
     view = I[1:]
     assert view.is_contiguous() and view.data_ptr() % 16 != 0
     _check_bag(T, view)
+
+
+def _ba_adj(n, seed):
+    from repro_torch.graphs.generators import (barabasi_albert,
+                                               ensure_connected,
+                                               to_laplacian_coo)
+
+    n, r, c, v = ensure_connected(*barabasi_albert(n, m=4, seed=seed,
+                                                   weighted=True))
+    return (n, r, c, v), to_laplacian_coo(n, r, c, v)
+
+
+@pytest.mark.cuda
+def test_cuda_superstep_steps_never_sync():
+    """A super-step setup under ``torch.cuda.set_sync_debug_mode("error")``
+    from the plan's start to its end, the registry cold so that the step
+    builders run under it too: only ``_fetch`` and the host work after the
+    last fetch lift it. One fetch per constructed level, plus the probe
+    and the coarse solve's."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import setup_step as ss
+    from repro_torch.core.hierarchy import SetupConfig
+
+    _, adj = _ba_adj(1 << 12, 3)
+    ss.clear_cache()
+    ss.reset_counters()
+    v0 = vote_reduce.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h = ss.build_hierarchy_superstep(adj,
+                                         SetupConfig(matvec_backend="ell"))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert vote_reduce.launches > v0
+    assert h.n_levels > 2
+    assert ss.counters()["host_syncs"] <= (h.n_levels - 1) + 3
+
+
+@pytest.mark.cuda
+def test_cuda_superstep_equals_eager():
+    """At n = 2^14 on the card: the same levels, aggregates and elimination
+    masks, and bitwise the same PCG residual history and solution."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from repro_torch.core.hierarchy import SetupConfig
+    from repro_torch.core.solver import LaplacianSolver
+
+    (n, r, c, v), _ = _ba_adj(1 << 14, 5)
+    cfg = SetupConfig(matvec_backend="ell")
+    s = LaplacianSolver.setup(n, r, c, v, cfg)
+    e = LaplacianSolver.setup(n, r, c, v,
+                              dataclasses.replace(cfg, setup_mode="eager"))
+    keys = ("kind", "n", "nnz", "ell_width", "ell_spill")
+    assert [[row[k] for k in keys] for row in s.stats()["levels"]] == \
+        [[row[k] for k in keys] for row in e.stats()["levels"]]
+    for ts, te in zip(s.hierarchy.transfers, e.hierarchy.transfers):
+        for name in ("coarse_id", "elim_mask", "c_index", "f_index"):
+            if hasattr(te, name):
+                assert torch.equal(getattr(ts, name), getattr(te, name))
+    b = np.random.default_rng(1).normal(size=n).astype(np.float32)
+    b -= b.mean()
+    xs, i_s = s.solve(b, tol=1e-6)
+    xe, i_e = e.solve(b, tol=1e-6)
+    assert i_s.converged and i_s.iters == i_e.iters
+    assert i_s.residual_norms == i_e.residual_norms
+    assert torch.equal(xs, xe)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cols", [0, 8])
+def test_cuda_segment_sum_bitwise_unchanged(cols):
+    """The segment sums take their boundaries from the sorted ids and sum
+    the dropped entries in chunks: on the card too every real segment's
+    sum is the bits of the histogram-based form it replaced."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.sparse.segment import _seg_ids, segment_sum
+
+    rng = np.random.default_rng(cols)
+    m, n_seg = 3_000_000, 200_000
+    ids = _t(rng.integers(-5, int(n_seg * 1.4), m).astype(np.int32)).cuda()
+    shape = (m, cols) if cols else (m,)
+    data = _t(rng.normal(size=shape).astype(np.float32)).cuda()
+    seg = _seg_ids(ids, n_seg)
+    order = torch.argsort(seg, stable=True)
+    want = torch.segment_reduce(
+        data.index_select(0, order), "sum",
+        lengths=torch.bincount(seg, minlength=n_seg + 1), axis=0,
+        unsafe=True)[:n_seg]
+    got = segment_sum(data, ids, n_seg)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
