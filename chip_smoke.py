@@ -44,7 +44,32 @@ Phases, one line each (any failure exits non-zero):
              (launches per setup; the rows padded to the level's bucket):
              the tile plan, both times against the bound, a check against
              the plain version and a bitwise repeat.
-4. e2e     — the same path at n = 2^16 with the kernels and with the plain
+4. facade  — the facade (``repro_torch.api``) on the main graph, after the
+             main solver is dropped: ``Problem.from_edges`` and
+             ``fingerprint()`` (seconds), ``setup(problem, SolverOptions(
+             matvec_backend="ell", tol=1e-6), backend="auto")``, which must
+             resolve to ``"single"`` and launch ``agg_vote``; ``solve(b)``
+             bitwise equal to the main phase's direct solve of the same b;
+             a seeded block of 8 right-hand sides, which must launch
+             ``spmv_ell`` and ``jacobi``, converge in every column with a
+             float64 host residual ≤ 1e-4, and equal looped single solves
+             bit for bit (ms per right-hand side at k = 1 and 8), as must
+             the block with guards off and with ``x0`` zeros; a second
+             equal setup from the cache (``setup_seconds == 0.0``);
+             ``verify="paranoid"`` and ``"cheap"``, bitwise equal with a
+             passing certificate (the certificate's seconds; the check's cost per
+             iteration by CUDA events on the block's shapes, and from the
+             two handles' block solves in turns);
+             the ladder under ``inject`` (a NaN SpMV at call 2 and a
+             rebuild that raises: status ``"degraded"``, stages exactly
+             primary, rebuild, diag_pcg, host residual ≤ 1e-4); a
+             ``bitflip`` of the stored edge weights on the paranoid solver
+             (flagged ``sdc_spmv``, recovered by the rebuild rung, bitwise
+             the direct solve) and, printed only, a ``perturb``; then
+             ``build_solve_step`` and the guarded ``pcg_scanned`` under
+             ``torch.cuda.set_sync_debug_mode("error")``: code ``SCAN_OK``
+             and x within 1e-5 of the eager PCG on the same b.
+5. e2e     — the same path at n = 2^16 with the kernels and with the plain
              versions (the setup registry cleared between the two):
              identical levels, iteration counts within ±1 and ‖x_k −
              x_p‖/‖x_p‖ ≤ 1e-4. Then the super-step contracts, at a bucket
@@ -57,7 +82,7 @@ Phases, one line each (any failure exits non-zero):
              are counted beside the super-step's fetches; the second graph
              adds no registry entry; the batched setup of both graphs is
              bitwise equal, tensor by tensor, to their single builds.
-5. deepfm  — DeepFM serving at full width (``configs/deepfm.py::FULL``: 39
+6. deepfm  — DeepFM serving at full width (``configs/deepfm.py::FULL``: 39
              fields, d = 10, H = 2, MLP 390-400-400-400-1, 3,729,408 table
              rows), weights from a seeded generator: 8 serve_p99 requests
              (B = 512, ``recsys_batch_stream`` steps 0-7, seed 0), one
@@ -286,16 +311,20 @@ def graph(n: int, seed: int):
                                              weighted=True))
 
 
-def host_residual(n, r, c, v, b, x) -> float:
-    """‖b − Lx‖ / ‖b‖ in float64 on the host, from the input edge list."""
+def host_residual(n, r, c, v, b, x):
+    """‖b − Lx‖ / ‖b‖ in float64 on the host, from the input edge list: a
+    float for vectors, one per column for ``(n, k)`` blocks."""
     import numpy as np
     import scipy.sparse as sp
 
     a = sp.csr_matrix((v.astype(np.float64), (r, c)), shape=(n, n))
     deg = np.asarray(a.sum(axis=1)).ravel()
     x = x.astype(np.float64)
+    if x.ndim == 2:
+        deg = deg[:, None]
     res = b.astype(np.float64) - (deg * x - a @ x)
-    return float(np.linalg.norm(res) / np.linalg.norm(b))
+    rel = np.linalg.norm(res, axis=0) / np.linalg.norm(b, axis=0)
+    return float(rel) if x.ndim == 1 else rel
 
 
 def phase_build(torch):
@@ -394,7 +423,8 @@ def phase_main(torch, np):
     check(tallied == launches["agg_vote"],
           f"agg_vote: {tallied} calls tallied by shape, "
           f"{launches['agg_vote']} launches in the setup")
-    setup.update(graph=(n, r, c, v), b=first_b, info=info)
+    setup.update(graph=(n, r, c, v), b=first_b, info=info,
+                 x=x2.cpu().numpy())
     return solver, launches, {**per_shape, **per_setup}, setup
 
 
@@ -620,6 +650,216 @@ def phase_levels(torch, solver, per_shape) -> None:
         dict(spmv_ell_per_solve=gap["spmv_ell"],
              jacobi_per_solve=gap["jacobi"],
              agg_vote_per_setup=gap["agg_vote"])))
+
+
+def bits_equal(np, a, b) -> bool:
+    """Two float32 host arrays equal bit for bit."""
+    return a.shape == b.shape and np.array_equal(a.view(np.int32),
+                                                 b.view(np.int32))
+
+
+def phase_facade(torch, np, setup) -> dict:
+    """The facade (``repro_torch.api``) on the main graph: the Problem, a
+    setup through backend "auto", one and eight right-hand sides against
+    the direct solve and looped solves, the cache, paranoid verification,
+    the degradation ladder and silent-corruption detection under injected
+    faults, and the scanned solve under sync debug mode "error". Returns
+    each solver kernel's launches on the facade's path (agg_vote in its
+    setup, spmv_ell and jacobi in its solves of one and eight
+    right-hand sides, and embedding_bag over the whole phase, which must
+    be 0)."""
+    from repro_torch.api import Problem, SolverOptions
+    from repro_torch.api import setup as api_setup
+    from repro_torch.core.krylov import SCAN_OK, pcg, pcg_scanned
+    from repro_torch.core.verify import certify
+    from repro_torch.kernels.agg_vote import vote_reduce
+    from repro_torch.kernels.embedding_bag import ops as bag_ops
+    from repro_torch.kernels.jacobi import jacobi_step
+    from repro_torch.kernels.spmv_ell import spmv_ell
+    from repro_torch.testing import Fault, FaultPlan, inject
+
+    bag_ops.embedding_bag_kernel.launches = 0   # not on the facade's path
+    n, r, c, v = setup["graph"]
+    b0, x_direct = setup["b"], setup["x"]
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # 1. the problem, and a setup through backend "auto"
+    problem, build_s = timed(lambda: Problem.from_edges(n, r, c, v))
+    fp, fp_s = timed(problem.fingerprint)
+    opts = SolverOptions(matvec_backend="ell", tol=1e-6)
+    vote_reduce.launches = 0
+    solver, setup_s = timed(lambda: api_setup(problem, opts, backend="auto"))
+    votes = vote_reduce.launches
+    say("facade", step="problem", n=n, stored_nnz=len(problem.rows),
+        from_edges_s=round(build_s, 3), fingerprint_s=round(fp_s, 3),
+        fingerprint=fp[:16], backend=solver.backend,
+        setup_s=round(setup_s, 3), agg_vote_launches=votes)
+    check(solver.backend == "single",
+          f"backend auto resolved to {solver.backend!r} on one card")
+    check(votes > 0, "the facade's setup launched no agg_vote kernel")
+
+    # 2. one right-hand side, then a block of 8
+    spmv_ell.launches = jacobi_step.launches = 0
+    (x, res), one_s = timed(lambda: solver.solve(b0))
+    B = np.random.default_rng(200).normal(size=(n, 8)).astype(np.float32)
+    B -= B.mean(axis=0)
+    (X, res_b), block_s = timed(lambda: solver.solve(B))
+    launched = dict(spmv_ell=spmv_ell.launches, jacobi=jacobi_step.launches)
+    looped_s, same, iters_same = 0.0, [], []
+    for j in range(B.shape[1]):
+        (xj, rj), sec = timed(lambda: solver.solve(B[:, j]))
+        looped_s += sec
+        same.append(bits_equal(np, X[:, j], xj))
+        iters_same.append(rj.iters == res_b.iters_per_rhs[j])
+    rels = host_residual(n, r, c, v, B, X)
+    X_ng = solver._handle.solve_block(B, 1e-6, 200, guard=False)[0]
+    X_z, _ = solver.solve(B, x0=np.zeros_like(B))
+    pairs = dict(guards_off=bits_equal(np, X_ng, X),
+                 x0_zeros=bits_equal(np, X_z, X))
+    say("facade", step="solve", direct_bitwise=bits_equal(np, x, x_direct),
+        iters=res.iters, ms_per_rhs_k1=one_s * 1e3,
+        ms_per_rhs_k8=block_s * 1e3 / 8, looped_ms_per_rhs=looped_s * 1e3 / 8,
+        block_iters=json.dumps(res_b.iters_per_rhs.tolist()),
+        statuses=json.dumps(res_b.statuses.tolist()),
+        blocked_vs_looped_bitwise=json.dumps(same),
+        bitwise=json.dumps(pairs),
+        max_host_f64_rel_residual=f"{rels.max():.3e}",
+        launches=json.dumps(launched))
+    check(bits_equal(np, x, x_direct),
+          "the facade's solve is not bitwise equal to the direct solve")
+    check(all(count > 0 for count in launched.values()),
+          f"a solver kernel was not launched through the facade: {launched}")
+    check(all(same) and all(iters_same),
+          "blocked columns differ from looped solves")
+    check(all(pairs.values()), f"bitwise pairs {pairs}")
+    check(res_b.converged and all(s == "converged" for s in res_b.statuses),
+          f"a column did not converge: {res_b.statuses.tolist()}")
+    check(bool((rels <= 1e-4).all()), f"host residuals {rels.tolist()}")
+
+    # 3. the cache
+    again = api_setup(problem, opts, backend="auto")
+    say("facade", step="cache", setup_seconds=again.setup_seconds)
+    check(again.setup_seconds == 0.0, "an equal setup missed the cache")
+
+    # 4. paranoid verification; the check's cost from the two handles'
+    # block solves in turns (off, paranoid, paranoid, off), no certificate
+    popts = SolverOptions(matvec_backend="ell", tol=1e-6, verify="paranoid")
+    par, par_setup_s = timed(lambda: api_setup(problem, popts,
+                                               backend="auto"))
+    (X_p, res_p), par_s = timed(lambda: par.solve(B))
+    cert, cert_s = timed(lambda: certify(problem, B, X, 1e-6))
+    turns = {False: [], True: []}
+    for checked in (False, True, True, False):
+        handle = (par if checked else solver)._handle
+        turns[checked].append(timed(lambda: handle.solve_block(
+            B, 1e-6, 200))[1])
+    overhead = ((min(turns[True]) - min(turns[False])) * 1e3
+                / max(res_b.iters, 1))
+    # what the check adds to one iteration of the block: stacking P and Ap
+    # (8 columns each) and the check's reductions, by CUDA events
+    cols = [torch.as_tensor(B[:, j], device=par._handle._solver.device)
+            for j in range(B.shape[1])]
+    chk = par._handle._check
+    check_ms = time_ms(torch, lambda: chk(torch.stack(cols, 1),
+                                          torch.stack(cols, 1)))
+    say("facade", step="verify", mode="paranoid",
+        setup_s=round(par_setup_s, 3), bitwise=bits_equal(np, X_p, X),
+        certificate_passed=res_p.certificate.passed,
+        certificate_max_rel=f"{max(res_p.certificate.rel_residuals):.3e}",
+        certificate_s=round(cert_s, 3), solve_ms=par_s * 1e3,
+        block_ms_off=json.dumps([round(t * 1e3, 1) for t in turns[False]]),
+        block_ms_paranoid=json.dumps([round(t * 1e3, 1)
+                                      for t in turns[True]]),
+        turns_overhead_ms_per_iteration=round(overhead, 3),
+        check_ms_per_iteration=round(check_ms, 4))
+    check(bits_equal(np, X_p, X),
+          "verify='paranoid' changed the solution bits")
+    check(res_p.certificate.passed and cert.passed,
+          "the certificate refused a clean solve")
+    copts = SolverOptions(matvec_backend="ell", tol=1e-6, verify="cheap")
+    x_c, res_c = api_setup(problem, copts, backend="auto").solve(b0)
+    say("facade", step="verify", mode="cheap",
+        direct_bitwise=bits_equal(np, x_c, x_direct),
+        certificate_passed=res_c.certificate.passed)
+    check(bits_equal(np, x_c, x_direct) and res_c.certificate.passed,
+          "verify='cheap' changed the solution bits or refused it")
+
+    # 5. the ladder: a NaN SpMV in the primary solve, a rebuild that raises
+    plan = FaultPlan({"solve.spmv": Fault("nan", at_calls=(2,)),
+                      "setup.build": Fault("raise", at_calls=(0,))})
+    with inject(plan):
+        (x_l, res_l), ladder_s = timed(lambda: solver.solve(b0,
+                                                            max_iters=1000))
+    stages = [d["stage"] for d in res_l.diagnostics]
+    rel_l = host_residual(n, r, c, v, b0, x_l)
+    say("facade", step="ladder", status=res_l.status,
+        stages=json.dumps(stages), fired=json.dumps(plan.fired),
+        rung_statuses=json.dumps([d["status"] for d in res_l.diagnostics]),
+        diag_pcg_iters=res_l.iters, seconds=round(ladder_s, 3),
+        host_f64_rel_residual=f"{rel_l:.3e}")
+    check(res_l.status == "degraded" and plan.fired,
+          f"the ladder ended {res_l.status!r}, fired {plan.fired}")
+    check(stages == ["primary", "rebuild", "diag_pcg"],
+          f"ladder stages {stages}")
+    check(rel_l <= 1e-4, f"ladder host residual {rel_l:.3e}")
+
+    # silent corruption of the stored edge weights, on the paranoid solver
+    for mode in ("bitflip", "perturb"):
+        plan = FaultPlan({"sdc.edge_weights": Fault(mode, at_calls=(0,))})
+        with inject(plan):
+            (x_s, res_s), sdc_s = timed(lambda: par.solve(b0))
+        stages = [d["stage"] for d in res_s.diagnostics]
+        primary = res_s.diagnostics[0]["statuses"] if stages else []
+        say("facade", step="sdc", mode=mode, status=res_s.status,
+            stages=json.dumps(stages), primary=json.dumps(primary),
+            certificate_passed=res_s.certificate.passed,
+            direct_bitwise=bits_equal(np, x_s, x_direct),
+            seconds=round(sdc_s, 3))
+        if mode == "bitflip":
+            check(primary == ["sdc_spmv"] and stages == ["primary",
+                                                         "rebuild"],
+                  f"bitflip: primary {primary}, stages {stages}")
+            check(res_s.status == "degraded" and res_s.certificate.passed
+                  and bits_equal(np, x_s, x_direct),
+                  "the rebuild rung did not recover the flagged column")
+
+    # 6. the scanned solve: no host read inside
+    lsolver = solver._handle._solver
+    b_int = lsolver._to_internal(torch.as_tensor(b0, device=lsolver.device))
+    (x_e, info_e), eager_s = timed(lambda: pcg(
+        lsolver.matvec, b_int, precond=lsolver.precondition, tol=1e-6,
+        maxiter=200))
+    step = lsolver.build_solve_step(info_e.iters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        x_u, norms_u = step(b_int)
+        x_g, norms_g, code = pcg_scanned(
+            lsolver.matvec, b_int, precond=lsolver.precondition,
+            n_iters=info_e.iters, guard=True, tol=1e-6)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    scan_s = time.perf_counter() - t0
+    diffs = [float(torch.linalg.norm(a - x_e) / torch.linalg.norm(x_e))
+             for a in (x_u, x_g)]
+    say("facade", step="scanned", sync_debug="error", n_iters=info_e.iters,
+        code=int(code), rel_diff_unguarded=f"{diffs[0]:.3e}",
+        rel_diff_guarded=f"{diffs[1]:.3e}",
+        bitwise=bool(torch.equal(x_u, x_e) and torch.equal(x_g, x_e)),
+        eager_ms=eager_s * 1e3, two_scanned_ms=scan_s * 1e3)
+    check(int(code) == SCAN_OK, f"guarded scanned solve code {int(code)}")
+    check(max(diffs) <= 1e-5, f"scanned solves differ from eager: {diffs}")
+    bags = bag_ops.embedding_bag_kernel.launches
+    check(bags == 0, f"the facade's path launched embedding_bag {bags} times")
+    return dict(launched, agg_vote=votes, embedding_bag=bags)
 
 
 def phase_e2e(torch, np):
@@ -942,10 +1182,16 @@ def main() -> int:
     phase_superstep(torch, solver, setup)
     records = phase_kernels(torch, np, solver, launches, per_shape)
     phase_levels(torch, solver, per_shape)
-    del solver, setup
+    del solver, per_shape
+    facade = phase_facade(torch, np, setup)
+    del setup
+    for rec in records:                 # the facade path's own launches
+        rec["facade_launches"] = facade[rec["name"]]
     phase_e2e(torch, np)
     model, flat, bag_launches = phase_deepfm(torch, np)
-    records.append(phase_kernels_deepfm(torch, model, flat, bag_launches))
+    records.append(dict(phase_kernels_deepfm(torch, model, flat,
+                                             bag_launches),
+                        facade_launches=facade["embedding_bag"]))
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

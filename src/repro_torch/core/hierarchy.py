@@ -47,6 +47,7 @@ from repro_torch.core.strength import STRENGTH_METRICS
 from repro_torch.sparse.coo import COO
 from repro_torch.sparse.ell import ell_layout_traced
 from repro_torch.sparse.matvec import build_hybrid, validate_backend
+from repro_torch.testing import faults
 
 SETUP_MODES = ("superstep", "eager")
 
@@ -147,10 +148,12 @@ def coarse_inverse(level: GraphLevel, alpha: float, row_h: np.ndarray,
     comp, n_comp = connected_components(n_c, row_h[m], col_h[m])
     if n_comp == 1:
         ones = torch.ones((n_c, n_c), dtype=L.dtype, device=L.device)
-        return torch.linalg.inv(L + alpha * ones / n_c)
-    reg = torch.as_tensor(component_ones_matrix(comp, n_comp),
-                          device=L.device)
-    return torch.linalg.inv(L + alpha * reg)
+        inv = torch.linalg.inv(L + alpha * ones / n_c)
+    else:
+        reg = torch.as_tensor(component_ones_matrix(comp, n_comp),
+                              device=L.device)
+        inv = torch.linalg.inv(L + alpha * reg)
+    return faults.site("setup.coarse_inv", inv)
 
 
 def _check_mode(cfg: SetupConfig) -> None:
@@ -161,6 +164,7 @@ def _check_mode(cfg: SetupConfig) -> None:
 
 def build_hierarchy(adj: COO, cfg: SetupConfig = SetupConfig()) -> Hierarchy:
     """Build the multigrid hierarchy in the configured ``setup_mode``."""
+    faults.checkpoint("setup.build")
     _check_mode(cfg)
     if cfg.setup_mode == "superstep":
         return build_hierarchy_superstep(adj, cfg)
@@ -180,6 +184,7 @@ def build_hierarchy_batch(adjs: Sequence[COO],
     same-family graphs in one group end to end. ``setup_mode="eager"``
     loops over :func:`build_hierarchy_eager`.
     """
+    faults.checkpoint("setup.build")
     _check_mode(cfg)
     if cfg.setup_mode == "superstep":
         return build_hierarchy_superstep_batch(adjs, cfg)
@@ -240,7 +245,8 @@ def build_hierarchy_eager(adj: COO,
             continue
         t = contract(level, coarse_id, n_c)
         t = dataclasses.replace(t, coarse=_shrink(t.coarse))
-        lam_maxes.append(estimate_lambda_max(level))
+        lam_maxes.append(faults.site("setup.lambda_max",
+                                     estimate_lambda_max(level)))
         transfers.append(t)
         level = t.coarse
 

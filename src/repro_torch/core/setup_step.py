@@ -82,6 +82,7 @@ from repro_torch.core.strength import STRENGTH_METRICS
 from repro_torch.sparse.coo import COO
 from repro_torch.sparse.ell import ell_layout_traced
 from repro_torch.sparse.segment import segment_sum
+from repro_torch.testing import faults
 
 
 # ----------------------------------------------------------------------------
@@ -645,7 +646,8 @@ def _setup_plan(adj: COO, cfg, profile: list | None = None):
             lam_maxes.append(torch.zeros((), device=dev))
         else:
             t = _wrap_agg(level, spec)
-            lam_maxes.append(spec["out"]["lam"])
+            lam_maxes.append(faults.site("setup.lambda_max",
+                                         spec["out"]["lam"]))
         transfers.append(t)
         level = t.coarse
 

@@ -61,10 +61,18 @@ def take_fill(x: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
 def segment_sum(data: torch.Tensor, ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """Sum ``data`` rows by segment id; out-of-range ids are dropped."""
-    seg = _seg_ids(ids, num_segments)
     if not data.is_floating_point():
+        seg = _seg_ids(ids, num_segments)
         out = data.new_zeros((num_segments + 1,) + data.shape[1:])
         return out.index_add_(0, seg, data)[:num_segments]
+    return segment_sum_plan(ids, num_segments)(data)
+
+
+def segment_sum_plan(ids: torch.Tensor, num_segments: int):
+    """The float :func:`segment_sum` over fixed ``ids``, its sort done
+    once: returns ``f(data)``, bit for bit ``segment_sum(data, ids,
+    num_segments)``, for callers that sum over the same ids many times."""
+    seg = _seg_ids(ids, num_segments)
     order = torch.argsort(seg, stable=True)
     m, dev = seg.shape[0], seg.device
     # segment starts from the sorted ids (a CUDA bincount would read the
@@ -75,10 +83,14 @@ def segment_sum(data: torch.Tensor, ids: torch.Tensor,
                                 torch.arange(num_segments + 1, device=dev))
     tail = torch.arange(1, m // _DROP_CHUNK + 2, device=dev) * _DROP_CHUNK
     bounds = torch.cat([bounds, torch.clamp(bounds[-1] + tail, max=m)])
-    out = torch.segment_reduce(data.index_select(0, order), "sum",
-                               lengths=bounds[1:] - bounds[:-1], axis=0,
-                               unsafe=True)
-    return out[:num_segments]
+    lengths = bounds[1:] - bounds[:-1]
+
+    def apply(data: torch.Tensor) -> torch.Tensor:
+        out = torch.segment_reduce(data.index_select(0, order), "sum",
+                                   lengths=lengths, axis=0, unsafe=True)
+        return out[:num_segments]
+
+    return apply
 
 
 def _segment_extreme(data, ids, num_segments, reduce, init):

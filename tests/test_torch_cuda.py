@@ -395,3 +395,52 @@ def test_cuda_segment_sum_bitwise_unchanged(cols):
         unsafe=True)[:n_seg]
     got = segment_sum(data, ids, n_seg)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_facade_bitwise_pairs():
+    """The facade on the card at n = 2^14: blocked columns, guards off,
+    ``x0`` zeros and ``verify`` cheap / paranoid are bitwise equal to the
+    plain blocked solve, whose columns are bitwise looped single solves;
+    the diag-PCG rung converges on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.api import Problem, SolverOptions, setup
+    from repro_torch.api.fallback import diag_pcg_block
+
+    (n, r, c, v), _ = _ba_adj(1 << 14, 6)
+    p = Problem.from_edges(n, r, c, v)
+    B = np.random.default_rng(2).normal(size=(n, 4)).astype(np.float32)
+    B -= B.mean(axis=0)
+    solver = setup(p, SolverOptions(matvec_backend="ell", tol=1e-6),
+                   cache=False)
+    X, res = solver.solve(B)
+    assert res.status == "converged"
+
+    def same(a, b):
+        return np.array_equal(a.view(np.int32), b.view(np.int32))
+
+    for j in range(4):
+        assert same(solver.solve(B[:, j])[0], X[:, j])
+    assert same(solver._handle.solve_block(B, 1e-6, 200, guard=False)[0], X)
+    assert same(solver.solve(B, x0=np.zeros_like(B))[0], X)
+    for mode in ("cheap", "paranoid"):
+        Xv, rv = setup(p, SolverOptions(matvec_backend="ell", tol=1e-6,
+                                        verify=mode), cache=False).solve(B)
+        assert same(Xv, X) and rv.certificate.passed
+    _, _, _, statuses = diag_pcg_block(p, B, 1e-6, 500)
+    assert statuses.tolist() == ["converged"] * 4
+
+
+@pytest.mark.cuda
+def test_cuda_fault_site_keeps_the_tensor_on_the_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.testing import Fault, FaultPlan, inject, site
+
+    x = torch.ones(1000, device="cuda")
+    assert site("solve.spmv", x) is x
+    with inject(FaultPlan({"solve.spmv": Fault(mode="nan")})):
+        y = site("solve.spmv", x)
+    assert y.device == x.device and y.dtype == x.dtype
+    assert int(torch.isnan(y).sum()) == 50
