@@ -69,7 +69,42 @@ Phases, one line each (any failure exits non-zero):
              ``build_solve_step`` and the guarded ``pcg_scanned`` under
              ``torch.cuda.set_sync_debug_mode("error")``: code ``SCAN_OK``
              and x within 1e-5 of the eager PCG on the same b.
-5. e2e     — the same path at n = 2^16 with the kernels and with the plain
+5. paper   — the paper's Fig 3 evaluation (``benchmarks/port_wda.py``).
+             (a) The seven graphs of ``PAPER_FIG3`` at the paper's sizes
+             (seeded stand-ins, 8,192 to 32,768 vertices), each with one
+             seeded mean-free b at tol 1e-8 through the facade's
+             ``single`` backend (ours, ``matvec_backend="ell"``, maxiter
+             300) and its ``serial_ref`` backend (maxiter 300), both with
+             the float64 certificate judging the status, and Jacobi-PCG
+             on the graph's Laplacian and its ELL twin (maxiter 4000): one
+             ``[paper]`` line a graph with n, nnz, the three WDAs beside
+             the paper's, iterations, statuses, setup s, solve ms, the
+             float64 host residuals, each solver's launches and, where a
+             solver missed 1e-4, the float32 floor (the float64 direct
+             solution's residual rounded to float32). No solver may report
+             ``converged`` at a host residual above 1e-4. Ours and
+             serial_ref must converge to a host residual ≤ 1e-4 unless
+             the float32 floor is itself above 1e-4 (no float32 answer
+             near the solution meets the bound); ours must launch all
+             three solver kernels,
+             serial_ref ``spmv_ell`` and ``jacobi`` and no ``agg_vote``,
+             Jacobi-PCG ``spmv_ell``; on ``de2010`` ours' WDA must be below
+             Jacobi-PCG's. (b) A Delaunay triangulation of 2^20 uniform
+             points (unweighted; the class and size of DIMACS10
+             delaunay_n20): the super-step setup with ``setup_ell_sweeps``
+             off and on and the eager setup with it on, 4 seeded solves
+             each at tol 1e-6 (host residual ≤ 1e-4); ``spmv_ell`` must
+             launch in setup only with the switch on (tallied by shape and
+             aggregation level), and the eager residual histories must be
+             bitwise the super-step's; each aggregation level's strength
+             stage is timed alone without and with the twin; Jacobi-PCG at
+             tol 1e-6 is recorded, not required to converge. Then
+             ``spmv_ell`` at every shape the sweeps-on setups launched it
+             (both modes), on the setup's own last arguments at that
+             shape, against its plain version and for a bitwise repeat.
+             The phase's launches (read before these checks) go into the
+             kernels JSON as ``paper_launches``.
+6. e2e     — the same path at n = 2^16 with the kernels and with the plain
              versions (the setup registry cleared between the two):
              identical levels, iteration counts within ±1 and ‖x_k −
              x_p‖/‖x_p‖ ≤ 1e-4. Then the super-step contracts, at a bucket
@@ -78,11 +113,13 @@ Phases, one line each (any failure exits non-zero):
              ``torch.cuda.set_sync_debug_mode("error")`` on from the
              plan's start to its end (lifted only in its host fetches and
              the host work after the last) completes and launches
-             ``agg_vote``; the eager loop's host syncs (mode ``"warn"``)
+             ``agg_vote``, and so does one with ``setup_ell_sweeps`` (its
+             own registry entries), which must launch ``spmv_ell``; the
+             eager loop's host syncs (mode ``"warn"``)
              are counted beside the super-step's fetches; the second graph
              adds no registry entry; the batched setup of both graphs is
              bitwise equal, tensor by tensor, to their single builds.
-6. deepfm  — DeepFM serving at full width (``configs/deepfm.py::FULL``: 39
+7. deepfm  — DeepFM serving at full width (``configs/deepfm.py::FULL``: 39
              fields, d = 10, H = 2, MLP 390-400-400-400-1, 3,729,408 table
              rows), weights from a seeded generator: 8 serve_p99 requests
              (B = 512, ``recsys_batch_stream`` steps 0-7, seed 0), one
@@ -108,6 +145,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib
 import json
 import subprocess
@@ -120,6 +158,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM HBM3 (NVIDIA data sheet)
 F32_OPS_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 MAIN_N, E2E_N = 1 << 20, 1 << 16
+PAPER_SCALE = 1.0               # the Fig 3 stand-ins at the paper's sizes
+PAPER_DELAUNAY_N = 1 << 20      # DIMACS10 delaunay_n20's class and size
 E2E_FLOOR = 1 << 20     # above every level's n and nnz of the e2e graphs
 REPLACES = {
     "spmv_ell": "src/repro/kernels/spmv_ell/spmv_ell.py:41",
@@ -862,6 +902,228 @@ def phase_facade(torch, np, setup) -> dict:
     return dict(launched, agg_vote=votes, embedding_bag=bags)
 
 
+def phase_paper(torch, np) -> dict:
+    """The paper's Fig 3 evaluation on the card. (a) The seven graphs of
+    ``PAPER_FIG3`` at the paper's sizes, each through the facade's
+    ``single`` (ours) and ``serial_ref`` backends under the float64
+    certificate, and Jacobi-PCG (``benchmarks/port_wda.py``'s
+    ``fig3_row``). (b) A Delaunay triangulation of 2^20 points through the
+    super-step setup with ``setup_ell_sweeps`` off and on, the eager setup
+    with it on, and Jacobi-PCG; then the sweeps' ``spmv_ell`` shapes
+    against the plain version. Returns each kernel's launches over the
+    phase before that check."""
+    from benchmarks.port_wda import PAPER_FIG3, fig3_row
+
+    t0 = time.perf_counter()
+    counts = {m: importlib.import_module(f"{m}.ops") for m in WRAPPERS}
+    for mod_name, ops in counts.items():
+        getattr(ops, WRAPPERS[mod_name][0]).launches = 0
+    ok_status = ("converged", "max_iters")
+    for name in PAPER_FIG3:
+        row = fig3_row(torch, name, scale=PAPER_SCALE, tol=1e-8, seed=0)
+        ours, ser, jac = row["ours"], row["serial_ref"], row["jacobi_pcg"]
+        floor = row["float32_floor"]
+        say("paper", graph=name, n=row["n"], nnz=row["nnz"],
+            wda=json.dumps(dict(serial_ref=ser["wda"], ours=ours["wda"],
+                                jacobi_pcg=jac["wda"])),
+            paper=json.dumps(dict(lamg=row["paper_lamg"],
+                                  ours=row["paper_ours"],
+                                  pcg=row["paper_pcg"])),
+            iters=f"{ser['iters']}/{ours['iters']}/{jac['iters']}",
+            status=f"{ser['status']}/{ours['status']}/{jac['status']}",
+            levels=f"{ser['levels']}/{ours['levels']}",
+            setup_s=f"{ser['setup_s']:.3f}/{ours['setup_s']:.3f}",
+            solve_ms=f"{ser['solve_ms']:.1f}/{ours['solve_ms']:.1f}/"
+                     f"{jac['solve_ms']:.1f}",
+            host_f64_rel_residual=f"{ser['host_residual']:.3e}/"
+                                  f"{ours['host_residual']:.3e}/"
+                                  f"{jac['host_residual']:.3e}",
+            float32_floor=json.dumps(floor),
+            launches=json.dumps(dict(serial_ref=ser["launches"],
+                                     ours=ours["launches"],
+                                     jacobi_pcg=jac["launches"])))
+        for who, res in (("ours", ours), ("serial_ref", ser),
+                         ("jacobi_pcg", jac)):
+            check(res["status"] != "converged" or res["host_residual"] <= 1e-4,
+                  f"{name} {who}: reports converged at host residual "
+                  f"{res['host_residual']:.3e}")
+        # the bound is required unless the float64 solution rounded to
+        # float32 already misses it: then the status check above holds
+        beyond_f32 = floor is not None and floor["f32_rounded_residual"] > 1e-4
+        for who, res in (("ours", ours), ("serial_ref", ser)):
+            check(beyond_f32 or (res["host_residual"] <= 1e-4
+                                 and res["status"] in ok_status),
+                  f"{name} {who}: status {res['status']}, host residual "
+                  f"{res['host_residual']:.3e}, float32 floor {floor}")
+        check(all(v > 0 for v in ours["launches"].values()),
+              f"{name} ours launched {ours['launches']}")
+        check(ser["launches"]["spmv_ell"] > 0 and ser["launches"]["jacobi"] > 0
+              and ser["launches"]["agg_vote"] == 0,
+              f"{name} serial_ref launched {ser['launches']}")
+        check(jac["launches"]["spmv_ell"] > 0,
+              f"{name} Jacobi-PCG launched {jac['launches']}")
+        if name == "de2010":
+            check(ours["wda"] < jac["wda"], f"de2010: ours' WDA "
+                  f"{ours['wda']:.3f} is not below Jacobi-PCG's "
+                  f"{jac['wda']:.3f}")
+    sweeps_shapes = phase_paper_delaunay(torch, np)
+    launched = {mod_name.rsplit(".", 1)[1]:
+                getattr(ops, WRAPPERS[mod_name][0]).launches
+                for mod_name, ops in counts.items()}
+    check_setup_sweeps(torch, sweeps_shapes)
+    say("paper", seconds=round(time.perf_counter() - t0, 1))
+    return launched
+
+
+def check_setup_sweeps(torch, shapes) -> None:
+    """``spmv_ell`` at every (rows, width) where a sweeps-on setup launched
+    it, on that setup's last arguments at the shape: against its plain
+    version (rtol 1e-5, atol 1e-6) and for a bitwise repeat."""
+    from repro_torch.kernels.spmv_ell import spmv_ell, spmv_ell_ref
+
+    for mode, tally in shapes.items():
+        for (rows, w), (calls, args, kw) in sorted(tally.items()):
+            got, want = spmv_ell(*args, **kw), spmv_ell_ref(*args, **kw)
+            again = spmv_ell(*args, **kw)
+            torch.cuda.synchronize()
+            err = float((got.double() - want.double()).abs().max())
+            say("paper", step="setup_spmv_ell", setup_mode=mode, rows=rows,
+                width=w, launches_in_setup=calls, max_abs_err=err)
+            check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+                  f"setup spmv_ell ({mode}, {rows}x{w}) disagrees with its "
+                  f"plain version: max abs err {err:.3e}")
+            check(torch.equal(got, again), f"setup spmv_ell ({mode}, "
+                  f"{rows}x{w}) is not bitwise repeatable")
+
+
+def phase_paper_delaunay(torch, np) -> dict:
+    """Part (b): Delaunay n = 2^20 (unweighted, planar; the class and size
+    of DIMACS10 delaunay_n20), the super-step setup with
+    ``setup_ell_sweeps`` off and on (spmv_ell launched in setup only with it
+    on, tallied by shape), 4 seeded solves each at tol 1e-6 with a float64
+    host residual ≤ 1e-4, the eager setup with it on (residual histories
+    bitwise the super-step's), each aggregation level's strength stage
+    timed alone without and with the twin, and Jacobi-PCG (recorded, not
+    required to converge, never reporting a convergence that the host
+    residual refutes). Returns the sweeps-on setups' ``spmv_ell`` calls by
+    shape, each with its last arguments, by setup mode."""
+    from repro_torch.core.coarsen import AggregationLevel
+    from repro_torch.core.graph import attach_setup_twin, pow2_bucket
+    from repro_torch.core.hierarchy import SetupConfig
+    from repro_torch.core.krylov import jacobi_pcg
+    from repro_torch.core.solver import LaplacianSolver
+    from repro_torch.core.strength import algebraic_distance_strength
+    from repro_torch.core.wda import wda
+    from repro_torch.graphs.generators import delaunay, ensure_connected
+    from repro_torch.kernels.spmv_ell import spmv_ell
+    from repro_torch.sparse.ell import ell_layout_traced
+
+    t0 = time.perf_counter()
+    n, r, c, v = ensure_connected(*delaunay(PAPER_DELAUNAY_N, seed=0))
+    gen_s = time.perf_counter() - t0
+    deg = np.bincount(r, minlength=n)
+    say("paper", graph=f"delaunay(n={n},seed=0)", stored_nnz=len(r),
+        max_degree=int(deg.max()), degree_p95=float(np.percentile(deg, 95)),
+        generate_s=round(gen_s, 1))
+    rhs = []
+    for k in range(4):
+        b = np.random.default_rng(300 + k).normal(size=n).astype(np.float32)
+        rhs.append(b - b.mean())
+
+    def run(sweeps, mode):
+        cfg = SetupConfig(matvec_backend="ell", setup_ell_sweeps=sweeps,
+                          setup_mode=mode)
+        torch.cuda.synchronize()
+        k0, t0 = spmv_ell.launches, time.perf_counter()
+        with shapes_launched(SOLVER_KERNELS[:1]) as tally:
+            solver = LaplacianSolver.setup(n, r, c, v, cfg)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        in_setup = spmv_ell.launches - k0
+        ts = solver.hierarchy.transfers
+        agg_ns = [t.fine.n for t in ts if isinstance(t, AggregationLevel)]
+        by_level = {}
+        for (rows, w), (calls, _, _) in tally["spmv_ell"].items():
+            at = [m for m in agg_ns if rows in (m, pow2_bucket(m))]
+            by_level[f"{','.join(map(str, at)) or '?'}:{rows}x{w}"] = calls
+        solves = []
+        for k, b in enumerate(rhs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, info = solver.solve(b, tol=1e-6, maxiter=200)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            rel = host_residual(n, r, c, v, b, x.cpu().numpy())
+            solves.append((info, ms, rel))
+            check(info.converged and rel <= 1e-4,
+                  f"delaunay sweeps={sweeps} {mode} rhs {k}: {info.status}, "
+                  f"host residual {rel:.3e}")
+        say("paper", graph="delaunay_2^20", setup_ell_sweeps=sweeps,
+            setup_mode=mode, setup_s=round(setup_s, 3),
+            levels=json.dumps([(row["kind"], row["n"])
+                               for row in solver.stats()["levels"]]),
+            setup_spmv_ell_launches=in_setup,
+            setup_spmv_ell_by_level=json.dumps(by_level),
+            iters=json.dumps([s[0].iters for s in solves]),
+            solve_ms=json.dumps([round(s[1], 1) for s in solves]),
+            wda=round(solves[0][0].wda, 3),
+            host_f64_rel_residual=f"{max(s[2] for s in solves):.3e}")
+        return (solver, in_setup, [s[0].residual_norms for s in solves],
+                tally["spmv_ell"])
+
+    off, off_launches, _, _ = run(False, "superstep")
+    check(off_launches == 0, f"spmv_ell launched {off_launches} times in a "
+          "setup without setup_ell_sweeps")
+    del off
+    on, on_launches, hist_on, shapes_on = run(True, "superstep")
+    check(on_launches > 0, "spmv_ell was not launched in a setup with "
+          "setup_ell_sweeps")
+    eager, _, hist_eager, shapes_eager = run(True, "eager")
+    check(hist_on == hist_eager, "setup_ell_sweeps: eager and super-step "
+          "residual histories differ")
+    del eager
+
+    # the strength stage alone at each aggregation level, without and with
+    # the setup twin (the super-step runs it on bucket-padded levels)
+    strength_s = {False: 0.0, True: 0.0}
+    for t in on.hierarchy.transfers:
+        if not isinstance(t, AggregationLevel):
+            continue
+        level = dataclasses.replace(t.fine, ell=None, ell_rem=None)
+        twin = attach_setup_twin(level, ell_layout_traced(
+            level.adj.row, level.adj.col, level.n, 8))
+        for sweeps, lv in ((False, level), (True, twin)):
+            algebraic_distance_strength(lv)            # warm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            algebraic_distance_strength(lv)
+            torch.cuda.synchronize()
+            strength_s[sweeps] += time.perf_counter() - t0
+
+    fine = on.hierarchy.transfers[0].fine
+    b_int = on._to_internal(torch.as_tensor(rhs[0], device=on.device))
+    k0 = spmv_ell.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x_j, info_j = jacobi_pcg(fine, b_int, tol=1e-6, maxiter=4000)
+    torch.cuda.synchronize()
+    jac_ms = (time.perf_counter() - t0) * 1e3
+    rel_j = host_residual(n, r, c, v, rhs[0],
+                          on._from_internal(x_j).cpu().numpy())
+    say("paper", graph="delaunay_2^20", eager_vs_superstep_bitwise=True,
+        strength_s_warm=json.dumps({"coo": strength_s[False],
+                                    "ell_twin": strength_s[True]}),
+        jacobi_pcg_iters=info_j.iters, jacobi_pcg_status=info_j.status,
+        jacobi_pcg_wda=round(wda(info_j.residual_norms, 1.0), 3),
+        jacobi_pcg_ms=round(jac_ms, 1),
+        jacobi_pcg_host_f64_rel_residual=f"{rel_j:.3e}",
+        jacobi_pcg_spmv_ell=spmv_ell.launches - k0)
+    check(spmv_ell.launches > k0, "Jacobi-PCG launched no spmv_ell")
+    check(info_j.status != "converged" or rel_j <= 1e-4, "delaunay Jacobi-PCG "
+          f"reports converged at host residual {rel_j:.3e}")
+    return {"superstep": shapes_on, "eager": shapes_eager}
+
+
 def phase_e2e(torch, np):
     from repro_torch.core import setup_step
     from repro_torch.core.hierarchy import SetupConfig
@@ -896,7 +1158,8 @@ def phase_e2e(torch, np):
 
 def phase_e2e_superstep(torch, graphs) -> None:
     """The super-step contracts on two graphs of one generator: steps that
-    never sync, the registry reused, batched builds equal to single ones."""
+    never sync (with and without ``setup_ell_sweeps``), the registry reused,
+    batched builds equal to single ones."""
     from repro_torch.core import setup_step as ss
     from repro_torch.core.graph import pow2_bucket
     from repro_torch.core.hierarchy import SetupConfig, build_hierarchy_eager
@@ -920,6 +1183,16 @@ def phase_e2e_superstep(torch, graphs) -> None:
     cold_s = time.perf_counter() - t0
     votes = launch_counts(SOLVER_KERNELS[2:])[0] - votes
     ledger = ss.counters()
+    # the same under setup_ell_sweeps: spmv_ell and the spill path inside
+    # the agg step (a registry entry of its own, built under the mode too)
+    spmvs = launch_counts(SOLVER_KERNELS[:1])[0]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ss.build_hierarchy_superstep(adjs[0], dataclasses.replace(
+            cfg, setup_ell_sweeps=True))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    spmvs = launch_counts(SOLVER_KERNELS[:1])[0] - spmvs
 
     torch.cuda.set_sync_debug_mode("warn")
     try:
@@ -946,11 +1219,14 @@ def phase_e2e_superstep(torch, graphs) -> None:
         no_sync_in_steps=True, cold_setup_s=round(cold_s, 3),
         host_syncs=ledger["host_syncs"], eager_host_syncs=eager_syncs,
         agg_vote_launches=votes, registry=registry_line(ledger),
+        ell_sweeps_no_sync=True, ell_sweeps_spmv_ell_launches=spmvs,
         second_graph_new_entries=new_entries, second_setup_s=round(warm_s, 3),
         batch_bitwise=json.dumps(same),
         batch_registry=registry_line(batch_ledger),
         batch_host_syncs=batch_ledger["host_syncs"])
     check(votes > 0, "the super-step setup launched no agg_vote kernel")
+    check(spmvs > 0, "the super-step setup with setup_ell_sweeps launched "
+          "no spmv_ell kernel")
     check(new_entries == 0,
           f"a second same-bucket graph added {new_entries} registry entries")
     check(all(same), "batched setups differ from single ones")
@@ -1187,11 +1463,15 @@ def main() -> int:
     del setup
     for rec in records:                 # the facade path's own launches
         rec["facade_launches"] = facade[rec["name"]]
+    paper = phase_paper(torch, np)
+    for rec in records:                 # the paper phase's own launches
+        rec["paper_launches"] = paper[rec["name"]]
     phase_e2e(torch, np)
     model, flat, bag_launches = phase_deepfm(torch, np)
     records.append(dict(phase_kernels_deepfm(torch, model, flat,
                                              bag_launches),
-                        facade_launches=facade["embedding_bag"]))
+                        facade_launches=facade["embedding_bag"],
+                        paper_launches=paper["embedding_bag"]))
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

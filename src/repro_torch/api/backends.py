@@ -14,9 +14,10 @@ the ``(T+1, k)`` lockstep residual history, ``iters`` the per-column
 iteration counts and ``statuses`` the per-column Krylov status codes.
 Third-party handles may return the legacy 3-tuple without statuses.
 
-``single`` runs on ``options.device`` (default: the CUDA card).
-``serial_ref`` (ROADMAP A8) and ``dist`` (ROADMAP A11) are registered so
-that the registry lists the reference's names, and raise
+``single`` (the parallel solver) and ``serial_ref`` (the serial
+LAMG-style reference, ``repro_torch.core.serial_ref``) run on
+``options.device`` (default: the CUDA card). ``dist`` (ROADMAP A11) is
+registered so that the registry lists the reference's names, and raises
 ``NotImplementedError`` at setup.
 """
 
@@ -76,6 +77,18 @@ def _setup_single(problem, options, mesh=None):
     return _EagerHandle(solver, options)
 
 
+def _setup_serial_ref(problem, options, mesh=None):
+    from repro_torch.core.serial_ref import serial_lamg_solver
+
+    solver = serial_lamg_solver(
+        problem.n, problem.rows, problem.cols,
+        problem.vals.astype(np.float32),
+        setup_config=options.setup_config(),
+        cycle_config=options.cycle_config(),
+        random_ordering=options.random_ordering, device=options.device)
+    return _EagerHandle(solver, options)
+
+
 def _not_ported(name: str, item: str):
     def setup_fn(problem, options, mesh=None):
         raise NotImplementedError(
@@ -86,5 +99,5 @@ def _not_ported(name: str, item: str):
 
 
 register_backend("single", _setup_single)
-register_backend("serial_ref", _not_ported("serial_ref", "A8"))
+register_backend("serial_ref", _setup_serial_ref)
 register_backend("dist", _not_ported("dist", "A11"))

@@ -368,8 +368,8 @@ def setup(problem: Problem, options: SolverOptions | None = None,
           cache: HierarchyCache | bool | None = None) -> Solver:
     """Build (or reuse) the multigrid hierarchy for ``problem``.
 
-    ``backend`` is a registry name (``"single"``; ``"serial_ref"`` and
-    ``"dist"`` are not ported yet and raise) or ``"auto"``, which picks
+    ``backend`` is a registry name (``"single"``, ``"serial_ref"``;
+    ``"dist"`` is not ported yet and raises) or ``"auto"``, which picks
     ``"dist"`` when a distributed context is available (a ``mesh`` was
     passed or more than one CUDA device is visible) and ``"single"``
     otherwise. ``mesh`` is only consumed by the dist backend; passing one

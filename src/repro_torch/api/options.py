@@ -28,8 +28,10 @@ class SolverOptions:
     ``strength_metric``, ``random_ordering`` (paper §2.2 relabeling),
     ``seed``; ``setup_mode`` (``"superstep"``, the default, or
     ``"eager"``; equal hierarchies), ``setup_bucket_floor`` and
-    ``elim_sizing`` (``repro_torch.core.setup_step``).
-    ``setup_ell_sweeps=True`` is not ported yet (ROADMAP A5) and raises.
+    ``elim_sizing`` (``repro_torch.core.setup_step``);
+    ``setup_ell_sweeps`` (the strength sweeps through the ``spmv_ell``
+    kernel on a fixed-width ELL twin, with any ``matvec_backend`` but
+    ``"coo"``).
 
     Solve: ``matvec_backend`` — ``"coo"`` (gather + deterministic segment
     sum), ``"ell"`` (hybrid ELL+COO twin on every level, run by the
@@ -72,7 +74,7 @@ class SolverOptions:
     # solve-phase SpMV execution format ("coo" | "ell" | "auto")
     matvec_backend: str = "coo"
     # setup execution mode, super-step bucket floor, elimination sizing,
-    # and the (not yet ported) setup-time ELL strength sweeps
+    # and the setup-time ELL strength sweeps
     setup_mode: str = "superstep"
     setup_bucket_floor: int = 0
     elim_sizing: str = "conservative"
@@ -108,9 +110,6 @@ class SolverOptions:
         from repro_torch.sparse.matvec import validate_backend
 
         validate_backend(self.matvec_backend)
-        if self.setup_ell_sweeps:
-            raise NotImplementedError(
-                "setup_ell_sweeps is not ported yet (ROADMAP A5)")
         if self.setup_mode not in ("superstep", "eager"):
             raise ValueError(f"setup_mode must be 'superstep' or 'eager', "
                              f"got {self.setup_mode!r}")
@@ -170,7 +169,8 @@ class SolverOptions:
             matvec_backend=self.matvec_backend,
             setup_mode=self.setup_mode,
             setup_bucket_floor=self.setup_bucket_floor,
-            elim_sizing=self.elim_sizing)
+            elim_sizing=self.elim_sizing,
+            setup_ell_sweeps=self.setup_ell_sweeps)
 
     def cycle_config(self) -> CycleConfig:
         """The core-layer cycle/smoother configuration this maps to."""

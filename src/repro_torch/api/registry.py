@@ -4,8 +4,8 @@
 Built-in backends (registered by ``repro_torch.api.backends``):
 
 * ``"single"``     — single-device multigrid PCG (``LaplacianSolver``),
-* ``"serial_ref"`` — the serial LAMG-style reference setup; not ported yet
-  (ROADMAP A8): its setup raises ``NotImplementedError``,
+* ``"serial_ref"`` — the serial LAMG-style reference setup
+  (``repro_torch.core.serial_ref``),
 * ``"dist"``       — the 2D-distributed solver; not ported yet (ROADMAP
   A11): its setup raises ``NotImplementedError``,
 * ``"auto"``       — resolves to ``"dist"`` when a mesh is passed or more

@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.sparse import matvec as matvec_ops
 from repro_torch.sparse.coo import COO, degrees, row_sums
-from repro_torch.sparse.ell import ELL
+from repro_torch.sparse.ell import ELL, EllLayout
 
 _M32 = 0xFFFFFFFF
 
@@ -46,6 +46,17 @@ class GraphLevel:
 
 def graph_from_adjacency(adj: COO) -> GraphLevel:
     return GraphLevel(adj=adj, deg=row_sums(adj))
+
+
+def attach_setup_twin(level: GraphLevel, lay: EllLayout) -> GraphLevel:
+    """``level`` with the hybrid ELL+COO twin of the setup-time layout
+    ``lay`` (``setup_ell_sweeps``): the same twin in both setup modes, so
+    they stay bitwise equal with the switch on."""
+    adj = level.adj
+    ell = ELL(lay.col_table, lay.table(adj.val), lay.n_rows)
+    rem = COO(lay.spill_row, lay.spill_col, lay.spill(adj.val), lay.n_rows,
+              lay.n_rows)
+    return dataclasses.replace(level, ell=ell, ell_rem=rem)
 
 
 def pow2_bucket(n: int, floor: int = 0) -> int:

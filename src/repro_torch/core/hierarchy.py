@@ -38,8 +38,9 @@ from repro_torch.core.cycles import CycleConfig, Transfer, cycle
 from repro_torch.core.elimination import (EliminationLevel,
                                           build_elimination_level,
                                           select_eliminated)
-from repro_torch.core.graph import (GraphLevel, graph_from_adjacency,
-                                    laplacian_dense, pow2_bucket)
+from repro_torch.core.graph import (GraphLevel, attach_setup_twin,
+                                    graph_from_adjacency, laplacian_dense,
+                                    pow2_bucket)
 from repro_torch.core.setup_step import (build_hierarchy_superstep,
                                          build_hierarchy_superstep_batch)
 from repro_torch.core.smoothers import estimate_lambda_max
@@ -81,9 +82,21 @@ class SetupConfig:
     # fetch; "exact" sizes them at bucket(n_elim), two fetches. The
     # hierarchies are bit-identical.
     elim_sizing: str = "conservative"
-    # width of the ELL layout the Alg 2 vote kernel reduces over; longer
-    # rows spill to the staged reduction, so any width is exact
+    # attach a fixed-width ELL twin to each level before the strength
+    # sweeps, so their SpMVs (and λmax's) run the spmv_ell kernel during
+    # setup. Opt-in: the ELL sum order differs from the COO segment sums,
+    # so setup numerics then depend on matvec_backend (the two setup
+    # modes stay bitwise equal). No effect with matvec_backend="coo".
+    setup_ell_sweeps: bool = False
+    # width of the setup-time ELL layout: the Alg 2 vote kernel's tables
+    # (always) and the setup_ell_sweeps twin; longer rows spill to the
+    # staged reduction or a COO remainder, so any width is exact
     setup_ell_width: int = 8
+
+    @property
+    def ell_sweeps(self) -> bool:
+        """Whether the strength sweeps run on the setup-time ELL twin."""
+        return self.setup_ell_sweeps and self.matvec_backend != "coo"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -224,12 +237,15 @@ def build_hierarchy_eager(adj: COO,
             break
 
         # --- aggregation level -----------------------------------------
-        strength = strength_fn(level, n_vectors=cfg.strength_vectors,
-                               n_sweeps=cfg.strength_sweeps, seed=cfg.seed)
-        # quantised strengths in the vote kernel's ELL layout, built once
-        # and reused by every round (only the state vector changes)
+        # one ELL layout serves the vote kernel's tables and, with
+        # setup_ell_sweeps, the strength and λmax SpMVs' twin
         lay = ell_layout_traced(level.adj.row, level.adj.col, level.n,
                                 cfg.setup_ell_width)
+        s_level = attach_setup_twin(level, lay) if cfg.ell_sweeps else level
+        strength = strength_fn(s_level, n_vectors=cfg.strength_vectors,
+                               n_sweeps=cfg.strength_sweeps, seed=cfg.seed)
+        # quantised strengths in the vote layout, built once and reused by
+        # every round (only the state vector changes)
         sq = quantise_strength(strength, acfg)
         sq_table, sq_spill = lay.table(sq), lay.spill(sq)
 
@@ -246,7 +262,7 @@ def build_hierarchy_eager(adj: COO,
         t = contract(level, coarse_id, n_c)
         t = dataclasses.replace(t, coarse=_shrink(t.coarse))
         lam_maxes.append(faults.site("setup.lambda_max",
-                                     estimate_lambda_max(level)))
+                                     estimate_lambda_max(s_level)))
         transfers.append(t)
         level = t.coarse
 

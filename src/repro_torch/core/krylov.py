@@ -554,3 +554,16 @@ def scan_norms_status(norms, tol, ref) -> np.ndarray:
         "strictly more; use those instead",
         DeprecationWarning, stacklevel=2)
     return _norms_status(norms, tol, ref)
+
+
+def cg(matvec, b, **kw):
+    """Unpreconditioned CG: :func:`pcg` with ``precond=None``."""
+    return pcg(matvec, b, precond=None, **kw)
+
+
+def jacobi_pcg(level, b, **kw):
+    """The paper's baseline: CG preconditioned by diag(L)⁻¹, on the
+    level's device (its matvecs run the ELL kernels where the level has a
+    twin)."""
+    inv_d = 1.0 / torch.clamp(level.deg, min=1e-30)
+    return pcg(level.laplacian_matvec, b, precond=lambda r: inv_d * r, **kw)

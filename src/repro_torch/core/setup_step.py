@@ -74,8 +74,9 @@ from repro_torch.core.aggregation import (aggregate, quantise_strength,
 from repro_torch.core.coarsen import AggregationLevel, contract_arrays
 from repro_torch.core.elimination import (EliminationLevel, schur_arrays,
                                           select_eliminated)
-from repro_torch.core.graph import (GraphLevel, count_tensor,
-                                    graph_from_adjacency, pow2_bucket)
+from repro_torch.core.graph import (GraphLevel, attach_setup_twin,
+                                    count_tensor, graph_from_adjacency,
+                                    pow2_bucket)
 from repro_torch.core.prng import normal, uniform
 from repro_torch.core.smoothers import estimate_lambda_max
 from repro_torch.core.strength import STRENGTH_METRICS
@@ -308,12 +309,16 @@ def _build_agg(n_cap: int, e_cap: int, cfg, device, vote_factory=None,
 
     def step(row, col, val, deg, n):
         level = _plevel(row, col, val, deg)
+        # one ELL layout serves the vote kernel's tables and, with
+        # setup_ell_sweeps, the strength and λmax SpMVs' twin
+        lay = ell_layout_traced(row, col, n_cap, cfg.setup_ell_width)
+        if cfg.ell_sweeps:
+            level = attach_setup_twin(level, lay)
         strength = strength_fn(level, n_vectors=cfg.strength_vectors,
                                n_sweeps=cfg.strength_sweeps, seed=cfg.seed,
                                n_valid=n, x0=x0)
-        # quantised strengths in the vote kernel's ELL layout, built once
-        # and reused by every round (only the state vector changes)
-        lay = ell_layout_traced(row, col, n_cap, cfg.setup_ell_width)
+        # quantised strengths in the vote layout, built once and reused by
+        # every round (only the state vector changes)
         sq = quantise_strength(strength, acfg)
         sq_table, sq_spill = lay.table(sq), lay.spill(sq)
         if vote_factory is None:
@@ -394,7 +399,8 @@ class SuperstepBuilders:
         if method == "agg":
             return key + (cfg.strength_metric, cfg.strength_vectors,
                           cfg.strength_sweeps, cfg.seed, cfg.aggregation,
-                          cfg.setup_ell_width, cfg.elim_max_degree)
+                          cfg.setup_ell_width, cfg.elim_max_degree,
+                          cfg.ell_sweeps and cfg.matvec_backend)
         if method in ("elim", "elim_select", "elim_build"):
             return key + (cfg.elim_max_degree,)
         return key

@@ -13,6 +13,12 @@ from repro_torch.core.cycles import CycleConfig
 from repro_torch.core.elimination import EliminationLevel
 
 
+def finest_matvec_cost(h) -> float:
+    """Cost of one finest-level Laplacian matvec in raw units (nnz + n)."""
+    t0 = h.transfers[0]
+    return t0.fine.adj.nnz + t0.fine.n
+
+
 def cycle_work_units(h, cfg: CycleConfig) -> float:
     """Work of ONE multigrid cycle in finest-matvec equivalents."""
     base = h.transfers[0].fine.adj.nnz + h.transfers[0].fine.n

@@ -1,9 +1,21 @@
 """Seeded synthetic graph generators (host-side numpy).
 
-The port's own copy of the generators the solver path needs from
-``repro.graphs.generators``; for the same arguments they return the same
-arrays. Generators return ``(n, rows, cols, vals)`` with both edge
-directions, no self loops and positive float32 weights.
+The port's own copy of ``repro.graphs.generators``; for the same
+arguments every generator returns the same arrays. They are seeded
+stand-ins for the paper's evaluation graphs:
+
+* ``barabasi_albert`` — power-law degree social/AS-style networks (hubs
+  and a heavy tail),
+* ``erdos_renyi`` — uniform random graphs,
+* ``rmat`` — Kronecker power-law graphs (Graph500 parameters),
+* ``delaunay`` — the ``delaunay_nXX`` family (planar, bounded degree),
+* ``grid_2d`` — census/mesh-like planar graphs (the de2010 stand-in),
+* ``star`` — one hub and n − 1 leaves,
+* ``watts_strogatz`` — small-world rings.
+
+Generators return ``(n, rows, cols, vals)`` with both edge directions, no
+self loops and positive float32 weights, as numpy arrays;
+``ensure_connected`` bridges components.
 """
 
 from __future__ import annotations
@@ -55,12 +67,73 @@ def barabasi_albert(n: int, m: int = 4, seed: int = 0, weighted: bool = False):
     return _dedup_sym(n, src[:e], dst[:e], rng=rng if weighted else None)
 
 
+def erdos_renyi(n: int, avg_degree: float = 8.0, seed: int = 0,
+                weighted: bool = False):
+    rng = np.random.default_rng(seed)
+    n_edges = int(n * avg_degree / 2)
+    u = rng.integers(0, n, n_edges)
+    v = rng.integers(0, n, n_edges)
+    return _dedup_sym(n, u, v, rng=rng if weighted else None)
+
+
+def rmat(scale: int, edge_factor: int = 8, seed: int = 0,
+         a=0.57, b=0.19, c=0.19, weighted: bool = False):
+    """R-MAT/Kronecker generator (Graph500 parameters by default)."""
+    rng = np.random.default_rng(seed)
+    n = 1 << scale
+    n_edges = n * edge_factor
+    u = np.zeros(n_edges, np.int64)
+    v = np.zeros(n_edges, np.int64)
+    for _ in range(scale):
+        r = rng.random(n_edges)
+        right = r >= a + b                   # the c or d quadrant: row bit
+        bottom = ((r >= a) & (r < a + b)) | (r >= a + b + c)   # col bit
+        u = (u << 1) | right.astype(np.int64)
+        v = (v << 1) | bottom.astype(np.int64)
+    return _dedup_sym(n, u, v, rng=rng if weighted else None)
+
+
 def grid_2d(nx: int, ny: int, weighted: bool = False, seed: int = 0):
     rng = np.random.default_rng(seed)
     idx = np.arange(nx * ny).reshape(nx, ny)
     u = np.concatenate([idx[:, :-1].ravel(), idx[:-1, :].ravel()])
     v = np.concatenate([idx[:, 1:].ravel(), idx[1:, :].ravel()])
     return _dedup_sym(nx * ny, u, v, rng=rng if weighted else None)
+
+
+def delaunay(n: int, seed: int = 0, weighted: bool = False):
+    """Delaunay triangulation of n uniform points (scipy.spatial)."""
+    from scipy.spatial import Delaunay as _Del
+
+    rng = np.random.default_rng(seed)
+    tri = _Del(rng.random((n, 2)))
+    s = tri.simplices
+    u = np.concatenate([s[:, 0], s[:, 1], s[:, 2]]).astype(np.int64)
+    v = np.concatenate([s[:, 1], s[:, 2], s[:, 0]]).astype(np.int64)
+    return _dedup_sym(n, u, v, rng=rng if weighted else None)
+
+
+def star(n: int, weighted: bool = False, seed: int = 0):
+    """Hub-and-spokes star: vertex 0 adjacent to all others."""
+    rng = np.random.default_rng(seed)
+    u = np.zeros(n - 1, np.int64)
+    v = np.arange(1, n, dtype=np.int64)
+    return _dedup_sym(n, u, v, rng=rng if weighted else None)
+
+
+def watts_strogatz(n: int, k: int = 6, p: float = 0.1, seed: int = 0,
+                   weighted: bool = False):
+    rng = np.random.default_rng(seed)
+    base = np.arange(n, dtype=np.int64)
+    us, vs = [], []
+    for d in range(1, k // 2 + 1):
+        tgt = (base + d) % n
+        rewire = rng.random(n) < p
+        tgt = np.where(rewire, rng.integers(0, n, n), tgt)
+        us.append(base)
+        vs.append(tgt)
+    return _dedup_sym(n, np.concatenate(us), np.concatenate(vs),
+                      rng=rng if weighted else None)
 
 
 def ensure_connected(n, rows, cols, vals, seed: int = 0):
@@ -103,3 +176,13 @@ def to_laplacian_coo(n, rows, cols, vals, capacity=None, device=None):
 
     return coo_from_arrays(rows, cols, vals, n, n, capacity=capacity,
                            device=device)
+
+
+def largest_component_sizes(n, rows, cols) -> np.ndarray:
+    """Connected component sizes (scipy): a validation helper."""
+    import scipy.sparse as sp
+    from scipy.sparse.csgraph import connected_components
+
+    a = sp.coo_matrix((np.ones(len(rows)), (rows, cols)), shape=(n, n))
+    ncomp, labels = connected_components(a, directed=False)
+    return np.bincount(labels, minlength=ncomp)

@@ -160,10 +160,27 @@ def test_auto_follows_the_device_count(monkeypatch):
         assert resolve_backend("auto") == want
 
 
-@pytest.mark.parametrize("name,item", [("serial_ref", "A8"), ("dist", "A11")])
+@pytest.mark.parametrize("name,item", [("dist", "A11")])
 def test_unported_backends_raise(name, item, built):
     with pytest.raises(NotImplementedError, match=item):
         setup(built["p"], OPTS, backend=name, cache=False)
+
+
+def test_serial_ref_backend_matches_reference(built):
+    """``backend="serial_ref"`` (the serial LAMG-style reference) against
+    the reference facade's: the same levels, per-column iteration counts
+    and ``X`` at rtol 1e-5 / atol 1e-5."""
+    port = setup(built["p"], OPTS, backend="serial_ref", cache=False)
+    ref = J.setup(built["jp"], J_OPTS, backend="serial_ref", cache=False)
+    assert port.backend == "serial_ref"
+    keys = ("kind", "n", "nnz")
+    assert [{k: row[k] for k in keys} for row in port.stats()["levels"]] == \
+        [{k: row[k] for k in keys} for row in ref.stats()["levels"]]
+    X, res = port.solve(built["B"])
+    JX, jres = ref.solve(built["B"])
+    assert res.converged and jres.converged
+    np.testing.assert_array_equal(res.iters_per_rhs, jres.iters_per_rhs)
+    np.testing.assert_allclose(X, np.asarray(JX), rtol=1e-5, atol=1e-5)
 
 
 def test_custom_backend_roundtrip(built):
@@ -207,8 +224,12 @@ def test_options_match_reference_fields():
             J.SolverOptions(**bad)
         with pytest.raises(ValueError):
             SolverOptions(**bad)
-    with pytest.raises(NotImplementedError, match="A5"):
-        SolverOptions(setup_ell_sweeps=True)
+    opts = SolverOptions(setup_ell_sweeps=True, matvec_backend="ell")
+    cfg = opts.setup_config()
+    assert cfg.setup_ell_sweeps and cfg.ell_sweeps
+    assert J.SolverOptions(setup_ell_sweeps=True).setup_config(
+        ).setup_ell_sweeps
+    assert not SolverOptions(setup_ell_sweeps=True).setup_config().ell_sweeps
 
 
 @pytest.mark.parametrize("field,value,item", [
@@ -345,6 +366,17 @@ def test_cache_hit_and_invalidate(built):
     assert cache.stats()["hits"] == 1 and len(cache) == 1
     assert cache.invalidate(built["p"].fingerprint()) == 1
     assert setup(built["p"], OPTS, cache=cache).setup_seconds > 0
+
+
+def test_cache_keeps_backends_apart(built):
+    """A ``single`` setup and then a ``serial_ref`` setup of one problem:
+    the second is a miss with its own entry."""
+    cache = HierarchyCache()
+    single = setup(built["p"], OPTS, backend="single", cache=cache)
+    serial = setup(built["p"], OPTS, backend="serial_ref", cache=cache)
+    assert serial.setup_seconds > 0 and serial._handle is not single._handle
+    assert cache.stats()["misses"] == 2 and cache.stats()["hits"] == 0
+    assert len(cache) == 2
 
 
 def test_ladder_lets_a_kernel_fault_through(built, monkeypatch):

@@ -444,3 +444,83 @@ def test_cuda_fault_site_keeps_the_tensor_on_the_card():
         y = site("solve.spmv", x)
     assert y.device == x.device and y.dtype == x.dtype
     assert int(torch.isnan(y).sum()) == 50
+
+
+@pytest.mark.cuda
+def test_cuda_setup_ell_sweeps_launches_spmv_ell():
+    """``setup_ell_sweeps``: ``spmv_ell`` launches during a setup with the
+    switch on and none with it off; the eager and super-step setups with
+    it on give bitwise the same residual history."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core.hierarchy import SetupConfig
+    from repro_torch.core.solver import LaplacianSolver
+
+    (n, r, c, v), _ = _ba_adj(1 << 13, 7)
+    b = np.random.default_rng(3).normal(size=n).astype(np.float32)
+    b -= b.mean()
+    hist = {}
+    for on, mode in ((False, "superstep"), (True, "superstep"),
+                     (True, "eager")):
+        cfg = SetupConfig(matvec_backend="ell", setup_ell_sweeps=on,
+                          setup_mode=mode)
+        k0 = spmv_ell.launches
+        s = LaplacianSolver.setup(n, r, c, v, cfg)
+        torch.cuda.synchronize()
+        launched = spmv_ell.launches - k0
+        assert (launched > 0) == on, (on, mode, launched)
+        _, info = s.solve(b, tol=1e-6)
+        assert info.converged
+        hist[on, mode] = info.residual_norms
+    assert hist[True, "superstep"] == hist[True, "eager"]
+
+
+@pytest.mark.cuda
+def test_cuda_serial_ref_runs_the_solve_kernels_and_no_vote():
+    """The serial reference on the card: its solves launch ``spmv_ell`` and
+    ``jacobi``, its greedy setup never launches ``agg_vote``, and it
+    converges like the facade's ``serial_ref`` backend."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.api import Problem, SolverOptions, setup
+    from repro_torch.core.hierarchy import SetupConfig
+    from repro_torch.core.serial_ref import serial_lamg_solver
+
+    (n, r, c, v), _ = _ba_adj(1 << 13, 8)
+    b = np.random.default_rng(4).normal(size=n).astype(np.float32)
+    b -= b.mean()
+    k0 = (spmv_ell.launches, jacobi_step.launches, vote_reduce.launches)
+    s = serial_lamg_solver(n, r, c, v, SetupConfig(matvec_backend="ell"))
+    x, info = s.solve(b, tol=1e-6)
+    torch.cuda.synchronize()
+    k1 = (spmv_ell.launches, jacobi_step.launches, vote_reduce.launches)
+    assert info.converged and x.is_cuda
+    assert k1[0] > k0[0] and k1[1] > k0[1] and k1[2] == k0[2]
+    handle = setup(Problem.from_edges(n, r, c, v),
+                   SolverOptions(matvec_backend="ell", tol=1e-6),
+                   backend="serial_ref", cache=False)
+    _, res = handle.solve(b)
+    assert res.converged and vote_reduce.launches == k0[2]
+
+
+@pytest.mark.cuda
+def test_cuda_agg_registry_key_separates_ell_sweeps():
+    """A second setup of the same graph with the other ``setup_ell_sweeps``
+    setting adds an ``agg`` registry entry; a third, equal to the second,
+    adds none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.core import setup_step as ss
+    from repro_torch.core.hierarchy import SetupConfig
+
+    _, adj = _ba_adj(1 << 12, 9)
+    ss.clear_cache()
+    ss.reset_counters()
+    ss.build_hierarchy_superstep(adj, SetupConfig(matvec_backend="ell"))
+    entries = []
+    for _ in range(2):
+        ss.reset_counters()
+        ss.build_hierarchy_superstep(adj, SetupConfig(
+            matvec_backend="ell", setup_ell_sweeps=True))
+        entries.append(ss.counters()["steps"]["agg"]["compiles"])
+    assert entries[0] > 0 and entries[1] == 0

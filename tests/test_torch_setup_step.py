@@ -289,6 +289,101 @@ def test_second_same_bucket_graph_adds_no_registry_entries():
     assert h1.n_levels > 1 and h2.n_levels > 1
 
 
+# ----------------------------------------------------------------------------
+# setup_ell_sweeps: the strength sweeps on the setup-time ELL twin
+# ----------------------------------------------------------------------------
+
+SWEEPS = dataclasses.replace(CFG, matvec_backend="auto", setup_ell_sweeps=True)
+
+
+@pytest.fixture(scope="module")
+def sweeps():
+    """``tests/test_setup_superstep.py::TestSetupEllSweeps``'s case (BA
+    n = 500, m = 3, seed 1, weighted; ``matvec_backend="auto"``): the
+    reference's super-step and the port's super-step and eager setups,
+    each with its solve of one right-hand side at tol 1e-8."""
+    n, r, c, v = ensure_connected(*barabasi_albert(500, m=3, seed=1,
+                                                   weighted=True))
+    b = np.random.default_rng(9).normal(size=n).astype(np.float32)
+    b -= b.mean()
+    jcfg = JConfig(coarsest_size=32, matvec_backend="auto",
+                   setup_ell_sweeps=True)
+    out = dict(ref=JSolver.setup(n, r, c, v, jcfg),
+               port=LaplacianSolver.setup(n, r, c, v, SWEEPS, device="cpu"),
+               eager=LaplacianSolver.setup(
+                   n, r, c, v, dataclasses.replace(SWEEPS,
+                                                   setup_mode="eager"),
+                   device="cpu"))
+    for name, s in list(out.items()):
+        x, info = s.solve(b, tol=1e-8)
+        out[f"{name}_x"], out[f"{name}_info"] = np.asarray(x), info
+    return out
+
+
+def test_ell_sweeps_superstep_equals_eager(sweeps):
+    """With the switch on, both setup modes still give bitwise the same
+    residual history and solution."""
+    i_s, i_e = sweeps["port_info"], sweeps["eager_info"]
+    assert i_s.converged and i_s.iters == i_e.iters
+    assert i_s.residual_norms == i_e.residual_norms
+    np.testing.assert_array_equal(sweeps["port_x"], sweeps["eager_x"])
+    assert _sig(sweeps["port"].hierarchy) == _sig(sweeps["eager"].hierarchy)
+
+
+def test_ell_sweeps_match_reference(sweeps):
+    i_p, i_r = sweeps["port_info"], sweeps["ref_info"]
+    assert _sig(sweeps["port"].hierarchy) == [
+        (r["kind"], r["n"], r["nnz"])
+        for r in sweeps["ref"].stats()["levels"]]
+    assert i_p.converged and i_p.iters == i_r.iters
+    np.testing.assert_allclose(sweeps["port_x"], sweeps["ref_x"], rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_ell_sweeps_runs_the_twin(monkeypatch):
+    """The strength sweeps' SpMVs go through the ELL wrapper only with the
+    switch on and a backend other than ``"coo"``."""
+    import repro_torch.kernels.spmv_ell as spmv_pkg
+
+    real, calls = spmv_pkg.spmv_ell, []
+
+    def counted(*args):
+        calls.append(args[0].shape)
+        return real(*args)
+
+    monkeypatch.setattr(spmv_pkg, "spmv_ell", counted)
+    adj = _adj("barabasi_albert", 2)
+    seen = {}
+    for mode in ("superstep", "eager"):
+        for on, backend in ((False, "ell"), (True, "coo"), (True, "ell")):
+            calls.clear()
+            build_hierarchy(adj, dataclasses.replace(
+                CFG, setup_mode=mode, matvec_backend=backend,
+                setup_ell_sweeps=on))
+            seen[mode, on, backend] = len(calls)
+    for mode in ("superstep", "eager"):
+        assert seen[mode, False, "ell"] == seen[mode, True, "coo"] == 0
+        assert seen[mode, True, "ell"] > 0
+    assert seen["superstep", True, "ell"] == seen["eager", True, "ell"]
+
+
+def test_ell_sweeps_key_the_agg_registry_entry():
+    """The agg step's registry key holds the switch: a setup with the other
+    setting adds an agg entry instead of reusing one built without (or
+    with) the twin."""
+    adj = _adj("grid_2d", 0)
+    ss.clear_cache()
+    ss.reset_counters()
+    cfg = dataclasses.replace(CFG_FLOOR, matvec_backend="ell")
+    build_hierarchy(adj, cfg)
+    ss.reset_counters()
+    build_hierarchy(adj, dataclasses.replace(cfg, setup_ell_sweeps=True))
+    assert ss.counters()["steps"]["agg"]["compiles"] > 0
+    ss.reset_counters()
+    build_hierarchy(adj, dataclasses.replace(cfg, setup_ell_sweeps=True))
+    assert ss.counters()["steps"]["agg"]["compiles"] == 0
+
+
 @pytest.mark.parametrize("name", GRAPHS)
 def test_one_host_fetch_per_level(name):
     ss.reset_counters()
