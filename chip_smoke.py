@@ -104,7 +104,59 @@ Phases, one line each (any failure exits non-zero):
              shape, against its plain version and for a bitwise repeat.
              The phase's launches (read before these checks) go into the
              kernels JSON as ``paper_launches``.
-6. e2e     — the same path at n = 2^16 with the kernels and with the plain
+6. service — the serving layer (``repro_torch.service``) at a serving
+             deployment's size: eight Barabási–Albert graphs n = 2^17,
+             m = 4, seeds 1–8 (generated in parallel processes, one bucket
+             signature) and the main BA 2^20 graph in its own bucket,
+             through ``SolverService(SolverOptions(matvec_backend="ell",
+             tol=1e-6, verify="cheap"), max_batch=8)``: three tickets per
+             2^17 graph (k = 1 and 4 at tol 1e-6, k = 8 at tol 1e-8 with
+             max_iters 100) and two on the 2^20 graph (k = 1, 8), seeded
+             and mean-free, one ``flush()``. ``stats()`` must show one
+             batch of 8 setups, 1 looped, 9 solve blocks and 113 columns;
+             every ticket ``converged`` with a passing certificate and a
+             float64 host residual ≤ 1e-4 in every column; ``agg_vote``
+             launched in the setup pass, ``spmv_ell`` and ``jacobi`` in
+             the solve pass. Then, bitwise: the 2^20 graph's and two 2^17
+             graphs' tickets against direct facade solves of the same
+             columns, a ``max_batch=1`` service on those two graphs
+             (batched = looped), and the re-submitted stream (cache hits
+             only, no setup seconds); strict admission (the reference
+             tests' hopeless grid rejected; a ``service.solve`` fault
+             raising at the first group's attempt and retry requeues that
+             ticket, served after its backoff); kill and resume (a child
+             process on the card serves the two graphs' stream with
+             ``checkpoint_every=1`` and is killed in its second group with
+             ``KILL_EXIT_CODE``; a fresh service here resumes the snapshot
+             and flushes bitwise the uninterrupted results). Prints
+             setups/s batched and looped (wall), latency p50/p90/p99,
+             solve seconds per column and peak memory, with the card's
+             name and power limit. Last, spmv_ell and jacobi at the
+             finest shapes of a 2^17 and the 2^20 hierarchy and agg_vote at
+             the batched setup's first level, on the flush's own last
+             arguments there, against the plain version and for a bitwise
+             repeat. The phase's launches (read before those checks) go
+             into the kernels JSON as ``service_launches``.
+7. spectral — the spectral layer (``repro_torch.spectral``) on a Delaunay
+             triangulation of 2^16 uniform points (unweighted), with the
+             entry points' default options (``exact_columns=False``) on
+             ``matvec_backend="ell"``: ``lobpcg`` k = 8 at tol 1e-8 (all
+             pairs converged; eigenvalues within rtol 1e-6 of scipy's
+             float64 shift-invert ``eigsh``; iterations, preconditioner
+             solves and columns, setup / preconditioner / host-algebra
+             seconds, and the unpreconditioned method's residual after as
+             many iterations), ``fiedler_bisect`` with and without the
+             sweep (the sweep's conductance ≤ the sign cut's),
+             ``spectral_clustering(k=4)`` and ``recursive_bisection(
+             n_parts=4)`` with their cut quality, ``laplacian_pe(k=8)``
+             twice from one cache (the second makes no setup and launches
+             no agg_vote; both bitwise equal), and
+             ``effective_resistance(n_probes=64)`` (every column's float64
+             host residual ≤ 1e-4). All three solver kernels must launch;
+             then the same kernel checks as ``service`` at the mesh's
+             finest shapes and its setup's first agg_vote level; launches
+             as ``spectral_launches``.
+8. e2e     — the same path at n = 2^16 with the kernels and with the plain
              versions (the setup registry cleared between the two):
              identical levels, iteration counts within ±1 and ‖x_k −
              x_p‖/‖x_p‖ ≤ 1e-4. Then the super-step contracts, at a bucket
@@ -119,7 +171,7 @@ Phases, one line each (any failure exits non-zero):
              are counted beside the super-step's fetches; the second graph
              adds no registry entry; the batched setup of both graphs is
              bitwise equal, tensor by tensor, to their single builds.
-7. deepfm  — DeepFM serving at full width (``configs/deepfm.py::FULL``: 39
+9. deepfm  — DeepFM serving at full width (``configs/deepfm.py::FULL``: 39
              fields, d = 10, H = 2, MLP 390-400-400-400-1, 3,729,408 table
              rows), weights from a seeded generator: 8 serve_p99 requests
              (B = 512, ``recsys_batch_stream`` steps 0-7, seed 0), one
@@ -138,8 +190,9 @@ Phases, one line each (any failure exits non-zero):
              and V + 3, and an ids view that does not start on a 16-byte
              boundary (``flat[1:]``), which must launch the kernel.
 
-The line before the last is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.
+Then a ``[total]`` line with the script's seconds. The line before the
+last is the card's name and power limit, the one before it the kernels'
+JSON record; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -161,6 +214,11 @@ MAIN_N, E2E_N = 1 << 20, 1 << 16
 PAPER_SCALE = 1.0               # the Fig 3 stand-ins at the paper's sizes
 PAPER_DELAUNAY_N = 1 << 20      # DIMACS10 delaunay_n20's class and size
 E2E_FLOOR = 1 << 20     # above every level's n and nnz of the e2e graphs
+# the service and spectral phases' sizes, halved from 2^18 (once and
+# twice): their solves are bound by the host's launches (ROADMAP B1), so
+# their time falls slower than n
+SERVICE_N, SERVICE_GRAPHS = 1 << 17, 8      # one batched setup of eight
+SPECTRAL_N = 1 << 16    # Delaunay points of the spectral phase
 REPLACES = {
     "spmv_ell": "src/repro/kernels/spmv_ell/spmv_ell.py:41",
     "jacobi": "src/repro/kernels/jacobi/jacobi.py:35",
@@ -210,17 +268,18 @@ def time_ms(torch, fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, kernel: str, reps: int = 20) -> float:
+def device_ms(torch, fn, kernel: str, reps: int = 20) -> tuple[float, int]:
     """The device time of one launch of ``kernel`` in ``fn`` (which launches
     it once a call), from ``torch.profiler`` over ``reps`` calls: the mean
     over the launches the profiler saw (it may miss one at the window's
-    start); fails if it saw none, or more than one a call."""
+    start), and the windows profiled until one saw a launch; fails if it
+    saw none, or more than one a call."""
     from repro_torch.trace_solve import kernel_device_ms
 
-    ms, count = kernel_device_ms(torch, fn, kernel, reps)
+    ms, count, windows = kernel_device_ms(torch, fn, kernel, reps)
     check(0 < count <= reps, f"{kernel}: the profiler saw {count} launches "
-          f"of its kernel in {reps} calls")
-    return ms
+          f"of its kernel in {reps} calls in {windows} windows")
+    return ms, windows
 
 
 def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
@@ -329,13 +388,14 @@ def kernel_record(torch, name, launches, err, kernel, plain, bytes_moved,
     """One kernel's entry of the ``kernels`` JSON line, printed as it is
     made: ``kernel``, ``plain`` and ``library`` are calls to time."""
     b_ms, b_by = bound(bytes_moved, ops)
-    k_ms, d_ms = time_ms(torch, kernel), device_ms(torch, kernel, name)
+    k_ms, (d_ms, windows) = (time_ms(torch, kernel),
+                             device_ms(torch, kernel, name))
     plain_ms = time_ms(torch, plain)
     library_ms = time_ms(torch, library) if library else None
     say("kernels", name=name, max_abs_err=err, kernel_ms=k_ms,
         device_ms=d_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         of_bound=round(b_ms / d_ms, 4), library_ms=library_ms,
-        bytes=int(bytes_moved))
+        bytes=int(bytes_moved), profiler_windows=windows)
     return dict(name=name, route="cuda",
                 source=f"src/repro_torch/csrc/{name}.cu",
                 replaces=REPLACES[name], launches=launches,
@@ -633,7 +693,8 @@ def phase_levels(torch, solver, per_shape) -> None:
               f"{name} disagrees with its plain version at level {i}")
         check(all(torch.equal(g, a) for g, a in zip(got, again)),
               f"{name} is not bitwise repeatable at level {i}")
-        k_ms, d_ms = time_ms(torch, kernel), device_ms(torch, kernel, name)
+        k_ms, (d_ms, windows) = (time_ms(torch, kernel),
+                                 device_ms(torch, kernel, name))
         b_ms, b_by = bound(bytes_moved, ops)
         gap[name] += calls * (d_ms - b_ms)
         measured[name] += 1
@@ -641,7 +702,7 @@ def phase_levels(torch, solver, per_shape) -> None:
             plan=json.dumps(ell_tile_plan(w)), kernel_ms=k_ms,
             device_ms=d_ms, bound_ms=b_ms, bound_by=b_by,
             of_bound=round(b_ms / d_ms, 4), **{f"launches_per_{unit}": calls},
-            max_abs_err=max(float((g.double() - r.double()).abs().max())
+            profiler_windows=windows, max_abs_err=max(float((g.double() - r.double()).abs().max())
                             for g, r in zip(got, want)))
 
     for i, level in enumerate(levels):
@@ -902,6 +963,18 @@ def phase_facade(torch, np, setup) -> dict:
     return dict(launched, agg_vote=votes, embedding_bag=bags)
 
 
+def phase_launches() -> dict:
+    """Every kernel's launch count, by kernel name."""
+    return dict(zip((m.rsplit(".", 1)[1] for m in WRAPPERS),
+                    launch_counts(tuple(WRAPPERS))))
+
+
+def zero_launches() -> None:
+    for mod_name, (wrapper, _) in WRAPPERS.items():
+        getattr(importlib.import_module(f"{mod_name}.ops"),
+                wrapper).launches = 0
+
+
 def phase_paper(torch, np) -> dict:
     """The paper's Fig 3 evaluation on the card. (a) The seven graphs of
     ``PAPER_FIG3`` at the paper's sizes, each through the facade's
@@ -915,9 +988,7 @@ def phase_paper(torch, np) -> dict:
     from benchmarks.port_wda import PAPER_FIG3, fig3_row
 
     t0 = time.perf_counter()
-    counts = {m: importlib.import_module(f"{m}.ops") for m in WRAPPERS}
-    for mod_name, ops in counts.items():
-        getattr(ops, WRAPPERS[mod_name][0]).launches = 0
+    zero_launches()
     ok_status = ("converged", "max_iters")
     for name in PAPER_FIG3:
         row = fig3_row(torch, name, scale=PAPER_SCALE, tol=1e-8, seed=0)
@@ -967,9 +1038,7 @@ def phase_paper(torch, np) -> dict:
                   f"{ours['wda']:.3f} is not below Jacobi-PCG's "
                   f"{jac['wda']:.3f}")
     sweeps_shapes = phase_paper_delaunay(torch, np)
-    launched = {mod_name.rsplit(".", 1)[1]:
-                getattr(ops, WRAPPERS[mod_name][0]).launches
-                for mod_name, ops in counts.items()}
+    launched = phase_launches()
     check_setup_sweeps(torch, sweeps_shapes)
     say("paper", seconds=round(time.perf_counter() - t0, 1))
     return launched
@@ -977,23 +1046,45 @@ def phase_paper(torch, np) -> dict:
 
 def check_setup_sweeps(torch, shapes) -> None:
     """``spmv_ell`` at every (rows, width) where a sweeps-on setup launched
-    it, on that setup's last arguments at the shape: against its plain
-    version (rtol 1e-5, atol 1e-6) and for a bitwise repeat."""
-    from repro_torch.kernels.spmv_ell import spmv_ell, spmv_ell_ref
+    it, on that setup's last arguments at the shape
+    (``check_kernel_shapes``)."""
+    check_kernel_shapes(torch, "paper", [
+        ("spmv_ell", shape, entry, dict(step="setup_spmv_ell",
+                                        setup_mode=mode))
+        for mode, tally in shapes.items()
+        for shape, entry in sorted(tally.items())])
 
-    for mode, tally in shapes.items():
-        for (rows, w), (calls, args, kw) in sorted(tally.items()):
-            got, want = spmv_ell(*args, **kw), spmv_ell_ref(*args, **kw)
-            again = spmv_ell(*args, **kw)
-            torch.cuda.synchronize()
-            err = float((got.double() - want.double()).abs().max())
-            say("paper", step="setup_spmv_ell", setup_mode=mode, rows=rows,
-                width=w, launches_in_setup=calls, max_abs_err=err)
-            check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
-                  f"setup spmv_ell ({mode}, {rows}x{w}) disagrees with its "
-                  f"plain version: max abs err {err:.3e}")
-            check(torch.equal(got, again), f"setup spmv_ell ({mode}, "
-                  f"{rows}x{w}) is not bitwise repeatable")
+
+def check_kernel_shapes(torch, phase, picks) -> None:
+    """Each solver kernel on a phase's own last arguments at a shape it
+    launched at: ``picks`` holds ``(kernel, (rows, width), (calls, args,
+    kw), labels)`` from ``shapes_launched``. Against the plain version
+    (spmv_ell and jacobi at rtol 1e-5 / atol 1e-6, agg_vote bit-exact) and
+    for a bitwise repeat."""
+    for name, (rows, w), (calls, args, kw), labels in picks:
+        mod = importlib.import_module(f"repro_torch.kernels.{name}")
+        wrapper, ref = WRAPPERS[mod.__name__]
+        run, plain = getattr(mod, wrapper), getattr(mod, ref)
+        got, want, again = (run(*args, **kw), plain(*args, **kw),
+                            run(*args, **kw))
+        torch.cuda.synchronize()
+        got, want, again = ((o,) if torch.is_tensor(o) else tuple(o)
+                            for o in (got, want, again))
+        err = max(float((g.double() - r.double()).abs().max())
+                  for g, r in zip(got, want))
+        say(phase, **labels, kernel=name, rows=rows, width=w,
+            launches=calls, max_abs_err=err)
+        where = f"{phase} {name} ({labels}, {rows}x{w})"
+        if name == "agg_vote":
+            check(all(torch.equal(g, r) for g, r in zip(got, want)),
+                  f"{where} is not bit-exact against its plain version")
+        else:
+            check(all(torch.allclose(g, r, rtol=1e-5, atol=1e-6)
+                      for g, r in zip(got, want)),
+                  f"{where} disagrees with its plain version: max abs err "
+                  f"{err:.3e}")
+        check(all(torch.equal(g, a) for g, a in zip(got, again)),
+              f"{where} is not bitwise repeatable")
 
 
 def phase_paper_delaunay(torch, np) -> dict:
@@ -1122,6 +1213,470 @@ def phase_paper_delaunay(torch, np) -> dict:
     check(info_j.status != "converged" or rel_j <= 1e-4, "delaunay Jacobi-PCG "
           f"reports converged at host residual {rel_j:.3e}")
     return {"superstep": shapes_on, "eager": shapes_eager}
+
+
+def finest_picks(solver, tally, labels) -> list:
+    """``check_kernel_shapes`` picks for spmv_ell at the finest level of
+    ``solver``'s hierarchy (every PCG matvec) and jacobi at its first
+    aggregation level (the finest it smooths), from ``tally``."""
+    from repro_torch.core.coarsen import AggregationLevel
+
+    ts = solver.hierarchy.transfers
+    agg = next(t for t in ts if isinstance(t, AggregationLevel)).fine
+    picks = []
+    for name, level in (("spmv_ell", ts[0].fine), ("jacobi", agg)):
+        shape = tuple(level.ell.col.shape)
+        check(shape in tally[name], f"{labels}: {name} was not launched at "
+              f"the finest shape {shape}")
+        picks.append((name, shape, tally[name][shape], labels))
+    return picks
+
+
+def hopeless_graph():
+    """``tests/test_service_checkpoint.py``'s hopeless problem: a grid
+    12×12 with a pair-symmetric 1e16 weight scaling, beyond float32."""
+    import numpy as np
+
+    from repro_torch.graphs.generators import ensure_connected, grid_2d
+
+    n, r, c, v = ensure_connected(*grid_2d(12, 12))
+    v = np.where(np.minimum(r, c) % 2 == 0, np.asarray(v) * 1e16,
+                 np.asarray(v, np.float64))
+    return n, r, c, v
+
+
+KILL_CHILD = """
+import json, sys
+import numpy as np
+sys.path.insert(0, {src!r})
+from repro_torch.api import Problem, SolverOptions
+from repro_torch.service import SolverService
+from repro_torch.testing import Fault, FaultPlan, inject
+
+d = np.load({npz!r})
+reqs = json.loads({reqs!r})
+problems = [Problem.from_edges(int(d[f"n{{g}}"]), d[f"r{{g}}"], d[f"c{{g}}"],
+                               d[f"v{{g}}"]) for g in range(2)]
+svc = SolverService(SolverOptions(matvec_backend="ell", tol=1e-6,
+                                  verify="cheap", checkpoint_every=1,
+                                  device={device!r}),
+                    max_batch=8, checkpoint_dir={ckpt!r})
+for j, (g, kw) in enumerate(reqs):
+    svc.submit(problems[g], d[f"b{{j}}"], **kw)
+if any(m.split(".")[0] in ("jax", "repro") for m in sys.modules):
+    sys.exit(3)
+with inject(FaultPlan({{"service.solve": Fault(mode="kill",
+                                              at_calls=(1,))}})):
+    svc.flush()
+sys.exit("the kill fault did not fire")
+"""
+
+
+def phase_service(torch, np, main_graph, smi) -> dict:
+    """A stream of solves through ``repro_torch.service.SolverService`` at
+    a serving deployment's size: eight BA 2^17 graphs (one bucket, one
+    batched setup) and the main BA 2^20 graph (looped), 113 right-hand
+    sides in 26 requests and one flush; then the contracts (direct solves,
+    batched = looped, the re-submitted stream, strict admission, kill and
+    resume) and the kernels at the flush's finest shapes. Returns each
+    kernel's launches over the phase before that check."""
+    import shutil
+
+    from benchmarks.port_service import ba_graphs, stream
+    from repro_torch.api import HierarchyCache, Problem, SolverOptions
+    from repro_torch.api import setup as api_setup
+    from repro_torch.device import resolve_device
+    from repro_torch.service import SolverService
+    from repro_torch.testing import KILL_EXIT_CODE, Fault, FaultPlan, inject
+
+    t_phase = time.perf_counter()
+    graphs = ba_graphs(SERVICE_N, range(1, SERVICE_GRAPHS + 1))
+    gen_s = time.perf_counter() - t_phase
+    graphs.append(main_graph)
+    t0 = time.perf_counter()
+    problems = [Problem.from_edges(*g) for g in graphs]
+    for p in problems:
+        p.fingerprint()
+    prob_s = time.perf_counter() - t0
+    sigs = [p.bucket_signature() for p in problems]
+    say("service", graphs=f"{SERVICE_GRAPHS} x barabasi_albert(n="
+        f"{SERVICE_N},m=4,seeds 1-{SERVICE_GRAPHS}) + main "
+        f"n={main_graph[0]}",
+        stored_nnz=json.dumps([len(g[1]) for g in graphs]),
+        buckets=json.dumps(sorted(set(sigs))), generate_s=round(gen_s, 1),
+        problems_s=round(prob_s, 1), card=smi)
+    check(len(set(sigs[:-1])) == 1 and sigs[-1] != sigs[0],
+          f"the service graphs' bucket signatures {sigs}")
+    main_i = len(problems) - 1
+    rng = np.random.default_rng(1)
+    requests = stream(problems[:-1])
+    for k in (1, 8):
+        B = rng.normal(size=(problems[main_i].n, k)).astype(np.float32)
+        B -= B.mean(axis=0)
+        requests.append((main_i, B[:, 0] if k == 1 else B, {}))
+    opts = SolverOptions(matvec_backend="ell", tol=1e-6, verify="cheap")
+
+    zero_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    svc = SolverService(opts, max_batch=8)
+    passes, batched_votes = {}, {}
+
+    def instrument(service, name, after=None):
+        real = getattr(service, name)
+
+        def run(*args, **kw):
+            torch.cuda.synchronize()
+            k0, t0 = phase_launches(), time.perf_counter()
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+            passes[name] = dict(seconds=time.perf_counter() - t0, launches={
+                k: v - k0[k] for k, v in phase_launches().items()})
+            if after:
+                after()
+            return out
+
+        setattr(service, name, run)
+
+    with shapes_launched(SOLVER_KERNELS) as tally:
+        instrument(svc, "_setup_pass")
+        instrument(svc, "_solve_pass")
+        instrument(svc, "_setup_batched",
+                   after=lambda: batched_votes.update(tally["agg_vote"]))
+        t0 = time.perf_counter()
+        tickets = [svc.submit(problems[i], B, **kw) for i, B, kw in requests]
+        svc.flush()
+        flush_s = time.perf_counter() - t0
+    st = svc.stats()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    counts = {k: st[k] for k in ("setup_batches", "setups_batched",
+                                 "setups_looped", "solve_blocks",
+                                 "rhs_columns")}
+    # float64 host residuals, one pass over each graph's columns
+    worst, bad = 0.0, []
+    for i, (n, r, c, v) in enumerate(graphs):
+        mine = [(t, B) for t, (j, B, _) in zip(tickets, requests) if j == i]
+        Bs = np.concatenate([B.reshape(n, -1) for _, B in mine], axis=1)
+        Xs = np.concatenate([t.result()[0].reshape(n, -1) for t, _ in mine],
+                            axis=1)
+        rels = host_residual(n, r, c, v, Bs, Xs)
+        worst = max(worst, float(rels.max()))
+        for t, _ in mine:
+            res = t.result()[1]
+            if not (res.status == "converged" and res.certificate.passed):
+                bad.append((t.seq, res.status))
+        if (rels > 1e-4).any():
+            bad.append((i, "host residual", float(rels.max())))
+    lat = st["latency_seconds"]
+    say("service", step="flush", flush_s=round(flush_s, 3),
+        counters=json.dumps(counts), setup_s=round(st["setup_seconds"], 3),
+        batched_setup_s=passes.get("_setup_batched", {}).get("seconds"),
+        solve_s=round(st["solve_seconds"], 3),
+        solve_s_per_rhs_column=st["solve_seconds"] / st["rhs_columns"],
+        latency_p50_p90_p99_s=json.dumps([lat["p50"], lat["p90"],
+                                          lat["p99"]]),
+        peak_gib=round(peak_gib, 3),
+        max_host_f64_rel_residual=f"{worst:.3e}",
+        setup_pass_launches=json.dumps(passes["_setup_pass"]["launches"]),
+        solve_pass_launches=json.dumps(passes["_solve_pass"]["launches"]),
+        card=smi)
+    check(counts == dict(setup_batches=1, setups_batched=SERVICE_GRAPHS,
+                         setups_looped=1, solve_blocks=SERVICE_GRAPHS + 1,
+                         rhs_columns=13 * SERVICE_GRAPHS + 9),
+          f"service counters {counts}")
+    check(not bad, f"tickets not converged, certified and within 1e-4: {bad}")
+    check(passes["_setup_pass"]["launches"]["agg_vote"] > 0,
+          "the setup pass launched no agg_vote")
+    check(all(passes["_solve_pass"]["launches"][k] > 0
+              for k in ("spmv_ell", "jacobi")),
+          "the solve pass launched no spmv_ell or jacobi")
+
+    # the tickets of the 2^20 graph and two of the eight against direct
+    # facade solves of the same columns on the same hierarchies
+    direct = [bits_equal(np, t.result()[0], api_setup(
+        problems[i], opts, cache=svc.cache).solve(B, **kw)[0])
+              for t, (i, B, kw) in zip(tickets, requests)
+              if i in (0, 1, main_i)]
+    # batched = looped: the same two graphs through a max_batch=1 service
+    looped_svc = SolverService(opts, max_batch=1)
+    pair = [(t, i, B, kw) for t, (i, B, kw) in zip(tickets, requests)
+            if i in (0, 1)]
+    looped = [looped_svc.submit(problems[i], B, **kw) for _, i, B, kw in pair]
+    looped_svc.flush()
+    lst = looped_svc.stats()
+    same_looped = [bits_equal(np, t.result()[0], u.result()[0])
+                   for (t, *_), u in zip(pair, looped)]
+    del looped_svc, looped
+    # the re-submitted stream: cache hits only, no setup, the same bits
+    before = svc.stats()
+    again = [svc.submit(problems[i], B, **kw) for i, B, kw in requests]
+    svc.flush()
+    after = svc.stats()
+    hits = after["cache"]["hits"] - before["cache"]["hits"]
+    same_again = all(bits_equal(np, t.result()[0], u.result()[0])
+                     for t, u in zip(tickets, again))
+    batched_rate = SERVICE_GRAPHS / passes["_setup_batched"]["seconds"]
+    looped_rate = lst["setups_looped"] / lst["setup_seconds"]
+    say("service", step="contracts", direct_bitwise=all(direct),
+        direct_tickets=len(direct), looped_bitwise=all(same_looped),
+        setups_per_s_batched=batched_rate, setups_per_s_looped=looped_rate,
+        batched_over_looped=batched_rate / looped_rate,
+        resubmit_hits=hits,
+        resubmit_misses=after["cache"]["misses"] - before["cache"]["misses"],
+        resubmit_setup_s=after["setup_seconds"] - before["setup_seconds"],
+        resubmit_bitwise=same_again, card=smi)
+    check(all(direct), "service results differ from direct facade solves")
+    check(lst["setups_looped"] == 2 and all(same_looped),
+          "batched setups differ from looped ones")
+    check(hits == main_i + 1 and after["cache"]["misses"]
+          == before["cache"]["misses"]
+          and after["setup_seconds"] == before["setup_seconds"]
+          and same_again, "the re-submitted stream set up again or differs")
+
+    # strict admission: the hopeless problem is turned away; a raising
+    # serve requeues its ticket and the rest of the flush completes
+    strict = SolverService(opts, max_batch=8, cache=svc.cache,
+                           admission="strict")
+    b_h = rng.normal(size=144).astype(np.float32)
+    rejected = strict.submit(Problem.from_edges(*hopeless_graph()),
+                             b_h - b_h.mean())
+    picked = [j for j, (i, _, _) in enumerate(requests) if i in (0, 1)][::3]
+    plan = FaultPlan({"service.solve": Fault(mode="raise",
+                                             at_calls=(0, 1))})
+    with inject(plan):
+        sts = [strict.submit(problems[requests[j][0]], requests[j][1],
+                             **requests[j][2]) for j in picked]
+        strict.flush()
+    first = [t.status for t in sts]
+    strict.flush()
+    strict.flush()
+    requeued = [t for t, s0 in zip(sts, first) if s0 == "requeued"]
+    sst = strict.stats()
+    say("service", step="strict", rejected=rejected.status,
+        statuses_after_fault=json.dumps(first),
+        statuses_after_backoff=json.dumps([t.status for t in sts]),
+        requeued=sst["requeued"], rejected_count=sst["rejected"],
+        fired=json.dumps(plan.fired))
+    check(rejected.status == "rejected", "strict admission admitted the "
+          "hopeless problem")
+    check(sorted(first) == ["done", "requeued"] and sst["requeued"] == 1,
+          f"strict admission after a raising serve: {first}")
+    check(all(t.status == "done" for t in sts) and all(
+        bits_equal(np, t.result()[0], tickets[j].result()[0])
+        for t, j in zip(sts, picked)),
+        "the requeued ticket was not served, or differs")
+
+    # kill and resume: a child process on the card serves the two
+    # graphs' stream with snapshots and is killed in its second group
+    work = ROOT / "build" / "service_smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    ckpt, npz = str(work / "ckpt"), str(work / "stream.npz")
+    arrays, reqs = {}, []
+    for g in (0, 1):
+        n, r, c, v = graphs[g]
+        arrays.update({f"n{g}": n, f"r{g}": r, f"c{g}": c, f"v{g}": v})
+    for j, (_, i, B, kw) in enumerate(pair):
+        arrays[f"b{j}"] = B
+        reqs.append((i, kw))
+    np.savez(npz, **arrays)
+    t0 = time.perf_counter()
+    child = subprocess.run(
+        [sys.executable, "-c", KILL_CHILD.format(
+            src=str(ROOT / "src"), npz=npz, reqs=json.dumps(reqs),
+            ckpt=ckpt, device=str(resolve_device(None)))],
+        capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    fresh = SolverService(opts, max_batch=8, cache=svc.cache,
+                          checkpoint_dir=ckpt)
+    resumed_t = [fresh.submit(problems[i], B, **kw) for _, i, B, kw in pair]
+    resumed = fresh.resume()
+    fresh.flush()
+    same_resume = [bits_equal(np, t.result()[0], u.result()[0])
+                   for (t, *_), u in zip(pair, resumed_t)]
+    say("service", step="kill_resume", child_exit=child.returncode,
+        child_s=round(child_s, 1), resumed=resumed,
+        bitwise=json.dumps(same_resume), card=smi)
+    check(child.returncode == KILL_EXIT_CODE,
+          f"the killed child exited {child.returncode}: "
+          f"{child.stderr[-3000:]}")
+    check(resumed > 0 and all(same_resume),
+          "the resumed flush differs from the uninterrupted one")
+    shutil.rmtree(work, ignore_errors=True)
+
+    launched = phase_launches()
+    check(launched["embedding_bag"] == 0,
+          "the service phase launched embedding_bag")
+    picks = []
+    for i in (0, main_i):
+        handle = svc.cache.peek(HierarchyCache.key(problems[i], opts,
+                                                   svc.backend))
+        picks += finest_picks(handle._solver, tally,
+                              dict(graph=f"ba_n{problems[i].n}"))
+    first_vote = max(batched_votes)
+    picks.append(("agg_vote", first_vote, batched_votes[first_vote],
+                  dict(graph="batched setup")))
+    check_kernel_shapes(torch, "service", picks)
+    say("service", seconds=round(time.perf_counter() - t_phase, 1),
+        launches=json.dumps(launched), card=smi)
+    return launched
+
+
+@contextlib.contextmanager
+def timed_solves(seconds: list):
+    """Within the block, add the wall seconds of every facade
+    ``Solver.solve`` (which returns host arrays) to ``seconds[0]``."""
+    from repro_torch.api.facade import Solver
+
+    real = Solver.solve
+
+    def solve(self, *args, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(self, *args, **kw)
+        finally:
+            seconds[0] += time.perf_counter() - t0
+
+    Solver.solve = solve
+    try:
+        yield
+    finally:
+        Solver.solve = real
+
+
+def phase_spectral(torch, np, smi) -> dict:
+    """The spectral layer (``repro_torch.spectral``) on a Delaunay mesh of
+    2^16 uniform points: LOBPCG k = 8 at tol 1e-8 against scipy's
+    shift-invert ``eigsh``, Fiedler bisection with and without the sweep,
+    spectral clustering and recursive bisection into 4, two positional
+    encodings from one cache, the resistance sketch with 64 probes; then
+    the kernels at the mesh's finest shapes. Returns each kernel's
+    launches over the phase before that check."""
+    from scipy.sparse.linalg import eigsh
+
+    from repro_torch.api import HierarchyCache, Problem
+    from repro_torch.graphs.generators import delaunay, ensure_connected
+    from repro_torch.spectral import (effective_resistance, fiedler_bisect,
+                                      laplacian_pe, lobpcg,
+                                      recursive_bisection,
+                                      spectral_clustering)
+    from repro_torch.spectral.lobpcg import _default_options, _laplacian_csr
+    from repro_torch.spectral.resistance import _incidence_rhs
+
+    # the entry points' default options (exact_columns=False), with the
+    # ELL backend as on every other path of this script: the reference's
+    # default "coo" would run no spmv_ell or jacobi
+    opts = dataclasses.replace(_default_options(SPECTRAL_N, None),
+                               matvec_backend="ell")
+
+    t_phase = time.perf_counter()
+    n, r, c, v = ensure_connected(*delaunay(SPECTRAL_N, seed=0))
+    p = Problem.from_edges(n, r, c, v)
+    say("spectral", graph=f"delaunay(n={n},seed=0)", stored_nnz=len(r),
+        generate_s=round(time.perf_counter() - t_phase, 1), card=smi)
+    cache = HierarchyCache()
+    zero_launches()
+    with shapes_launched(SOLVER_KERNELS) as tally:
+        # LOBPCG through the default (exact_columns=False) options
+        precond = [0.0]
+        t0 = time.perf_counter()
+        with timed_solves(precond):
+            eig = lobpcg(p, 8, tol=1e-8, options=opts, cache=cache)
+        total = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lap = _laplacian_csr(p).tocsc()
+        ref = np.sort(eigsh(lap, k=9, sigma=-1e-2, which="LM",
+                            return_eigenvectors=False))[1:]
+        eigsh_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        unp = lobpcg(p, 8, tol=1e-8, precondition=False,
+                     max_iters=eig.iters)
+        unp_s = time.perf_counter() - t0
+        rel = np.abs(eig.eigenvalues / ref - 1.0)
+        say("spectral", step="lobpcg", k=8, tol=1e-8, iters=eig.iters,
+            converged=int(eig.converged.sum()),
+            precond_solves=eig.precond_solves,
+            precond_columns=eig.precond_columns,
+            precond_status=eig.precond_status,
+            setup_s=round(eig.setup_seconds, 3),
+            precond_s=round(precond[0], 3),
+            host_algebra_s=round(total - eig.setup_seconds - precond[0], 3),
+            eigenvalues=json.dumps(eig.eigenvalues.tolist()),
+            eigsh_max_rel_diff=f"{rel.max():.3e}",
+            eigsh_s=round(eigsh_s, 1),
+            final_residual_max=f"{eig.residual_norms[-1].max():.3e}",
+            unpreconditioned_residual_max=(
+                f"{unp.residual_norms[-1].max():.3e}"),
+            unpreconditioned_converged=int(unp.converged.sum()),
+            unpreconditioned_s=round(unp_s, 1), card=smi)
+        check(eig.converged.all(), f"lobpcg: {int(eig.converged.sum())} of 8 "
+              "pairs converged")
+        check(rel.max() <= 1e-6, f"lobpcg eigenvalues vs eigsh: {rel}")
+
+        # Fiedler bisection, clustering and partitioning
+        t0 = time.perf_counter()
+        mask_s, sweep = fiedler_bisect(p, options=opts, cache=cache)
+        mask_n, sign = fiedler_bisect(p, sweep=False, options=opts,
+                                      cache=cache)
+        clus = spectral_clustering(p, 4, options=opts, cache=cache)
+        parts = recursive_bisection(p, 4, options=opts, cache=cache)
+        say("spectral", step="cuts", fiedler_value=sweep["fiedler_value"],
+            sweep_conductance=sweep["conductance"],
+            sign_conductance=sign["conductance"],
+            sweep_side=int(mask_s.sum()), sign_side=int(mask_n.sum()),
+            clustering_ncut=clus.ncut,
+            clustering_conductances=json.dumps(clus.conductances.tolist()),
+            clustering_sizes=json.dumps(np.bincount(clus.labels).tolist()),
+            bisection_ncut=parts.ncut,
+            bisection_conductances=json.dumps(parts.conductances.tolist()),
+            bisection_sizes=json.dumps(np.bincount(parts.labels).tolist()),
+            seconds=round(time.perf_counter() - t0, 1), card=smi)
+        check(sweep["conductance"] <= sign["conductance"] + 1e-12,
+              "the sweep cut's conductance is above the sign cut's")
+        check(clus.n_clusters == 4 and parts.n_clusters == 4
+              and np.isfinite(clus.conductances).all(),
+              "clustering or partitioning did not give 4 parts")
+
+        # two positional encodings from one cache: no setup the second time
+        pe = []
+        for _ in range(2):
+            misses, votes = cache.stats()["misses"], phase_launches()
+            t0 = time.perf_counter()
+            pe.append(laplacian_pe(p, k=8, options=opts, cache=cache,
+                                   seed=0))
+            pe_s = time.perf_counter() - t0
+        new_misses = cache.stats()["misses"] - misses
+        new_votes = phase_launches()["agg_vote"] - votes["agg_vote"]
+        say("spectral", step="pe", k=8, bitwise=bool(np.array_equal(*pe)),
+            second_call_misses=new_misses, second_call_agg_vote=new_votes,
+            second_call_s=round(pe_s, 1), card=smi)
+        check(np.array_equal(*pe) and new_misses == 0 and new_votes == 0,
+              "the second laplacian_pe set up again or differs")
+
+        # the resistance sketch: 64 probes in one blocked solve
+        t0 = time.perf_counter()
+        sk = effective_resistance(p, n_probes=64, options=opts, cache=cache)
+        res_s = time.perf_counter() - t0
+        B = _incidence_rhs(p, 64, 0).astype(np.float32)
+        rels = host_residual(n, r, c, v, B, sk.Z)
+        say("spectral", step="resistance", n_probes=sk.n_probes,
+            solve_iters=sk.solve_iters, seconds=round(res_s, 1),
+            max_host_f64_rel_residual=f"{rels.max():.3e}", card=smi)
+        check((rels <= 1e-4).all(), f"resistance columns above 1e-4: "
+              f"{np.flatnonzero(rels > 1e-4).tolist()}")
+    launched = phase_launches()
+    check(all(launched[k] > 0 for k in ("spmv_ell", "jacobi", "agg_vote"))
+          and launched["embedding_bag"] == 0,
+          f"spectral phase launches {launched}")
+    handle = cache.peek(HierarchyCache.key(p, opts, "single"))
+    picks = finest_picks(handle._solver, tally, dict(graph="delaunay"))
+    first_vote = max(tally["agg_vote"])
+    picks.append(("agg_vote", first_vote, tally["agg_vote"][first_vote],
+                  dict(graph="delaunay setup")))
+    check_kernel_shapes(torch, "spectral", picks)
+    say("spectral", seconds=round(time.perf_counter() - t_phase, 1),
+        launches=json.dumps(launched), card=smi)
+    return launched
 
 
 def phase_e2e(torch, np):
@@ -1428,16 +1983,18 @@ def phase_kernels_deepfm(torch, model, flat, launches):
     fo = lambda: embedding_bag_kernel(w1, flat)            # noqa: E731
     b_ms, b_by = bound(4 * n_bags * hot + 4 * n_bags + 4 * distinct,
                        n_bags * hot)
-    d_ms = device_ms(torch, fo, "embedding_bag")
+    d_ms, windows = device_ms(torch, fo, "embedding_bag")
     say("kernels", name="embedding_bag", shape="first_order", d=1,
         kernel_ms=time_ms(torch, fo), device_ms=d_ms, bound_ms=b_ms,
-        bound_by=b_by, of_bound=round(b_ms / d_ms, 4))
+        bound_by=b_by, of_bound=round(b_ms / d_ms, 4),
+        profiler_windows=windows)
     check(embedding_bag_kernel.launches > before,
           "embedding_bag was not launched in the comparison phase")
     return rec
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1460,18 +2017,27 @@ def main() -> int:
     phase_levels(torch, solver, per_shape)
     del solver, per_shape
     facade = phase_facade(torch, np, setup)
+    main_graph = setup["graph"]
     del setup
     for rec in records:                 # the facade path's own launches
         rec["facade_launches"] = facade[rec["name"]]
     paper = phase_paper(torch, np)
-    for rec in records:                 # the paper phase's own launches
-        rec["paper_launches"] = paper[rec["name"]]
+    service = phase_service(torch, np, main_graph, smi)
+    del main_graph
+    spectral = phase_spectral(torch, np, smi)
+    for rec in records:                 # each later phase's own launches
+        rec.update(paper_launches=paper[rec["name"]],
+                   service_launches=service[rec["name"]],
+                   spectral_launches=spectral[rec["name"]])
     phase_e2e(torch, np)
     model, flat, bag_launches = phase_deepfm(torch, np)
     records.append(dict(phase_kernels_deepfm(torch, model, flat,
                                              bag_launches),
                         facade_launches=facade["embedding_bag"],
-                        paper_launches=paper["embedding_bag"]))
+                        paper_launches=paper["embedding_bag"],
+                        service_launches=service["embedding_bag"],
+                        spectral_launches=spectral["embedding_bag"]))
+    say("total", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -68,6 +68,12 @@ class HierarchyCache:
         self._hits += 1
         return entry
 
+    def peek(self, key):
+        """The cached handle for ``key`` or None, WITHOUT touching the
+        hit/miss counters or the LRU order (for callers that already
+        counted the lookup — e.g. the service's admission probe)."""
+        return self._entries.get(key)
+
     def put(self, key, handle) -> None:
         """Insert (or refresh) ``key``; evicts LRU entries past capacity."""
         if key in self._entries:

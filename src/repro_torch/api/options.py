@@ -48,11 +48,12 @@ class SolverOptions:
     zero-column-sum checksum on every hot-path SpMV and a float64
     certificate on every result; ``"paranoid"``: adds the Rademacher
     witness — clean solves are bitwise the same in all three), ``triage``
-    (admission-time conditioning score, ``repro_torch.api.triage``).
-    ``guard_mode``, ``checkpoint_every``, ``dist_nnz_threshold`` and
-    ``max_dist_levels`` belong to the serving and distributed layers,
-    which are not ported yet (ROADMAP A9, A11): any value but the default
-    raises NotImplementedError.
+    (admission-time conditioning score, ``repro_torch.api.triage``),
+    ``checkpoint_every`` (``repro_torch.service``: snapshot completed
+    tickets every N at solve-group boundaries; 0 = off).
+    ``guard_mode``, ``dist_nnz_threshold`` and ``max_dist_levels`` belong
+    to the distributed layer, which is not ported yet (ROADMAP A11): any
+    value but the default raises NotImplementedError.
 
     The port adds one field: ``device``, the torch device the backend
     builds and solves on. ``None`` (default) means the CUDA card and
@@ -187,7 +188,6 @@ class SolverOptions:
 # does not have yet: only their defaults are accepted.
 _UNPORTED = {
     "guard_mode": "the distributed scan solve (ROADMAP A11)",
-    "checkpoint_every": "the serving layer (ROADMAP A9)",
     "dist_nnz_threshold": "the distributed backend (ROADMAP A11)",
     "max_dist_levels": "the distributed backend (ROADMAP A11)",
 }

@@ -1,2 +1,3 @@
 """Models of the port (``repro.models``'s counterpart): so far the DeepFM
-serving path of ``models/recsys`` and the MLP it needs from ``models/gnn``."""
+serving path of ``models/recsys``, and from ``models/gnn`` the MLP it needs
+and the ``GraphBatch`` container ``spectral/pe.py`` fills."""

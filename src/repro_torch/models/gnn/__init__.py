@@ -1,3 +1,3 @@
-from repro_torch.models.gnn.common import init_mlp, mlp_apply
+from repro_torch.models.gnn.common import GraphBatch, init_mlp, mlp_apply
 
-__all__ = ["init_mlp", "mlp_apply"]
+__all__ = ["GraphBatch", "init_mlp", "mlp_apply"]

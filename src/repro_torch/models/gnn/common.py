@@ -1,17 +1,49 @@
-"""The tiny MLP substrate of ``repro.models.gnn.common`` (``init_mlp``,
-``mlp_apply``), as plain functions over a ``{"w": [...], "b": [...]}``
-dict. Weights keep the reference's ``[in, out]`` layout, so ``x @ w + b``.
-The products go to ``torch.matmul``, as the JAX package leaves them to XLA.
+"""Of ``repro.models.gnn.common``: the ``GraphBatch`` container and the
+tiny MLP substrate (``init_mlp``, ``mlp_apply``), as plain functions over a
+``{"w": [...], "b": [...]}`` dict. Weights keep the reference's
+``[in, out]`` layout, so ``x @ w + b``. The products go to
+``torch.matmul``, as the JAX package leaves them to XLA.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphBatch:
+    """Padded graph (or batch of graphs flattened into one), as tensors on
+    one device.
+
+    ``senders``/``receivers``: [E] int32, sentinel = n_nodes for padding.
+    ``node_feat``: [N, d]; optional positions [N, 3] and edge feats [E, de].
+    """
+
+    senders: torch.Tensor
+    receivers: torch.Tensor
+    node_feat: torch.Tensor
+    edge_feat: Optional[torch.Tensor] = None
+    pos: Optional[torch.Tensor] = None
+    graph_id: Optional[torch.Tensor] = None   # [N] for batched small graphs
+
+    @property
+    def n_nodes(self) -> int:
+        return self.node_feat.shape[0]
+
+    @property
+    def n_edges(self) -> int:
+        return self.senders.shape[0]
+
+    @property
+    def edge_valid(self) -> torch.Tensor:
+        return self.senders < self.n_nodes
 
 
 def init_mlp(sizes, generator: torch.Generator, device=None) -> dict:

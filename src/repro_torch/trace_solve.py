@@ -62,8 +62,11 @@ def kernel_device_ms(torch, fn, kernel: str, reps: int = 20):
     H100, windows that also traced the CPU lost their device events about
     once in a hundred, CUDA-only ones none in 450); the kernel's self
     device time there over its launches, in ms, and the number of
-    launches the profiler saw. A window that saw no launch is profiled
-    again, up to three in all; ``(nan, 0)`` means none saw one."""
+    launches the profiler saw, and the windows profiled. The profiler can
+    drop some or all of a window's launches (on an H100, once all of them
+    in three windows in a row), so a window that saw no launch is
+    profiled again, up to ten in all; ``(nan, 0, 10)`` means none saw
+    one."""
     from torch.profiler import ProfilerActivity, profile
 
     parts = [part for part, name in PORT_KERNELS.items() if name == kernel]
@@ -72,7 +75,7 @@ def kernel_device_ms(torch, fn, kernel: str, reps: int = 20):
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for window in range(1, 11):
         with profile(activities=[ProfilerActivity.CUDA]) as p:
             for _ in range(reps):
                 fn()
@@ -84,8 +87,8 @@ def kernel_device_ms(torch, fn, kernel: str, reps: int = 20):
                 count += e.count
                 us += e.self_device_time_total
         if count:
-            return us / 1e3 / count, count
-    return float("nan"), 0
+            return us / 1e3 / count, count, window
+    return float("nan"), 0, window
 
 
 def profile_call(torch, fn, trace_path=None, top: int = 10):

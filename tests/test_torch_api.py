@@ -233,8 +233,8 @@ def test_options_match_reference_fields():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("guard_mode", "postmortem", "A11"), ("checkpoint_every", 5, "A9"),
-    ("dist_nnz_threshold", 1, "A11"), ("max_dist_levels", 1, "A11")])
+    ("guard_mode", "postmortem", "A11"), ("dist_nnz_threshold", 1, "A11"),
+    ("max_dist_levels", 1, "A11")])
 def test_unported_options_raise(field, value, item):
     """Fields of layers the port does not have accept only their default;
     the reference takes the same value."""
