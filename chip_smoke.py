@@ -171,7 +171,39 @@ Phases, one line each (any failure exits non-zero):
              are counted beside the super-step's fetches; the second graph
              adds no registry entry; the batched setup of both graphs is
              bitwise equal, tensor by tensor, to their single builds.
-9. deepfm  — DeepFM serving at full width (``configs/deepfm.py::FULL``: 39
+9. dist    — the 2D-distributed solver (``repro_torch.dist``). (a) A
+             world of one over NCCL on ``cuda:0`` (``init_world``) on the
+             main graph, ``matvec_backend="ell"``, the distributed
+             super-step, the default split (10,000 nnz, 3 levels): setup
+             seconds (the super-step, then the host partition of each
+             distributed level) and each level's ``DistLevelMeta``; the
+             distributed super-step's hierarchy, built under
+             ``torch.cuda.set_sync_debug_mode("error")``, bitwise the
+             serial super-step's, with host fetches ≤ constructed levels
+             + 3; the main phase's four right-hand sides at tol 1e-6
+             through ``DistLaplacianSolver.solve_block``, guarded (codes
+             0, float64 host residual ≤ 1e-4 in every column, iterations
+             within one of the main phase's ``single`` solves, printed
+             where they differ), unguarded and repeated (both bitwise),
+             with all-reduce calls and bytes and launches per solve; the
+             facade's ``dist`` backend on the same mesh (converged,
+             bitwise the direct solve). Then ``spmv_ell`` on every
+             distributed level's rank block, ``spmv_ell`` and ``jacobi``
+             on the replicated tail and ``agg_vote`` on every row block
+             of the setup, each against its plain version with both
+             times, the bound and launches per solve column or setup.
+             The kernels' launches there go into the kernels JSON as
+             ``dist_launches``. (b) BA 2^18 on a 2×2 mesh of four gloo
+             processes on the one card (``run_world``, joined under a
+             timeout; every reduction staged through host memory): each
+             rank's levels and integer decisions equal a world of one's
+             on the same graph, equal iterations, the same x in every
+             rank, host residual ≤ 1e-4, every solver kernel launched,
+             ``spmv_ell`` and ``agg_vote`` at the rank's block shapes
+             against their plain versions; and the paper's §2.2 balance
+             (``balance_report``) of the finest level with random ordering
+             on and off.
+10. deepfm — DeepFM serving at full width (``configs/deepfm.py::FULL``: 39
              fields, d = 10, H = 2, MLP 390-400-400-400-1, 3,729,408 table
              rows), weights from a seeded generator: 8 serve_p99 requests
              (B = 512, ``recsys_batch_stream`` steps 0-7, seed 0), one
@@ -200,6 +232,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import importlib
+import io
 import json
 import subprocess
 import sys
@@ -219,6 +252,9 @@ E2E_FLOOR = 1 << 20     # above every level's n and nnz of the e2e graphs
 # their time falls slower than n
 SERVICE_N, SERVICE_GRAPHS = 1 << 17, 8      # one batched setup of eight
 SPECTRAL_N = 1 << 16    # Delaunay points of the spectral phase
+DIST_RHS = 4            # right-hand sides of the dist phase's solves
+DIST_GRID_N = 1 << 18   # the dist phase's 2×2 world: BA n = 2^18
+DIST_WORLD_TIMEOUT_S = 400.0
 REPLACES = {
     "spmv_ell": "src/repro/kernels/spmv_ell/spmv_ell.py:41",
     "jacobi": "src/repro/kernels/jacobi/jacobi.py:35",
@@ -286,6 +322,23 @@ def bound(bytes_moved: float, ops: float) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_work(name: str, args) -> tuple[int, int]:
+    """The bytes an ELL kernel must move (each input read once, each output
+    written once) and the operations it does, for its wrapper's positional
+    ``args``: ``spmv_ell(col, val, x)``, ``jacobi(col, val, x, b, deg)``,
+    ``agg_vote(col, sq, state)``. Only the table's real entries count."""
+    col = args[0]
+    n, w = col.shape
+    n_x = args[2].shape[0]
+    if name == "spmv_ell":
+        return 8 * n * w + 4 * n_x + 4 * n, 2 * int((col < n_x).sum())
+    if name == "jacobi":
+        return (8 * n * w + 4 * n_x + 12 * n,
+                2 * int((col < n_x).sum()) + 6 * n)
+    return (8 * n * w + 4 * n_x + 8 * n,
+            4 * int(((col >= 0) & (col < n_x)).sum()))
 
 
 @contextlib.contextmanager
@@ -479,9 +532,9 @@ def phase_main(torch, np):
     say("main", setup_s=round(setup_s, 3))
 
     first_b = None
+    iters = []
     for k in range(4):
-        b = np.random.default_rng(100 + k).normal(size=n).astype(np.float32)
-        b -= b.mean()
+        b = mean_free_block(np, n, [100 + k])[:, 0]
         first_b = b if first_b is None else first_b
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -489,6 +542,7 @@ def phase_main(torch, np):
         torch.cuda.synchronize()
         ms = (time.perf_counter() - t0) * 1e3
         rel = host_residual(n, r, c, v, b, x.cpu().numpy())
+        iters.append(info.iters)
         say("main", rhs=k, iters=info.iters, status=info.status,
             solve_ms=round(ms, 1), wda=round(info.wda, 3),
             host_f64_rel_residual=f"{rel:.3e}")
@@ -524,7 +578,7 @@ def phase_main(torch, np):
           f"agg_vote: {tallied} calls tallied by shape, "
           f"{launches['agg_vote']} launches in the setup")
     setup.update(graph=(n, r, c, v), b=first_b, info=info,
-                 x=x2.cpu().numpy())
+                 x=x2.cpu().numpy(), iters=iters)
     return solver, launches, {**per_shape, **per_setup}, setup
 
 
@@ -608,7 +662,7 @@ def phase_kernels(torch, np, solver, launches, per_shape):
                                       (n, n), check_invariants=False)
     record("spmv_ell", (y - y_ref).abs().max().item(),
            lambda: spmv_ell(col, val, x), lambda: spmv_ell_ref(col, val, x),
-           8 * n * w + 4 * n + 4 * n, 2 * int(real.sum()),
+           *kernel_work("spmv_ell", (col, val, x)),
            library=lambda: torch.mv(csr, x))
 
     # jacobi: the first aggregation level's ELL table (its smoothing sweeps)
@@ -629,7 +683,7 @@ def phase_kernels(torch, np, solver, launches, per_shape):
     record("jacobi", (out - out_ref).abs().max().item(),
            lambda: jacobi_step(col, val, x, b, deg),
            lambda: jacobi_step_ref(col, val, x, b, deg),
-           8 * n * w + 16 * n, 2 * int((col < n).sum()) + 6 * n)
+           *kernel_work("jacobi", (col, val, x, b, deg)))
 
     # agg_vote: the main setup's largest vote layout (the first aggregation
     # level, its rows padded to the bucket) with its quantised strengths,
@@ -658,7 +712,7 @@ def phase_kernels(torch, np, solver, launches, per_shape):
            lambda: vote_reduce(col, sq, state, levels=cfg.strength_levels),
            lambda: vote_reduce_ref(col, sq, state,
                                    levels=cfg.strength_levels),
-           8 * n * w + 4 * n + 8 * n, 4 * int((col < n).sum()))
+           *kernel_work("agg_vote", (col, sq, state)))
     after = (spmv_ell.launches, jacobi_step.launches, vote_reduce.launches)
     check(all(a > b for a, b in zip(after, before)),
           "a kernel was not launched in the comparison phase")
@@ -713,14 +767,13 @@ def phase_levels(torch, solver, per_shape) -> None:
         n, w = col.shape
         x = torch.randn(ell.n_cols, generator=gen, device=solver.device)
         b = torch.randn(n, generator=gen, device=solver.device)
-        real = int((col < ell.n_cols).sum())
         runs = {
             "spmv_ell": (lambda: (spmv_ell(col, val, x),),
                          lambda: (spmv_ell_ref(col, val, x),),
-                         8 * n * w + 4 * ell.n_cols + 4 * n, 2 * real),
+                         *kernel_work("spmv_ell", (col, val, x))),
             "jacobi": (lambda: (jacobi_step(col, val, x, b, level.deg),),
                        lambda: (jacobi_step_ref(col, val, x, b, level.deg),),
-                       8 * n * w + 16 * n, 2 * real + 6 * n),
+                       *kernel_work("jacobi", (col, val, x, b, level.deg))),
         }
         for name, (kernel, plain, bytes_moved, ops) in runs.items():
             calls = per_shape[name].get((n, w), [0])[0]
@@ -735,15 +788,13 @@ def phase_levels(torch, solver, per_shape) -> None:
                   if isinstance(t, AggregationLevel)]
     for (n_cap, w), (calls, args, kw) in sorted(
             per_shape["agg_vote"].items(), reverse=True):
-        col, sq, state = args
-        real = int(((col >= 0) & (col < n_cap)).sum())
         at = [i for i in agg_levels if pow2_bucket(levels[i].n) == n_cap]
         line("agg_vote", at[0] if at else -1,
              ",".join(str(levels[i].n) for i in at), w,
              lambda: vote_reduce(*args, **kw),
              lambda: vote_reduce_ref(*args, **kw),
              lambda g, r: all(torch.equal(a, b) for a, b in zip(g, r)),
-             8 * n_cap * w + 4 * n_cap + 8 * n_cap, 4 * real, calls,
+             *kernel_work("agg_vote", args), calls,
              "setup", n_cap=n_cap)
     for name, count in measured.items():
         check(count > 0, f"{name}: no level of the main path measured")
@@ -1787,6 +1838,345 @@ def phase_e2e_superstep(torch, graphs) -> None:
     check(all(same), "batched setups differ from single ones")
 
 
+def dist_decisions(solver) -> dict:
+    """A distributed solver's integer decisions: level kinds and sizes and
+    a digest of each level's elimination mask or coarse ids."""
+    import hashlib
+
+    from repro_torch.core.elimination import EliminationLevel
+
+    out = dict(kinds=[], sizes=[], ids=[])
+    for t in solver.arrays.transfers + solver.coarse_h.transfers:
+        elim = isinstance(t, EliminationLevel)
+        ids = (t.elim_mask if elim else t.coarse_id).cpu().numpy()
+        out["kinds"].append("elim" if elim else "agg")
+        out["sizes"].append((t.fine.n, t.coarse.n, t.coarse.adj.nnz))
+        out["ids"].append(hashlib.sha256(ids.tobytes()).hexdigest()[:16])
+    return out
+
+
+def dist_child(rank, world_size, graph, device):
+    """One rank of phase dist (b): the 2×2 mesh over a gloo group of four
+    processes on one card (reductions staged through host memory). Sets
+    up and solves the graph, checks the kernels at its block shapes, and
+    returns what the parent compares with a world of one."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core.hierarchy import SetupConfig
+    from repro_torch.dist import DistLaplacianSolver, make_mesh
+
+    n, r, c, v = graph
+    mesh = make_mesh((2, 2), ("data", "model"), device=device)
+    zero_launches()
+    t0 = time.perf_counter()
+    with shapes_launched(SOLVER_KERNELS[2:]) as votes:
+        solver = DistLaplacianSolver.setup(n, r, c, v, mesh,
+                                           SetupConfig(matvec_backend="ell"))
+    setup_s = time.perf_counter() - t0
+    b = np.random.default_rng(7).normal(size=n).astype(np.float32)
+    b -= b.mean()
+    t0 = time.perf_counter()
+    with shapes_launched(SOLVER_KERNELS[:1]) as spmvs:
+        X, norms, iters, codes = solver.solve_block(b[:, None], n_iters=200,
+                                                    tol=1e-6, guard=True)
+    solve_s = time.perf_counter() - t0
+    launched = phase_launches()
+    # the kernels at this rank's shapes: spmv_ell on each distributed
+    # level's block, agg_vote on each row block the setup voted on
+    gen = torch.Generator(device=solver.device).manual_seed(3)
+    shapes = [tuple(t.fine.ell_col.shape) for t in solver.arrays.transfers]
+    picks = [("spmv_ell", shape,
+              (spmvs["spmv_ell"].get(shape, [0])[0],
+               (t.fine.ell_col, t.fine.ell_val,
+                torch.randn(t.fine.n_pad, generator=gen,
+                            device=solver.device)), {}),
+              dict(rank=rank, block=json.dumps(mesh.block)))
+             for shape, t in zip(shapes, solver.arrays.transfers)]
+    picks += [("agg_vote", shape, entry,
+               dict(rank=rank, block=json.dumps(mesh.block)))
+              for shape, entry in sorted(votes["agg_vote"].items())]
+    # its lines go back to the parent, which prints them in rank order
+    with contextlib.redirect_stdout(io.StringIO()) as lines:
+        check_kernel_shapes(torch, "dist", picks)
+    return dict(setup_s=setup_s, solve_s=solve_s,
+                decisions=dist_decisions(solver), iters=int(iters[0]),
+                code=int(codes[0]), x=X[:, 0].cpu().numpy(), b=b,
+                launches=launched, stats=mesh.stats(),
+                kernels=[(name, shape) for name, shape, _, _ in picks],
+                lines=lines.getvalue())
+
+
+def measure_shape(torch, phase, name, shape, args, kw, calls, unit,
+                  **labels) -> None:
+    """One kernel at one shape of a phase's own last arguments there:
+    ``check_kernel_shapes``'s checks, then both times, the bound and the
+    launches per ``unit`` at that shape."""
+    check_kernel_shapes(torch, phase, [(name, shape, (calls, args, kw),
+                                        labels)])
+    run = getattr(importlib.import_module(f"repro_torch.kernels.{name}"),
+                  WRAPPERS[f"repro_torch.kernels.{name}"][0])
+    n, w = args[0].shape
+    b_ms, b_by = bound(*kernel_work(name, args))
+    k_ms = time_ms(torch, lambda: run(*args, **kw))
+    d_ms, windows = device_ms(torch, lambda: run(*args, **kw), name)
+    say(phase, kernel=name, **labels, rows=n, width=w, kernel_ms=k_ms,
+        device_ms=d_ms, bound_ms=b_ms, bound_by=b_by,
+        of_bound=round(b_ms / d_ms, 4), **{f"launches_per_{unit}": calls},
+        profiler_windows=windows)
+
+
+def mean_free_block(np, n: int, seeds) -> "np.ndarray":
+    """The main phase's right-hand sides: one seeded mean-free column a
+    seed, as ``phase_main`` makes them."""
+    cols = []
+    for seed in seeds:
+        b = np.random.default_rng(seed).normal(size=n).astype(np.float32)
+        b -= b.mean()
+        cols.append(b)
+    return np.stack(cols, axis=1)
+
+
+def phase_dist(torch, np, main_graph, main_iters) -> dict:
+    """The 2D-distributed solver (``repro_torch.dist``). (a) A world of one
+    over NCCL on the main graph: the distributed super-step setup (timed,
+    with each distributed level's host partition), its hierarchy bitwise
+    the serial super-step's under sync debug ``"error"`` with at most one
+    host fetch per constructed level plus 3, four solves through
+    ``solve_block`` and through the facade's ``dist`` backend (host
+    residual, iterations against the main phase's ``single`` solves,
+    guards on/off and a repeat bitwise), all-reduce calls and bytes per
+    solve; then every kernel at the distributed path's shapes. (b) A 2×2
+    world of four gloo processes on the card on BA 2^18
+    (``phase_dist_grid``). Returns each kernel's launches in (a)."""
+    from repro_torch.dist import init_world
+
+    t_phase = time.perf_counter()
+    mesh = init_world("cuda")
+    try:
+        launched = phase_dist_one(torch, np, mesh, main_graph, main_iters)
+        phase_dist_grid(torch, np, mesh)
+    finally:
+        torch.distributed.destroy_process_group()
+    say("dist", seconds=round(time.perf_counter() - t_phase, 1))
+    return launched
+
+
+def phase_dist_one(torch, np, mesh, main_graph, main_iters) -> dict:
+    """Phase dist (a) on the world of one ``mesh``; returns each kernel's
+    launches there."""
+    from repro_torch.api import Problem, SolverOptions
+    from repro_torch.api import setup as api_setup
+    from repro_torch.core import setup_step as ss
+    from repro_torch.core.hierarchy import SetupConfig
+    from repro_torch.dist import (DistLaplacianSolver,
+                                  build_hierarchy_superstep_dist)
+    from repro_torch.graphs.generators import random_relabel, to_laplacian_coo
+
+    # the communicator starts with the first collective: here, before any
+    # check under sync debug mode
+    mesh.psum(torch.zeros(1, device=mesh.device))
+    torch.cuda.synchronize()
+    n, r, c, v = main_graph
+    zero_launches()
+    ss.clear_cache()
+    ss.reset_counters()
+    prof = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with shapes_launched(SOLVER_KERNELS[2:]) as per_setup:
+        solver = DistLaplacianSolver.setup(n, r, c, v, mesh,
+                                           SetupConfig(matvec_backend="ell"),
+                                           profile=prof)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_votes = launch_counts(SOLVER_KERNELS[2:])[0]
+    say("dist", world=f"{mesh.backend} {mesh.shape}", n=n,
+        setup_s=round(setup_s, 3), superstep_s=round(prof[0][1], 3),
+        partition_s=json.dumps([round(p[2], 3) for p in prof[1:]]),
+        setup_agg_vote=setup_votes, setup_allreduce=json.dumps(mesh.stats()))
+    for i, m in enumerate(solver.level_meta):
+        say("dist", level=i, **dataclasses.asdict(m))
+    check(len(solver.level_meta) >= 1, "no level was distributed")
+    check(per_setup["agg_vote"], "the distributed setup launched no agg_vote")
+
+    # the hierarchy: the serial super-step's bit for bit, steps that never
+    # sync, one host fetch per constructed level
+    rr, cc, _, _ = random_relabel(n, r, c, 0)
+    adj = to_laplacian_coo(n, rr, cc, v, device=mesh.device)
+    ss.clear_cache()
+    ss.reset_counters()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        h_dist = build_hierarchy_superstep_dist(adj, SetupConfig(), mesh)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    fetches = ss.counters()["host_syncs"]
+    constructed = len(h_dist.transfers)
+    # the dist path's launches so far; the serial build it is held against
+    # launches agg_vote too, and those are not counted
+    launched = phase_launches()
+    h_serial = ss.build_hierarchy_superstep(adj, SetupConfig())
+    zero_launches()
+    same = bitwise_equal(torch, h_dist, h_serial)
+    say("dist", hierarchy_bitwise_serial=same, sync_debug="error",
+        host_fetches=fetches, constructed_levels=constructed)
+    check(same, "the distributed hierarchy is not the serial super-step's")
+    check(fetches <= constructed + 3, f"the distributed setup fetched "
+          f"{fetches} times for {constructed} levels")
+    del h_dist, h_serial, adj
+
+    B = mean_free_block(np, n, range(100, 100 + DIST_RHS))
+    out = {}
+    for run in ("guarded", "unguarded", "repeat"):
+        mesh.reset_stats()
+        with shapes_launched(SOLVER_KERNELS[:2]) as per_solve:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = solver.solve_block(B, n_iters=200, tol=1e-6,
+                                     guard=run != "unguarded")
+            torch.cuda.synchronize()
+        out[run] = (res, (time.perf_counter() - t0) * 1e3, mesh.stats(),
+                    per_solve)
+    (X, norms, iters, codes), solve_ms, red, per_solve = out["guarded"]
+    X = X.cpu().numpy()
+    rel = host_residual(n, r, c, v, B, X)
+    say("dist", rhs=DIST_RHS, iters=json.dumps(iters.tolist()),
+        single_iters=json.dumps(list(main_iters[:DIST_RHS])),
+        codes=json.dumps(codes.tolist()), solve_ms=round(solve_ms, 1),
+        steps=norms.shape[0] - 1,
+        host_f64_rel_residual=json.dumps([f"{x:.3e}" for x in rel]),
+        allreduce_calls=red["calls"], allreduce_bytes=red["bytes"],
+        launches=json.dumps({k: sum(e[0] for e in t.values())
+                             for k, t in per_solve.items()}))
+    check((codes == 0).all(), f"a dist solve broke down: codes {codes}")
+    check((rel <= 1e-4).all(), f"dist host residuals {rel} > 1e-4")
+    diff = [int(a) - int(b) for a, b in zip(iters, main_iters)]
+    check(all(abs(d) <= 1 for d in diff), f"dist iterations {iters} vs "
+          f"single {main_iters}")
+    if any(diff):
+        say("dist", iters_differ_from_single_by=json.dumps(diff))
+    for run in ("unguarded", "repeat"):
+        check(bits_equal(np, out[run][0][0].cpu().numpy(), X)
+              and np.array_equal(out[run][0][1], norms),
+              f"the {run} dist solve is not bitwise the guarded one")
+
+    # the facade's dist backend on the same mesh: bitwise the direct solve
+    t0 = time.perf_counter()
+    fs = api_setup(Problem.from_edges(n, r, c, v),
+                   SolverOptions(matvec_backend="ell", tol=1e-6),
+                   backend="dist", mesh=mesh, cache=False)
+    Xf, fres = fs.solve(B)
+    facade_s = time.perf_counter() - t0
+    say("dist", facade_backend=fs.backend, statuses=json.dumps(
+        list(fres.statuses)), iters=json.dumps(fres.iters_per_rhs.tolist()),
+        bitwise_direct=bits_equal(np, Xf, X), facade_s=round(facade_s, 2),
+        mesh_shape=json.dumps(fs.stats()["mesh_shape"]))
+    check(fs.backend == "dist" and fres.status == "converged",
+          f"facade dist: {fs.backend} {fres.status}")
+    check(bits_equal(np, Xf, X), "the facade's dist solve is not bitwise "
+          "the direct solve_block")
+    del fs, Xf
+    launched = {k: n + launched[k] for k, n in phase_launches().items()}
+    check(all(launched[k] > 0 for k in ("spmv_ell", "jacobi", "agg_vote")),
+          f"the dist path launched {launched}")
+
+    # every kernel at the distributed path's shapes: spmv_ell on every
+    # distributed level's block (the solve runs it on the finest and the
+    # aggregation levels; an elimination level below the finest has no
+    # SpMV in a V-cycle), jacobi and spmv_ell on the tail, agg_vote on
+    # every row block of the setup
+    gen = torch.Generator(device=mesh.device).manual_seed(5)
+    tally = per_solve["spmv_ell"]
+    check(tuple(solver.arrays.fine.ell_col.shape) in tally,
+          "spmv_ell did not run on the finest distributed level's block")
+    for i, t in enumerate(solver.arrays.transfers):
+        lvl = t.fine
+        shape = tuple(lvl.ell_col.shape)
+        x = torch.randn(lvl.n_pad, generator=gen, device=mesh.device)
+        measure_shape(torch, "dist", "spmv_ell", shape,
+                      (lvl.ell_col, lvl.ell_val, x), {},
+                      tally.get(shape, [0])[0] / DIST_RHS, "solve_column",
+                      level=f"distributed {i}")
+    dist_shapes = {tuple(t.fine.ell_col.shape)
+                   for t in solver.arrays.transfers}
+    for name in ("spmv_ell", "jacobi"):
+        for shape, (calls, args, kw) in sorted(per_solve[name].items(),
+                                               reverse=True):
+            if shape not in dist_shapes:
+                measure_shape(torch, "dist", name, shape, args, kw,
+                              calls / DIST_RHS, "solve_column", level="tail")
+    check(len(per_solve["jacobi"]) > 0, "jacobi did not run on the tail")
+    for shape, (calls, args, kw) in sorted(per_setup["agg_vote"].items(),
+                                           reverse=True):
+        measure_shape(torch, "dist", "agg_vote", shape, args, kw, calls,
+                      "setup", level="row block")
+    return launched
+
+
+def phase_dist_grid(torch, np, mesh_one) -> None:
+    """Phase dist (b): BA 2^18 on a 2×2 mesh of four gloo processes on the
+    card (``dist_child``, joined under a timeout), against a world of one
+    (this process's NCCL mesh) on the same graph: the same levels and
+    integer decisions, equal iterations, host residual ≤ 1e-4, the
+    kernels at the 2×2 block shapes in every rank; and the finest level's
+    §2.2 balance with random ordering on and off."""
+    from repro_torch.core.hierarchy import SetupConfig
+    from repro_torch.dist import (DistLaplacianSolver, balance_report,
+                                  partition_edges_2d, run_world)
+
+    n, r, c, v = graph(DIST_GRID_N, seed=0)
+    on_card = mesh_one.device.type == "cuda"
+    t0 = time.perf_counter()
+    ranks = run_world(dist_child, 4,
+                      args=((n, r, c, v), str(mesh_one.device)),
+                      timeout=DIST_WORLD_TIMEOUT_S,
+                      threads=2)
+    world_s = time.perf_counter() - t0
+    one = DistLaplacianSolver.setup(n, r, c, v, mesh_one,
+                                    SetupConfig(matvec_backend="ell"))
+    b = ranks[0]["b"]
+    _, _, iters1, _ = one.solve_block(b[:, None], n_iters=200, tol=1e-6,
+                                      guard=True)
+    want = dist_decisions(one)
+    rel = host_residual(n, r, c, v, b, ranks[0]["x"])
+    say("dist", world="gloo (2, 2)", n=n, world_s=round(world_s, 1),
+        setup_s=json.dumps([round(x["setup_s"], 2) for x in ranks]),
+        solve_s=json.dumps([round(x["solve_s"], 2) for x in ranks]),
+        iters=ranks[0]["iters"], world_of_one_iters=int(iters1[0]),
+        host_f64_rel_residual=f"{rel:.3e}",
+        levels=json.dumps(want["sizes"]), staged=ranks[0]["stats"]["staged"],
+        allreduce_calls=ranks[0]["stats"]["calls"],
+        launches=json.dumps(ranks[0]["launches"]))
+    for rank, res in enumerate(ranks):
+        check(res["decisions"] == want, f"rank {rank}'s levels or integer "
+              f"decisions differ from the world of one's")
+        check(res["iters"] == int(iters1[0]) and res["code"] == 0,
+              f"rank {rank}: {res['iters']} iterations, code {res['code']}, "
+              f"world of one {int(iters1[0])}")
+        check(bits_equal(np, res["x"], ranks[0]["x"]),
+              f"rank {rank}'s x differs from rank 0's")
+        # gloo takes host tensors: every reduction of the card's tensors
+        # is staged through host memory, and counted
+        staged = res["stats"]["calls"] if on_card else 0
+        check(res["stats"]["calls"] > 0 and res["stats"]["staged"] == staged,
+              f"rank {rank}: {res['stats']}")
+        check(all(res["launches"][k] > 0
+                  for k in ("spmv_ell", "jacobi", "agg_vote")),
+              f"rank {rank} launched {res['launches']}")
+        print(res["lines"], end="", flush=True)
+        check({k for k, _ in res["kernels"]} == {"spmv_ell", "agg_vote"},
+              f"rank {rank} checked {res['kernels']}")
+    check(rel <= 1e-4, f"2x2 host residual {rel:.3e} > 1e-4")
+    for ordering in (True, False):
+        rep = balance_report(partition_edges_2d(n, r, c, v, 2, 2,
+                                                random_ordering=ordering))
+        say("dist", balance_random_ordering=ordering,
+            imbalance=rep["imbalance"], fill_fraction=rep["fill_fraction"],
+            max_nnz=rep["max_nnz"], min_nnz=rep["min_nnz"],
+            capacity=rep["capacity"])
+
+
 def _bag_launches() -> int:
     return launch_counts(("repro_torch.kernels.embedding_bag",))[0]
 
@@ -2017,26 +2407,29 @@ def main() -> int:
     phase_levels(torch, solver, per_shape)
     del solver, per_shape
     facade = phase_facade(torch, np, setup)
-    main_graph = setup["graph"]
+    main_graph, main_iters = setup["graph"], setup["iters"]
     del setup
     for rec in records:                 # the facade path's own launches
         rec["facade_launches"] = facade[rec["name"]]
     paper = phase_paper(torch, np)
     service = phase_service(torch, np, main_graph, smi)
-    del main_graph
     spectral = phase_spectral(torch, np, smi)
+    phase_e2e(torch, np)
+    dist = phase_dist(torch, np, main_graph, main_iters)
+    del main_graph
     for rec in records:                 # each later phase's own launches
         rec.update(paper_launches=paper[rec["name"]],
                    service_launches=service[rec["name"]],
-                   spectral_launches=spectral[rec["name"]])
-    phase_e2e(torch, np)
+                   spectral_launches=spectral[rec["name"]],
+                   dist_launches=dist[rec["name"]])
     model, flat, bag_launches = phase_deepfm(torch, np)
     records.append(dict(phase_kernels_deepfm(torch, model, flat,
                                              bag_launches),
                         facade_launches=facade["embedding_bag"],
                         paper_launches=paper["embedding_bag"],
                         service_launches=service["embedding_bag"],
-                        spectral_launches=spectral["embedding_bag"]))
+                        spectral_launches=spectral["embedding_bag"],
+                        dist_launches=dist["embedding_bag"]))
     say("total", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

@@ -20,9 +20,14 @@ from __future__ import annotations
 from collections import OrderedDict
 
 
-def _mesh_signature(mesh) -> str | None:
-    # the port has no mesh type yet (ROADMAP A11): a mesh keys by its repr
-    return None if mesh is None else repr(mesh)
+def _mesh_signature(mesh) -> tuple | None:
+    # the process group itself, not its shape: a handle reduces over the
+    # group it was set up on, so a world started anew must miss. The key
+    # holds the group, so its identity is never reused while it is cached
+    if mesh is None:
+        return None
+    return (tuple(mesh.axis_sizes().items()), str(mesh.device),
+            mesh.backend, mesh.rank, mesh.group)
 
 
 class HierarchyCache:

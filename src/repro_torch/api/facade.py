@@ -68,7 +68,7 @@ RUNG_ERRORS = (InjectedFault, ArithmeticError, np.linalg.LinAlgError,
 
 # Registration side effect: importing the facade makes the built-ins
 # available, so ``from repro_torch.api import solve; solve(...)`` works.
-from repro_torch.api import backends as _backends  # noqa: F401
+from repro_torch.api import backends as _backends
 
 
 class Solver:
@@ -368,12 +368,14 @@ def setup(problem: Problem, options: SolverOptions | None = None,
           cache: HierarchyCache | bool | None = None) -> Solver:
     """Build (or reuse) the multigrid hierarchy for ``problem``.
 
-    ``backend`` is a registry name (``"single"``, ``"serial_ref"``;
-    ``"dist"`` is not ported yet and raises) or ``"auto"``, which picks
+    ``backend`` is a registry name (``"single"``, ``"serial_ref"``,
+    ``"dist"``) or ``"auto"``, which picks
     ``"dist"`` when a distributed context is available (a ``mesh`` was
     passed or more than one CUDA device is visible) and ``"single"``
-    otherwise. ``mesh`` is only consumed by the dist backend; passing one
-    forces it. The backend runs on ``options.device`` (default: the card).
+    otherwise. ``mesh`` (a ``repro_torch.dist.ProcessMesh``) is only
+    consumed by the dist backend; passing one forces it, and without one
+    the dist backend takes ``default_mesh()``. The backend runs on
+    ``options.device`` (default: the card).
 
     ``cache`` — hierarchies are content-addressed: by default the lookup
     goes through :func:`default_cache`, so a second ``setup()`` on an
@@ -394,6 +396,10 @@ def setup(problem: Problem, options: SolverOptions | None = None,
         raise ValueError(
             f"a mesh is only consumed by the dist backend, but "
             f"backend={name!r} was requested")
+    if name == "dist" and mesh is None:
+        # before the cache lookup, so that the key names the process group
+        # the handle reduces over
+        mesh = _backends.default_mesh(options.device)
     # NB: identity checks, not truthiness — an *empty* HierarchyCache is
     # len() == 0 and must still be consulted/filled.
     if cache is None or cache is True:

@@ -50,10 +50,15 @@ class SolverOptions:
     witness — clean solves are bitwise the same in all three), ``triage``
     (admission-time conditioning score, ``repro_torch.api.triage``),
     ``checkpoint_every`` (``repro_torch.service``: snapshot completed
-    tickets every N at solve-group boundaries; 0 = off).
-    ``guard_mode``, ``dist_nnz_threshold`` and ``max_dist_levels`` belong
-    to the distributed layer, which is not ported yet (ROADMAP A11): any
-    value but the default raises NotImplementedError.
+    tickets every N at solve-group boundaries; 0 = off), ``guard_mode``
+    (how the ``dist`` backend detects breakdowns: ``"in_scan"``, the
+    status lanes inside its blocked PCG, or ``"postmortem"``, the
+    deprecated reconstruction from the fetched norms).
+
+    Distributed: ``dist_nnz_threshold`` and ``max_dist_levels`` — which
+    hierarchy levels the ``dist`` backend distributes (at most
+    ``max_dist_levels`` top levels with at least ``dist_nnz_threshold``
+    nonzeros each; the rest is the replicated tail).
 
     The port adds one field: ``device``, the torch device the backend
     builds and solves on. ``None`` (default) means the CUDA card and
@@ -136,11 +141,6 @@ class SolverOptions:
         if self.verify not in ("off", "cheap", "paranoid"):
             raise ValueError(f"verify must be 'off', 'cheap' or 'paranoid', "
                              f"got {self.verify!r}")
-        for name, layer in _UNPORTED.items():
-            if getattr(self, name) != _DEFAULTS[name]:
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r} is not ported yet: it "
-                    f"belongs to {layer}")
 
     def guard_config(self):
         """The Krylov-layer guard policy this maps to (None = guards off)."""
@@ -182,13 +182,3 @@ class SolverOptions:
                 pre_sweeps=self.pre_sweeps,
                 post_sweeps=self.post_sweeps,
                 cheby_degree=self.cheby_degree))
-
-
-# Fields the port keeps for parity with the reference but whose layers it
-# does not have yet: only their defaults are accepted.
-_UNPORTED = {
-    "guard_mode": "the distributed scan solve (ROADMAP A11)",
-    "dist_nnz_threshold": "the distributed backend (ROADMAP A11)",
-    "max_dist_levels": "the distributed backend (ROADMAP A11)",
-}
-_DEFAULTS = {f.name: f.default for f in dataclasses.fields(SolverOptions)}

@@ -6,8 +6,8 @@ Built-in backends (registered by ``repro_torch.api.backends``):
 * ``"single"``     — single-device multigrid PCG (``LaplacianSolver``),
 * ``"serial_ref"`` — the serial LAMG-style reference setup
   (``repro_torch.core.serial_ref``),
-* ``"dist"``       — the 2D-distributed solver; not ported yet (ROADMAP
-  A11): its setup raises ``NotImplementedError``,
+* ``"dist"``       — the 2D-distributed solver on a process mesh
+  (``repro_torch.dist``),
 * ``"auto"``       — resolves to ``"dist"`` when a mesh is passed or more
   than one CUDA device is visible, else ``"single"``.
 

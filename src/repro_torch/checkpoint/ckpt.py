@@ -12,8 +12,8 @@ Trees are nested dicts, lists and tuples; ``None`` holds no leaf and
 anything else is a leaf (a tensor, a numpy array or a scalar). Key paths
 follow ``jax.tree_util.tree_flatten_with_path``: dict keys in sorted
 order, list and tuple entries by index. Leaves are saved as host arrays
-and restored onto one torch device (the reference's sharded restore
-belongs to the distributed layer, ROADMAP A11).
+and restored onto one torch device (the reference's sharded restore,
+``shardings=``, waits for its consumer, ``runtime/loop.py``: ROADMAP A12).
 """
 
 from __future__ import annotations

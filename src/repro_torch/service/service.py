@@ -97,7 +97,7 @@ import time
 
 import numpy as np
 
-from repro_torch.api.backends import _EagerHandle
+from repro_torch.api.backends import _EagerHandle, default_mesh
 from repro_torch.api.cache import HierarchyCache
 from repro_torch.api.facade import Solver as _FacadeSolver
 from repro_torch.api.options import SolverOptions
@@ -275,6 +275,9 @@ class SolverService:
         # fingerprint at >= breaker_threshold has its breaker open
         self._breaker: dict[str, int] = {}
         self.backend = resolve_backend(backend, mesh, self.options)
+        if self.backend == "dist" and mesh is None:
+            # before any cache key is made: the key names the mesh's group
+            mesh = default_mesh(self.options.device)
         self.mesh = mesh
         self.cache = cache if cache is not None else HierarchyCache()
         self.max_batch = max_batch

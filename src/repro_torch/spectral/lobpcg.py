@@ -158,7 +158,7 @@ def lobpcg(problem, k: int = 8, *, options=None, backend: str = "auto",
 
     ``options``/``backend``/``mesh``/``cache`` configure the multigrid
     preconditioner exactly as :func:`repro_torch.api.setup` does (the
-    ``single`` and ``serial_ref`` backends; ``dist`` is not ported), and
+    ``single``, ``serial_ref`` and ``dist`` backends), and
     the hierarchy is content-addressed so repeated spectral calls on one
     graph set up once.
     When ``options`` is ``None`` the preconditioner uses the throughput

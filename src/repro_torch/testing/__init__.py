@@ -3,8 +3,9 @@ tests. See :mod:`repro_torch.testing.faults`."""
 
 from repro_torch.testing.faults import (Fault, FaultPlan, InjectedFault,
                                         KILL_EXIT_CODE, SITES, TRACED_SITES,
-                                        active, checkpoint, inject, site,
-                                        site_traced, trace_token)
+                                        TracedBuild, active, checkpoint,
+                                        inject, site, site_traced,
+                                        trace_token)
 
 __all__ = [
     "Fault",
@@ -13,6 +14,7 @@ __all__ = [
     "KILL_EXIT_CODE",
     "SITES",
     "TRACED_SITES",
+    "TracedBuild",
     "active",
     "checkpoint",
     "inject",

@@ -18,6 +18,9 @@ import pytest
 import scipy.sparse as sp
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the tensors here are small, and a pool in each
+# test process oversubscribes the cores when test files run in parallel
+torch.set_num_threads(1)
 
 import repro.api as J  # noqa: E402
 import repro_torch.api as T  # noqa: E402
@@ -162,8 +165,21 @@ def test_auto_follows_the_device_count(monkeypatch):
 
 @pytest.mark.parametrize("name,item", [("dist", "A11")])
 def test_unported_backends_raise(name, item, built):
-    with pytest.raises(NotImplementedError, match=item):
-        setup(built["p"], OPTS, backend=name, cache=False)
+    """The ``dist`` backend (ROADMAP A11) is ported: on a world of one it
+    sets up and solves the block with the single backend's statuses and
+    per-column iterations, ``X`` within rtol 1e-5 / atol 1e-5."""
+    import torch_dist_helpers as H
+
+    with H.world_of_one() as mesh:
+        solver = setup(built["p"], OPTS, backend=name, mesh=mesh,
+                       cache=False)
+        X, res = solver.solve(built["B"])
+    assert solver.backend == name and solver.stats()["mesh_shape"] == {
+        "data": 1, "model": 1}
+    assert list(res.statuses) == list(built["res"].statuses)
+    np.testing.assert_array_equal(res.iters_per_rhs,
+                                  built["res"].iters_per_rhs)
+    np.testing.assert_allclose(X, built["X"], rtol=1e-5, atol=1e-5)
 
 
 def test_serial_ref_backend_matches_reference(built):
@@ -236,11 +252,15 @@ def test_options_match_reference_fields():
     ("guard_mode", "postmortem", "A11"), ("dist_nnz_threshold", 1, "A11"),
     ("max_dist_levels", 1, "A11")])
 def test_unported_options_raise(field, value, item):
-    """Fields of layers the port does not have accept only their default;
-    the reference takes the same value."""
-    J.SolverOptions(**{field: value})
-    with pytest.raises(NotImplementedError, match=item):
-        SolverOptions(device="cpu", **{field: value})
+    """The distributed layer's fields (ROADMAP A11, ported) take the value
+    the reference takes; an invalid ``guard_mode`` raises in both."""
+    want = getattr(J.SolverOptions(**{field: value}), field)
+    assert getattr(SolverOptions(device="cpu", **{field: value}),
+                   field) == want == value
+    with pytest.raises(ValueError, match="guard_mode"):
+        J.SolverOptions(guard_mode="later")
+    with pytest.raises(ValueError, match="guard_mode"):
+        SolverOptions(device="cpu", guard_mode="later")
 
 
 # ----------------------------------------------------------------------

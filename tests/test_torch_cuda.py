@@ -19,6 +19,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the tensors here are small, and a pool in each
+# test process oversubscribes the cores when test files run in parallel
+torch.set_num_threads(1)
 
 from repro_torch.kernels import bag_tile_plan, ell_tile_plan  # noqa: E402
 from repro_torch.kernels.agg_vote import vote_reduce, vote_reduce_ref  # noqa: E402
@@ -524,3 +527,51 @@ def test_cuda_agg_registry_key_separates_ell_sweeps():
             matvec_backend="ell", setup_ell_sweeps=True))
         entries.append(ss.counters()["steps"]["agg"]["compiles"])
     assert entries[0] > 0 and entries[1] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_dist_world_of_one_runs_the_kernels():
+    """A world of one over NCCL on the card: the distributed setup and
+    solve launch ``agg_vote``, ``spmv_ell`` and ``jacobi``, converge to a
+    host residual ≤ 1e-4 in ``single``'s iterations, and make every
+    reduction an NCCL all-reduce (none staged)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+
+    from repro_torch.core.hierarchy import SetupConfig
+    from repro_torch.core.solver import LaplacianSolver
+    from repro_torch.dist import DistLaplacianSolver, init_world
+    from repro_torch.graphs.generators import (barabasi_albert,
+                                               ensure_connected)
+
+    if dist.is_initialized():
+        pytest.skip("a process group exists already")
+    n, r, c, v = ensure_connected(*barabasi_albert(1 << 14, m=4, seed=3,
+                                                   weighted=True))
+    b = np.random.default_rng(4).normal(size=n).astype(np.float32)
+    b -= b.mean()
+    cfg = SetupConfig(matvec_backend="ell")
+    mesh = init_world("cuda")
+    try:
+        k0 = (spmv_ell.launches, jacobi_step.launches, vote_reduce.launches)
+        s = DistLaplacianSolver.setup(n, r, c, v, mesh, cfg,
+                                      dist_nnz_threshold=1000)
+        X, norms, iters, codes = s.solve_block(b[:, None], n_iters=200,
+                                               tol=1e-6, guard=True)
+        stats = mesh.stats()
+    finally:
+        dist.destroy_process_group()
+    k1 = (spmv_ell.launches, jacobi_step.launches, vote_reduce.launches)
+    assert all(b1 > b0 for b0, b1 in zip(k0, k1))
+    assert mesh.backend == "nccl" and stats["calls"] > 0
+    assert stats["staged"] == 0 and int(codes[0]) == 0
+    assert len(s.level_meta) >= 1 and X.is_cuda
+    _, info = LaplacianSolver.setup(n, r, c, v, cfg).solve(b, tol=1e-6)
+    assert int(iters[0]) == info.iters
+    x = X[:, 0].double().cpu().numpy()
+    import scipy.sparse as sp
+
+    a = sp.csr_matrix((v.astype(np.float64), (r, c)), shape=(n, n))
+    res = b - (np.asarray(a.sum(axis=1)).ravel() * x - a @ x)
+    assert np.linalg.norm(res) / np.linalg.norm(b) <= 1e-4

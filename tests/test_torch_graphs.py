@@ -14,7 +14,10 @@ less round(-log2(scale))).
 import numpy as np
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+# one intra-op thread: the tensors here are small, and a pool in each
+# test process oversubscribes the cores when test files run in parallel
+torch.set_num_threads(1)
 
 import repro.graphs as J  # noqa: E402
 from repro.graphs import datasets as jdata  # noqa: E402

@@ -14,10 +14,15 @@ reference's. Plans are armed only through ``inject`` and every setup runs
 with ``cache=False``.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the tensors here are small, and a pool in each
+# test process oversubscribes the cores when test files run in parallel
+torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -157,13 +162,33 @@ def test_raise_checkpoint_validation_and_reentry():
 
 
 def test_traced_hooks_name_the_dist_item():
+    """The traced hooks of the distributed solver (ROADMAP A11, ported):
+    ``trace_token`` is None unless a plan with traced sites is armed, then
+    unique; ``site_traced`` is the identity with no plan; and the same
+    plan's ``apply_traced`` corrupts the same entries, in float and int32
+    lanes and on the same one shard, as the reference's."""
     plan = FaultPlan({"dist.spmv": Fault()})
-    assert plan.wants_traced()
-    for call in (lambda: TT.site_traced("dist.spmv", torch.ones(2)),
-                 TT.trace_token,
-                 lambda: plan.apply_traced("dist.spmv", torch.ones(2))):
-        with pytest.raises(NotImplementedError, match="A11"):
-            call()
+    assert plan.wants_traced() and not FaultPlan({}).wants_traced()
+    x = torch.ones(2)
+    assert TT.site_traced("dist.spmv", x) is x and TT.trace_token() is None
+    with inject(FaultPlan({"solve.spmv": Fault()})):
+        assert TT.trace_token() is None
+    with inject(plan):
+        a, b = TT.trace_token(), TT.trace_token()
+        assert a is not None and a != b
+    rng = np.random.default_rng(0)
+    for mode, dtype, shard in itertools.product(
+            ("nan", "huge", "bitflip", "perturb", "negate"),
+            (np.float32, np.int32), range(4)):
+        base = (rng.normal(size=40) * 100).astype(dtype)
+        kw = dict(axis_index=shard, n_shards=4)
+        got = TT.FaultPlan({"dist.psum": TT.Fault(mode=mode, fraction=0.2)}
+                           ).apply_traced("dist.psum", torch.as_tensor(base),
+                                          **kw)
+        want = JT.FaultPlan({"dist.psum": JT.Fault(mode=mode, fraction=0.2)}
+                            ).apply_traced("dist.psum", jnp.asarray(base),
+                                           **kw)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 # ----------------------------------------------------------------------

@@ -13,6 +13,9 @@ import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
+# one intra-op thread: the tensors here are small, and a pool in each
+# test process oversubscribes the cores when test files run in parallel
+torch.set_num_threads(1)
 
 from repro.core.coarsen import AggregationLevel as JAgg  # noqa: E402
 from repro.core.hierarchy import SetupConfig as JConfig  # noqa: E402

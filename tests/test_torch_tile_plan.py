@@ -13,7 +13,10 @@ every source and header.
 
 import pytest
 
-pytest.importorskip("torch")
+torch = pytest.importorskip("torch")
+# one intra-op thread: the tensors here are small, and a pool in each
+# test process oversubscribes the cores when test files run in parallel
+torch.set_num_threads(1)
 
 from repro_torch.kernels import (SMEM_PER_BLOCK, bag_tile_plan,  # noqa: E402
                                  ell_tile_plan)
