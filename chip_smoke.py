@@ -5,7 +5,7 @@
 
 Phases, one line each (any failure exits non-zero):
 
-1. build   — compile the four kernels of ``src/repro_torch/csrc`` for
+1. build   — compile the five kernels of ``src/repro_torch/csrc`` for
              sm_90a with nvcc (one process per source, all started
              together); print the seconds and the card's name and power
              limit as nvidia-smi reports them.
@@ -220,7 +220,34 @@ Phases, one line each (any failure exits non-zero):
              ``F.embedding_bag`` as a yardstick, the d = 1 ``first_order``
              launch's device time, a case with the sentinel ids −2, −1, V
              and V + 3, and an ids view that does not start on a 16-byte
-             boundary (``flat[1:]``), which must launch the kernel.
+             boundary (``flat[1:]``), which must launch the kernel. Serving
+             runs under ``torch.no_grad()``: it must launch no backward.
+11. train  — DeepFM training at ``FULL``, ``train_batch`` B = 65,536
+             (``recsys_batch_stream(FULL.vocab_per_field, 65536,
+             multi_hot=2, seed=0)``; 2,555,904 bags and 5,111,808 ids a
+             step), weights from a seeded generator on the card, through
+             ``configs.deepfm.make_train_step`` (loss and gradients, then
+             AdamW: lr 1e-3, warm-up 5, 30 total steps, f32 moments) and
+             ``TrainLoopRunner`` (30 steps, checkpoints every 10, in a
+             temporary directory removed afterwards). Run A injects
+             failures at steps 13 and 24 (``FailureInjector``); run B has
+             none. Both failures must fire; every leaf of A's final
+             parameters and optimizer state must be bitwise B's;
+             ``restore_checkpoint`` of A's step 30 with ``shardings=`` (the
+             card, leaf by leaf) bitwise A's state in memory; every loss
+             finite and the mean of the last 5 below that of the first 5.
+             The launch counts, reset to 0 just before run A and read just
+             after, must show 2 ``embedding_bag`` and 2
+             ``embedding_bag_backward`` launches per step run. Prints the
+             step's ms on the device (median of steps 5–29 of run B,
+             synchronised), the loop's seconds per step with ``data_fn``,
+             examples/s and model TFLOP/s, AdamW's ms, checkpoint save and
+             restore seconds and peak GiB. Then the
+             ``embedding_bag_backward`` record at the first batch's ids
+             (both tables, d = 10 and 1; seeded output gradients): within
+             1e-6 of each row's sum of |g| of its plain version, bitwise
+             equal on a repeat, sentinel ids (−1, V) giving zero rows, with
+             ``torch.zeros(V, d).index_add_`` as the library yardstick.
 
 Then a ``[total]`` line with the script's seconds. The line before the
 last is the card's name and power limit, the one before it the kernels'
@@ -234,6 +261,7 @@ import dataclasses
 import importlib
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -255,11 +283,16 @@ SPECTRAL_N = 1 << 16    # Delaunay points of the spectral phase
 DIST_RHS = 4            # right-hand sides of the dist phase's solves
 DIST_GRID_N = 1 << 18   # the dist phase's 2×2 world: BA n = 2^18
 DIST_WORLD_TIMEOUT_S = 400.0
+TRAIN_STEPS, TRAIN_CKPT_EVERY = 30, 10   # each run of the train phase
+TRAIN_FAIL_AT = (13, 24)                 # run A's injected failures
 REPLACES = {
     "spmv_ell": "src/repro/kernels/spmv_ell/spmv_ell.py:41",
     "jacobi": "src/repro/kernels/jacobi/jacobi.py:35",
     "agg_vote": "src/repro/kernels/agg_vote/agg_vote.py:51",
     "embedding_bag": "src/repro/kernels/embedding_bag/embedding_bag.py:36",
+    # no TPU kernel: the reference differentiates the jnp.take composition
+    # (XLA's scatter-add), not embedding_bag_pallas
+    "embedding_bag_backward": "src/repro/models/recsys/embedding.py:14",
 }
 # each kernel package's wrapper and its plain version
 WRAPPERS = {
@@ -271,6 +304,10 @@ WRAPPERS = {
 }
 SOLVER_KERNELS = ("repro_torch.kernels.spmv_ell", "repro_torch.kernels.jacobi",
                   "repro_torch.kernels.agg_vote")
+# the bag backward's wrapper, in the embedding_bag package beside the
+# forward's (it has no place in WRAPPERS, which pairs one per package)
+BAG_BACKWARD = ("repro_torch.kernels.embedding_bag.ops",
+                "embedding_bag_backward")
 
 
 class SmokeFailure(RuntimeError):
@@ -399,7 +436,8 @@ def launch_counts(mods=SOLVER_KERNELS) -> tuple:
 
 
 def hierarchy_tensors(obj, path=""):
-    """Every tensor of a hierarchy with its path, in a fixed order."""
+    """Every tensor of a hierarchy (or a tree of dicts) with its path, in a
+    fixed order."""
     import dataclasses
 
     if hasattr(obj, "data_ptr"):
@@ -408,6 +446,9 @@ def hierarchy_tensors(obj, path=""):
         for f in dataclasses.fields(obj):
             yield from hierarchy_tensors(getattr(obj, f.name),
                                          f"{path}.{f.name}")
+    elif isinstance(obj, dict):
+        for k in sorted(obj):
+            yield from hierarchy_tensors(obj[k], f"{path}.{k}")
     elif isinstance(obj, (tuple, list)):
         for i, x in enumerate(obj):
             yield from hierarchy_tensors(x, f"{path}[{i}]")
@@ -831,6 +872,7 @@ def phase_facade(torch, np, setup) -> dict:
     from repro_torch.testing import Fault, FaultPlan, inject
 
     bag_ops.embedding_bag_kernel.launches = 0   # not on the facade's path
+    bag_ops.embedding_bag_backward.launches = 0
     n, r, c, v = setup["graph"]
     b0, x_direct = setup["b"], setup["x"]
 
@@ -1010,20 +1052,29 @@ def phase_facade(torch, np, setup) -> dict:
     check(int(code) == SCAN_OK, f"guarded scanned solve code {int(code)}")
     check(max(diffs) <= 1e-5, f"scanned solves differ from eager: {diffs}")
     bags = bag_ops.embedding_bag_kernel.launches
-    check(bags == 0, f"the facade's path launched embedding_bag {bags} times")
-    return dict(launched, agg_vote=votes, embedding_bag=bags)
+    grads = bag_ops.embedding_bag_backward.launches
+    check(bags == grads == 0, f"the facade's path launched embedding_bag "
+          f"{bags} and its backward {grads} times")
+    return dict(launched, agg_vote=votes, embedding_bag=bags,
+                embedding_bag_backward=grads)
+
+
+def _bag_backward():
+    return getattr(importlib.import_module(BAG_BACKWARD[0]), BAG_BACKWARD[1])
 
 
 def phase_launches() -> dict:
     """Every kernel's launch count, by kernel name."""
-    return dict(zip((m.rsplit(".", 1)[1] for m in WRAPPERS),
-                    launch_counts(tuple(WRAPPERS))))
+    counts = dict(zip((m.rsplit(".", 1)[1] for m in WRAPPERS),
+                      launch_counts(tuple(WRAPPERS))))
+    return dict(counts, embedding_bag_backward=_bag_backward().launches)
 
 
 def zero_launches() -> None:
     for mod_name, (wrapper, _) in WRAPPERS.items():
         getattr(importlib.import_module(f"{mod_name}.ops"),
                 wrapper).launches = 0
+    _bag_backward().launches = 0
 
 
 def phase_paper(torch, np) -> dict:
@@ -2183,7 +2234,8 @@ def _bag_launches() -> int:
 
 def phase_deepfm(torch, np):
     """DeepFM serving at FULL: returns the model, the bulk batch's
-    fused-table ids and the embedding-bag launches of the served run."""
+    fused-table ids and the embedding-bag and bag-backward launches of the
+    served run."""
     from repro_torch.configs.deepfm import FULL, SHAPE_DIMS, serve_flops
     from repro_torch.data.synthetic import recsys_batch_stream
     from repro_torch.kernels.embedding_bag import ops as bag_ops
@@ -2234,6 +2286,7 @@ def phase_deepfm(torch, np):
     warm_ms = (time.perf_counter() - t0) * 1e3
 
     bag_ops.embedding_bag_kernel.launches = 0
+    bag_ops.embedding_bag_backward.launches = 0
     torch.cuda.synchronize()
     req_ms, logits, per_call = [], [], []
     for idx in requests:
@@ -2272,6 +2325,8 @@ def phase_deepfm(torch, np):
           "expected 2 per forward and 1 per retrieval")
     check(launches == 2 * (len(requests) + 1) + 1,
           f"deepfm: embedding_bag launched {launches} times")
+    backward = bag_ops.embedding_bag_backward.launches
+    check(backward == 0, "deepfm: serving launched the bag backward")
 
     before = launch_counts(tuple(WRAPPERS))
     with plain_versions():
@@ -2299,7 +2354,7 @@ def phase_deepfm(torch, np):
         retrieval_vs_f64_max_abs=host_err)
     check(host_err <= 1e-6, "deepfm: retrieval disagrees with float64")
     flat = _flat_ids(cfg, bulk).reshape(-1, cfg.multi_hot)
-    return model, flat, launches
+    return model, flat, launches, backward
 
 
 def phase_kernels_deepfm(torch, model, flat, launches):
@@ -2383,6 +2438,221 @@ def phase_kernels_deepfm(torch, model, flat, launches):
     return rec
 
 
+def phase_train(torch, np) -> dict:
+    """DeepFM training at FULL through the fault-tolerant loop (run A with
+    failures, run B without). Returns the launches of run A by kernel,
+    with the first batch's fused ids under ``"flat"`` for the kernel
+    record."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import restore_checkpoint, save_checkpoint
+    from repro_torch.configs.deepfm import (FULL, SHAPE_DIMS, _train_flops,
+                                            loss_and_grads, make_train_step)
+    from repro_torch.data.synthetic import recsys_batch_stream
+    from repro_torch.models.recsys.deepfm import _flat_ids, init_deepfm
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.runtime import FailureInjector, TrainLoopRunner
+    from repro_torch.tree import leaves, tree_map
+
+    cfg, dev = FULL, torch.device("cuda")
+    B = SHAPE_DIMS["train_batch"]["batch"]
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=TRAIN_STEPS)
+    train_step = make_train_step(cfg, opt_cfg)
+    t_phase = time.perf_counter()
+    log = {}
+
+    def data_fn(s):
+        t0 = time.perf_counter()
+        _, idx, lab = next(recsys_batch_stream(cfg.vocab_per_field, B,
+                                               cfg.multi_hot, seed=0,
+                                               start_step=s))
+        batch = (torch.from_numpy(idx).to(dev),
+                 torch.from_numpy(lab).to(dev))
+        log["data_s"].append(time.perf_counter() - t0)
+        log["step"] = s
+        return batch
+
+    def step_fn(params, opt, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, metrics = train_step(params, opt, *batch)
+        torch.cuda.synchronize()
+        log["step_ms"][log["step"]] = (time.perf_counter() - t0) * 1e3
+        log["loss"][log["step"]] = float(metrics["loss"])
+        log["calls"] += 1
+        return params, opt, metrics
+
+    def run(directory, injector):
+        log.update(data_s=[], step_ms={}, loss={}, calls=0, step=None)
+        params = init_deepfm(cfg, torch.Generator(device=dev).manual_seed(0))
+        runner = TrainLoopRunner(step_fn, data_fn, directory,
+                                 ckpt_every=TRAIN_CKPT_EVERY,
+                                 failure_injector=injector)
+        t0 = time.perf_counter()
+        params, opt, _ = runner.run(params, adamw_init(params, opt_cfg),
+                                    TRAIN_STEPS)
+        torch.cuda.synchronize()
+        return params, opt, time.perf_counter() - t0, dict(log)
+
+    work = tempfile.mkdtemp(prefix="repro_torch_train_")
+    try:
+        inj = FailureInjector(TRAIN_FAIL_AT)
+        torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        pa, oa, secs_a, log_a = run(os.path.join(work, "a"), inj)
+        launched = phase_launches()
+        peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
+        pb, ob, secs_b, log_b = run(os.path.join(work, "b"), None)
+
+        state = dict(params=pa, opt=oa)
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(work, "timed"), TRAIN_STEPS, state)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, _ = restore_checkpoint(
+            os.path.join(work, "a"), TRAIN_STEPS, state,
+            shardings=tree_map(lambda t: t.device, state))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        restored_ok = bitwise_equal(torch, restored, state)
+        placed = all(t.device.type == dev.type for t in leaves(restored))
+        del restored
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    calls = log_a["calls"]
+    steps_b = [log_b["step_ms"][k] for k in range(5, TRAIN_STEPS)]
+    step_ms = float(np.median(steps_b))
+    losses = [log_b["loss"][k] for k in range(TRAIN_STEPS)]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    n_params = sum(t.numel() for t in leaves(pa))
+    say("train", config="FULL", batch=B, bags=B * cfg.n_fields,
+        ids=B * cfg.n_fields * cfg.multi_hot, params=n_params,
+        steps=TRAIN_STEPS, ckpt_every=TRAIN_CKPT_EVERY,
+        fail_at=json.dumps(list(TRAIN_FAIL_AT)),
+        fired=json.dumps(sorted(inj.fired)), step_calls_a=calls,
+        step_calls_b=log_b["calls"])
+    say("train", step_ms_median=step_ms, step_ms_min=min(steps_b),
+        step_ms_max=max(steps_b),
+        loop_s_per_step_a=secs_a / TRAIN_STEPS,
+        loop_s_per_step_b=secs_b / TRAIN_STEPS,
+        data_fn_s_mean=float(np.mean(log_b["data_s"])),
+        examples_per_s=B / (step_ms / 1e3),
+        model_tflop_per_step=_train_flops(cfg, B) / 1e12,
+        model_tflops=_train_flops(cfg, B) / (step_ms / 1e3) / 1e12,
+        peak_gib=round(peak_gib, 3), ckpt_save_s=round(save_s, 3),
+        ckpt_restore_s=round(restore_s, 3))
+    say("train", loss_first5_mean=first, loss_last5_mean=last,
+        losses=json.dumps([round(x, 6) for x in losses]),
+        launches=json.dumps(launched),
+        bag_launches_per_step=launched["embedding_bag"] / calls,
+        bag_backward_launches_per_step=launched["embedding_bag_backward"]
+        / calls)
+    check(inj.fired == set(TRAIN_FAIL_AT),
+          f"train: injected failures fired at {sorted(inj.fired)}")
+    check(calls == TRAIN_STEPS + sum(f % TRAIN_CKPT_EVERY
+                                     for f in TRAIN_FAIL_AT),
+          f"train: run A ran {calls} steps")
+    check(bitwise_equal(torch, dict(params=pa, opt=oa),
+                          dict(params=pb, opt=ob)),
+          "train: the recovered run is not bitwise the uninterrupted one")
+    check(placed, "train: the placed restore left a leaf off the card")
+    check(restored_ok,
+          "train: the placed restore is not bitwise the state in memory")
+    check(all(np.isfinite(list(log_a["loss"].values())))
+          and all(np.isfinite(losses)), "train: a loss is not finite")
+    check(last < first, f"train: the loss did not fall ({first} -> {last})")
+    check(launched["embedding_bag"] == 2 * calls
+          and launched["embedding_bag_backward"] == 2 * calls,
+          f"train: launches {launched} for {calls} steps, expected 2 "
+          "forward and 2 backward bag launches a step")
+    check(all(launched[k] == 0 for k in ("spmv_ell", "jacobi", "agg_vote")),
+          f"train: a solver kernel launched: {launched}")
+
+    # AdamW alone, on run B's state and one batch's gradients
+    idx, lab = data_fn(0)
+    _, grads = loss_and_grads(cfg, pb, idx, lab)
+    adamw_ms = time_ms(torch, lambda: adamw_update(opt_cfg, pb, grads, ob),
+                       reps=10)
+    say("train", adamw_ms=adamw_ms,
+        seconds=round(time.perf_counter() - t_phase, 1))
+    del grads
+    return dict(launched, flat=_flat_ids(cfg, idx).reshape(-1, cfg.multi_hot),
+                n_vocab=pa["table"].shape[0])
+
+
+def phase_kernels_train(torch, train) -> dict:
+    """The embedding_bag_backward record at the first batch's ids."""
+    from repro_torch.kernels.embedding_bag import (embedding_bag_backward,
+                                                   embedding_bag_backward_ref)
+
+    flat, n_vocab = train["flat"], train["n_vocab"]
+    n_bags, hot = flat.shape
+    dev = flat.device
+    gen = torch.Generator(device=dev).manual_seed(1)
+    valid = (flat >= 0) & (flat < n_vocab)
+    n_valid = int(valid.sum())
+    before = embedding_bag_backward.launches
+    err, g10 = 0.0, None
+    for d in (10, 1):
+        g = torch.randn((n_bags, d), generator=gen, device=dev) / n_bags
+        got = embedding_bag_backward(g, flat, n_vocab)
+        want = embedding_bag_backward_ref(g, flat, n_vocab)
+        scale = embedding_bag_backward_ref(g.abs(), flat, n_vocab)
+        torch.cuda.synchronize()
+        check(bool(((got - want).abs() <= 1e-6 * scale).all()),
+              f"embedding_bag_backward at d = {d} is not within 1e-6 of each "
+              "row's sum of |g| of its plain version")
+        check(torch.equal(embedding_bag_backward(g, flat, n_vocab), got),
+              f"embedding_bag_backward at d = {d} is not bitwise repeatable")
+        err = max(err, float((got - want).abs().max()))
+        # sentinel ids: half the slots −1, a quarter V
+        sent = flat.clone()
+        sent.view(-1)[::2] = -1
+        sent.view(-1)[1::4] = n_vocab
+        s_got = embedding_bag_backward(g, sent, n_vocab)
+        s_want = embedding_bag_backward_ref(g, sent, n_vocab)
+        s_scale = embedding_bag_backward_ref(g.abs(), sent, n_vocab)
+        only = torch.full_like(flat, -1)
+        only.view(-1)[1::2] = n_vocab
+        zero = embedding_bag_backward(g, only, n_vocab)
+        torch.cuda.synchronize()
+        check(bool(((s_got - s_want).abs() <= 1e-6 * s_scale).all())
+              and not s_got[s_scale.sum(1) == 0].any() and not zero.any(),
+              f"embedding_bag_backward at d = {d} on sentinel ids")
+        if d == 10:
+            g10 = g
+        else:
+            fo = lambda: embedding_bag_backward(g, flat, n_vocab)  # noqa
+            b_ms, b_by = bound(4 * n_bags * hot + 4 * n_bags + 4 * n_vocab,
+                               n_valid)
+            d_ms, windows = device_ms(torch, fo, "embedding_bag_backward")
+            say("kernels", name="embedding_bag_backward", shape="first_order",
+                d=1, kernel_ms=time_ms(torch, fo), device_ms=d_ms,
+                bound_ms=b_ms, bound_by=b_by, of_bound=round(b_ms / d_ms, 4),
+                max_abs_err=float((got - want).abs().max()),
+                profiler_windows=windows)
+    check(embedding_bag_backward.launches > before,
+          "embedding_bag_backward was not launched in the comparison phase")
+
+    d = 10
+    ids = flat.reshape(-1)[valid.reshape(-1)].long()     # yardstick only
+    rows = g10.repeat_interleave(hot, dim=0)[valid.reshape(-1)]
+    rec = kernel_record(
+        torch, "embedding_bag_backward", train["embedding_bag_backward"],
+        err, lambda: embedding_bag_backward(g10, flat, n_vocab),
+        lambda: embedding_bag_backward_ref(g10, flat, n_vocab),
+        4 * n_bags * hot + 4 * n_bags * d + 4 * n_vocab * d, n_valid * d,
+        library=lambda: torch.zeros((n_vocab, d), device=dev).index_add_(
+            0, ids, rows))
+    say("kernels", name="embedding_bag_backward", bags=n_bags, hot=hot, d=d,
+        vocab=n_vocab, valid_ids=n_valid,
+        distinct_valid_ids=int(torch.unique(ids).numel()),
+        largest_run=int(torch.bincount(ids).max()))
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2422,14 +2692,26 @@ def main() -> int:
                    service_launches=service[rec["name"]],
                    spectral_launches=spectral[rec["name"]],
                    dist_launches=dist[rec["name"]])
-    model, flat, bag_launches = phase_deepfm(torch, np)
-    records.append(dict(phase_kernels_deepfm(torch, model, flat,
-                                             bag_launches),
-                        facade_launches=facade["embedding_bag"],
-                        paper_launches=paper["embedding_bag"],
-                        service_launches=service["embedding_bag"],
-                        spectral_launches=spectral["embedding_bag"],
-                        dist_launches=dist["embedding_bag"]))
+    with torch.no_grad():               # serving builds no graph
+        model, flat, bag_launches, deepfm_bwd = phase_deepfm(torch, np)
+        records.append(dict(phase_kernels_deepfm(torch, model, flat,
+                                                 bag_launches),
+                            facade_launches=facade["embedding_bag"],
+                            paper_launches=paper["embedding_bag"],
+                            service_launches=service["embedding_bag"],
+                            spectral_launches=spectral["embedding_bag"],
+                            dist_launches=dist["embedding_bag"]))
+    del model, flat
+    train = phase_train(torch, np)
+    bwd = phase_kernels_train(torch, train)
+    records.append(dict(bwd, facade_launches=facade["embedding_bag_backward"],
+                        paper_launches=paper["embedding_bag_backward"],
+                        service_launches=service["embedding_bag_backward"],
+                        spectral_launches=spectral["embedding_bag_backward"],
+                        dist_launches=dist["embedding_bag_backward"],
+                        deepfm_launches=deepfm_bwd))
+    for rec in records:                 # the train phase's own launches
+        rec["train_launches"] = train[rec["name"]]
     say("total", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

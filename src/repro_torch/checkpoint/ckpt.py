@@ -8,12 +8,20 @@ published with an atomic ``os.replace``, so a job killed mid-save never
 leaves a half-readable step: ``latest_step`` only sees completed renames.
 A step written by either package loads in the other.
 
-Trees are nested dicts, lists and tuples; ``None`` holds no leaf and
-anything else is a leaf (a tensor, a numpy array or a scalar). Key paths
-follow ``jax.tree_util.tree_flatten_with_path``: dict keys in sorted
-order, list and tuple entries by index. Leaves are saved as host arrays
-and restored onto one torch device (the reference's sharded restore,
-``shardings=``, waits for its consumer, ``runtime/loop.py``: ROADMAP A12).
+Trees are nested dicts, lists and tuples (``repro_torch.tree``); ``None``
+holds no leaf and anything else is a leaf (a tensor, a numpy array or a
+scalar). Key paths follow ``jax.tree_util.tree_flatten_with_path``: dict
+keys in sorted order, list and tuple entries by index. Leaves are saved as
+host arrays. ``restore_checkpoint`` places each leaf on a torch device:
+the one its ``shardings`` tree names, else ``device``, as the reference's
+``shardings=`` places each leaf with ``jax.device_put``; placement over a
+mesh waits for the port's ``models/sharding.py``.
+
+bfloat16 leaves are written as the reference writes them (through
+``ml_dtypes``, which the port does not need): the raw 2-byte values under
+an ``.npy`` header of type ``<V2``, with ``"bfloat16"`` in the manifest,
+and restored by the manifest's dtype string. (The reference itself cannot
+restore such a leaf: ROADMAP C7.)
 """
 
 from __future__ import annotations
@@ -24,45 +32,40 @@ import shutil
 import time
 
 import numpy as np
+import torch
 
-
-def _flatten_with_paths(tree, path=()):
-    """``[(key path tuple, leaf)]`` in the reference's order."""
-    if tree is None:
-        return []
-    if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out += _flatten_with_paths(tree[k], path + (str(k),))
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = []
-        for i, sub in enumerate(tree):
-            out += _flatten_with_paths(sub, path + (str(i),))
-        return out
-    return [(path, tree)]
+from repro_torch.device import resolve_device
+from repro_torch.tree import flatten_with_paths, unflatten
 
 
 def _flatten(tree) -> dict:
-    return {"/".join(path): leaf for path, leaf in _flatten_with_paths(tree)}
+    return {"/".join(path): leaf for path, leaf in flatten_with_paths(tree)}
 
 
-def _unflatten(tree_like, leaves):
-    """``tree_like``'s structure with its leaves taken in order from the
-    iterator ``leaves``."""
-    if tree_like is None:
-        return None
-    if isinstance(tree_like, dict):
-        return {k: _unflatten(tree_like[k], leaves) for k in sorted(tree_like)}
-    if isinstance(tree_like, (list, tuple)):
-        return type(tree_like)(_unflatten(sub, leaves) for sub in tree_like)
-    return next(leaves)
+_BF16 = "bfloat16"
 
 
 def _host(leaf) -> np.ndarray:
+    """A leaf as a host array; bfloat16 as its raw 2-byte values (``V2``)."""
     if hasattr(leaf, "detach"):
-        return leaf.detach().cpu().numpy()
-    return np.asarray(leaf)
+        t = leaf.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view("V2")
+        return t.numpy()
+    arr = np.asarray(leaf)
+    return arr.view("V2") if arr.dtype.name == _BF16 else arr
+
+
+def _save_npy(path: str, arr: np.ndarray, dtype_name: str) -> None:
+    """``np.save``'s bytes; a bfloat16 leaf under the ``<V2`` header that
+    ``np.save`` writes for an ``ml_dtypes`` array."""
+    if dtype_name != _BF16:
+        np.save(path, arr)
+        return
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(
+            f, dict(descr="<V2", fortran_order=False, shape=arr.shape))
+        f.write(arr.tobytes())
 
 
 def save_checkpoint(directory: str, step: int, tree,
@@ -77,10 +80,11 @@ def save_checkpoint(directory: str, step: int, tree,
                     leaves={})
     for key, leaf in _flatten(tree).items():
         arr = _host(leaf)
+        dtype = _BF16 if arr.dtype == np.dtype("V2") else str(arr.dtype)
         fname = key.replace("/", "__") + ".npy"
-        np.save(os.path.join(tmp, fname), arr)
+        _save_npy(os.path.join(tmp, fname), arr, dtype)
         manifest["leaves"][key] = dict(file=fname, shape=list(arr.shape),
-                                       dtype=str(arr.dtype))
+                                       dtype=dtype)
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):
@@ -111,21 +115,30 @@ def load_checkpoint_flat(directory: str, step: int):
     return flat, manifest
 
 
-def restore_checkpoint(directory: str, step: int, tree_like, device=None):
-    """Restore into the structure of ``tree_like``, as tensors on
+def restore_checkpoint(directory: str, step: int, tree_like, device=None,
+                       shardings=None):
+    """Restore into the structure of ``tree_like``. ``shardings``, a tree
+    shaped like ``tree_like`` (or a part of it) whose leaves are torch
+    devices, places each of its leaves there; every other leaf goes to
     ``device`` (default: the CUDA card; ``device="cpu"`` for the host).
     Returns ``(tree, manifest)``."""
-    import torch
-
-    from repro_torch.device import resolve_device
-
-    dev = resolve_device(device)
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
+    flat_sh = _flatten(shardings) if shardings is not None else {}
+    default = None
     leaves = []
     for key in _flatten(tree_like):
         info = manifest["leaves"][key]
         arr = np.load(os.path.join(path, info["file"]))
-        leaves.append(torch.as_tensor(arr, device=dev))
-    return _unflatten(tree_like, iter(leaves)), manifest
+        if key in flat_sh:
+            dev = torch.device(flat_sh[key])
+        else:
+            default = default or resolve_device(device)
+            dev = default
+        if info["dtype"] == _BF16:
+            t = torch.from_numpy(np.array(arr).view(np.int16))
+            leaves.append(t.view(torch.bfloat16).to(dev))
+        else:
+            leaves.append(torch.as_tensor(arr, device=dev))
+    return unflatten(tree_like, iter(leaves)), manifest

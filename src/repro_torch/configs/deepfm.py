@@ -3,13 +3,24 @@
 
 Shapes: train_batch (B=65536, train step), serve_p99 (B=512, online
 inference), serve_bulk (B=262144, offline scoring), retrieval_cand (B=1
-against 10⁶ candidates, FM-decomposed). The port serves the last three;
-training is not ported yet.
+against 10⁶ candidates, FM-decomposed). The port trains
+(:func:`make_train_step`: the loss, the gradient of every parameter, then
+AdamW, as the reference's train step) and serves the other three.
 """
 
 from __future__ import annotations
 
-from repro_torch.models.recsys.deepfm import DeepFMConfig, default_vocabs
+import numpy as np
+import torch
+
+from repro_torch.configs.registry import ArchSpec, register
+from repro_torch.device import resolve_device
+from repro_torch.models.recsys.deepfm import (DeepFMConfig, deepfm_loss,
+                                              default_vocabs,
+                                              fm_retrieval_scores,
+                                              init_deepfm)
+from repro_torch.optim.adamw import AdamWConfig, adamw_update
+from repro_torch.tree import leaves, tree_map, unflatten
 
 FULL = DeepFMConfig(n_fields=39, embed_dim=10, mlp_sizes=(400, 400, 400),
                     vocab_per_field=default_vocabs(39), multi_hot=2)
@@ -41,3 +52,61 @@ def _train_flops(cfg: DeepFMConfig, B) -> float:
 def serve_flops(cfg: DeepFMConfig, B) -> float:
     """Model FLOPs of one forward of batch ``B``: a third of a train step."""
     return _train_flops(cfg, B) / 3.0
+
+
+def loss_and_grads(cfg: DeepFMConfig, params: dict, indices: torch.Tensor,
+                   labels: torch.Tensor):
+    """``deepfm_loss`` and its gradient in every parameter (a tree shaped
+    like ``params``): the reference's ``jax.value_and_grad``. ``params``
+    is left as it is."""
+    live = tree_map(lambda t: t.detach().requires_grad_(), params)
+    with torch.enable_grad():
+        loss = deepfm_loss(cfg, live, indices, labels)
+        grads = torch.autograd.grad(loss, leaves(live))
+    return loss.detach(), unflatten(params, iter(grads))
+
+
+def make_train_step(cfg: DeepFMConfig, opt_cfg: AdamWConfig = AdamWConfig()):
+    """The reference's train step (``repro.configs.deepfm``, the
+    ``train_batch`` case): ``step(params, opt_state, indices, labels) ->
+    (params, opt_state, {"loss", "grad_norm", "lr"})``, loss and gradients
+    then ``adamw_update``; functional, every tensor on the parameters'
+    device."""
+    def step(params, opt_state, indices, labels):
+        loss, grads = loss_and_grads(cfg, params, indices, labels)
+        params, opt_state, metrics = adamw_update(opt_cfg, params, grads,
+                                                  opt_state)
+        return params, opt_state, dict(loss=loss, **metrics)
+
+    return step
+
+
+def make_smoke_case(device=None):
+    """The reference's smoke case on ``SMOKE`` (B = 8, its numpy draws;
+    the weights from a seeded ``torch.Generator``): the loss, the
+    gradients and 100 retrieval scores, on ``device`` (default: the CUDA
+    card)."""
+    def run():
+        dev = resolve_device(device)
+        rng = np.random.default_rng(0)
+        cfg = SMOKE
+        params = init_deepfm(cfg, torch.Generator().manual_seed(0), dev)
+        B = 8
+        sizes = np.asarray(cfg.vocab_per_field)
+        idx = (rng.integers(0, 1 << 30, (B, cfg.n_fields, cfg.multi_hot))
+               % sizes[None, :, None]).astype(np.int32)
+        labels = rng.integers(0, 2, B).astype(np.float32)
+        idx_t = torch.from_numpy(idx).to(dev)
+        loss, grads = loss_and_grads(cfg, params, idx_t,
+                                     torch.from_numpy(labels).to(dev))
+        cand = torch.as_tensor(rng.integers(0, sizes[0], 100),
+                               dtype=torch.int32, device=dev)
+        with torch.no_grad():
+            scores = fm_retrieval_scores(cfg, params, idx_t[:1], cand)
+        return dict(loss=loss, scores=scores, grads=grads)
+    return run
+
+
+register(ArchSpec(
+    arch_id="deepfm", family="recsys", shapes=SHAPES,
+    make_smoke_case=make_smoke_case, describe=__doc__))

@@ -20,6 +20,12 @@ very same hierarchy, independently of setup. The layout of ``tree``:
 ``deepfm_params_from_numpy(tree, device)`` does the same for the dict that
 the reference's ``init_deepfm`` returns, as numpy arrays:
 ``{"table", "first_order", "bias": array, "mlp": {"w": [...], "b": [...]}}``.
+
+``adamw_state_from_numpy(tree, device)`` takes the reference's
+``adamw_init``/``adamw_update`` state as numpy: ``{"mu": tree, "nu": tree,
+"step": int32}``, each moment leaf a float32 array, a bfloat16 one (an
+``ml_dtypes`` array, or the raw ``|V2`` values ``np.load`` gives for one),
+or an int8 moment's ``{"q": int8, "scale": float32}``.
 """
 
 from __future__ import annotations
@@ -100,3 +106,33 @@ def deepfm_params_from_numpy(tree: dict, device) -> dict:
                 mlp={k: [_t(a, device, torch.float32) for a in tree["mlp"][k]]
                      for k in ("w", "b")},
                 bias=_t(tree["bias"], device, torch.float32))
+
+
+def _moment(a, device):
+    if isinstance(a, dict):
+        return dict(q=_t(a["q"], device, torch.int8),
+                    scale=_t(a["scale"], device, torch.float32))
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
+        bits = torch.from_numpy(np.array(a).view(np.int16))
+        return bits.view(torch.bfloat16).to(device)
+    return _t(a, device, torch.float32)
+
+
+def adamw_state_from_numpy(tree: dict, device) -> dict:
+    """The port's AdamW state (``repro_torch.optim.adamw``'s layout) for a
+    reference optimizer state of numpy arrays, in any of the three moment
+    layouts."""
+    device = torch.device(device)
+
+    def moments(t):
+        if isinstance(t, dict) and set(t) == {"q", "scale"}:
+            return _moment(t, device)
+        if isinstance(t, dict):
+            return {k: moments(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return type(t)(moments(v) for v in t)
+        return _moment(t, device)
+
+    return dict(mu=moments(tree["mu"]), nu=moments(tree["nu"]),
+                step=_t(tree["step"], device, torch.int32))

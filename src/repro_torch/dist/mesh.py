@@ -12,7 +12,9 @@ process group runs the same program:
   ``all_reduce`` (SUM / MAX / MIN) over the mesh's group: the reference
   reduces over every axis at once too, so no row or column subgroup is
   needed;
-* ``axis_index`` is the rank's row-major coordinate.
+* ``axis_index`` is the rank's row-major coordinate;
+* a collective over ONE axis (``optim.compress``) runs on that axis's
+  subgroup, ``axis_group(axis)``, built on first use.
 
 A rank's coordinates are ``numpy.unravel_index(rank, shape)``, so its
 linear shard index is its rank, as the reference's row-major
@@ -69,6 +71,7 @@ class ProcessMesh:
     rank: int
     _stats: dict = dataclasses.field(default_factory=lambda: dict(
         calls=0, bytes=0, staged=0), repr=False)
+    _axis_groups: dict = dataclasses.field(default_factory=dict, repr=False)
 
     # -- geometry (the reference's ``mesh_geometry``) ---------------------
     @property
@@ -113,13 +116,34 @@ class ProcessMesh:
         """``{axis name: size}``, the reference's ``dict(mesh.shape)``."""
         return dict(zip(self.axis_names, self.shape))
 
+    def axis_group(self, axis: str):
+        """The process group of this rank's line along ``axis``: the ranks
+        that share every other coordinate, in axis order. On first use
+        every line's group is made with ``new_group``, in the same order on
+        every rank, so every rank of the default group must call this
+        together, as it must every collective."""
+        if axis not in self._axis_groups:
+            a = self.axis_names.index(axis)
+            ranks = np.arange(self.size).reshape(self.shape)
+            lines = np.moveaxis(ranks, a, -1).reshape(-1, self.shape[a])
+            base = dist.get_process_group_ranks(self.group)
+            for line in lines:
+                group = dist.new_group([base[r] for r in line])
+                if self.rank in line:
+                    self._axis_groups[axis] = group
+        return self._axis_groups[axis]
+
     # -- collectives -------------------------------------------------------
-    def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+    def count_collective(self, t: torch.Tensor, staged: bool) -> None:
+        """Add one collective of ``t``'s bytes to :meth:`stats`."""
         st = self._stats
         st["calls"] += 1
         st["bytes"] += t.numel() * t.element_size()
+        st["staged"] += int(staged)
+
+    def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+        self.count_collective(t, self.staged)
         if self.staged:
-            st["staged"] += 1
             h = t.cpu()
             dist.all_reduce(h, op=op, group=self.group)
             return t.copy_(h)
@@ -140,8 +164,9 @@ class ProcessMesh:
         return self._all_reduce(t, dist.ReduceOp.MIN)
 
     def stats(self) -> dict:
-        """All-reduce calls and bytes since the last reset, and how many
-        of them were staged through host memory."""
+        """Collective calls (all-reduces, and ``optim.compress``'s
+        all-gathers) and their bytes since the last reset, and how many of
+        them were staged through host memory."""
         return dict(self._stats)
 
     def reset_stats(self) -> None:

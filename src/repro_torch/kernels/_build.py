@@ -3,7 +3,8 @@
 The sources in ``repro_torch/csrc/*.cu`` have a plain C interface; the
 ELL kernels (``spmv_ell``, ``jacobi``, ``agg_vote``) share the TMA-staged
 row tiles of ``csrc/ell_tiles.cuh``, and they and ``embedding_bag`` the
-bulk-copy primitives of ``csrc/bulk_copy.cuh``. On first use they are compiled for ``sm_90a``
+bulk-copy primitives of ``csrc/bulk_copy.cuh``; ``embedding_bag_backward``
+stands alone. On first use they are compiled for ``sm_90a``
 with ``nvcc`` (one process per source, all started together, then one
 link) into a shared library under
 ``<repo>/build/repro_torch_kernels/``, named by a hash of the sources and
@@ -25,7 +26,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch_kernels"
-SOURCES = ("spmv_ell.cu", "jacobi.cu", "agg_vote.cu", "embedding_bag.cu")
+SOURCES = ("spmv_ell.cu", "jacobi.cu", "agg_vote.cu", "embedding_bag.cu",
+           "embedding_bag_backward.cu")
 HEADERS = ("bulk_copy.cuh", "ell_tiles.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -38,6 +40,8 @@ _SIGNATURES = {
     "repro_agg_vote_i32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, _P),
     "repro_embedding_bag_f32": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
+    "repro_embedding_bag_backward_f32": (_P, _P, _P, _P, _P, _L, _I, _I, _I,
+                                         _L, _P),
 }
 
 _lib = None

@@ -1,4 +1,4 @@
-"""DeepFM (Guo et al., arXiv:1703.04247), the serving path: torch port of
+"""DeepFM (Guo et al., arXiv:1703.04247): torch port of
 ``repro.models.recsys.deepfm``.
 
 One fused ``[Σ vocab, d]`` table with per-field offsets; the FM second
@@ -6,8 +6,11 @@ order term uses the ½[(Σv)² − Σv²] identity; retrieval scores one user
 against many candidates of one field with the FM decomposition (one
 ``[n_cand, d] @ [d]`` product). Both multi-hot bag sums of a forward (the
 field embeddings and the first-order weights) run through the
-embedding-bag kernel on the card. Training (gradients, AdamW) is not
-ported yet: the parameters do not require grad.
+embedding-bag kernel on the card, and where the parameters require grad
+their gradients through its backward kernel (``kernels.embedding_bag.
+BagSum``). The training step (loss, gradients, AdamW) is
+``repro_torch.configs.deepfm.make_train_step``. The products run in full
+float32: callers on the card keep TF32 off, as the reference's are.
 """
 
 from __future__ import annotations
@@ -111,7 +114,8 @@ def deepfm_forward(cfg: DeepFMConfig, params: dict,
 
 def deepfm_loss(cfg: DeepFMConfig, params: dict, indices: torch.Tensor,
                 labels: torch.Tensor) -> torch.Tensor:
-    """Mean binary cross-entropy of the logits (the forward value only)."""
+    """Mean binary cross-entropy of the logits; differentiable in every
+    parameter that requires grad."""
     logits = deepfm_forward(cfg, params, indices)
     return torch.mean(logits.clamp(min=0) - logits * labels
                       + torch.log1p(torch.exp(-logits.abs())))
@@ -142,12 +146,13 @@ def fm_retrieval_scores(cfg: DeepFMConfig, params: dict,
 
 
 class DeepFM(nn.Module):
-    """DeepFM for serving: ``forward(indices)`` is :func:`deepfm_forward`.
+    """DeepFM: ``forward(indices)`` is :func:`deepfm_forward`.
 
     Built from ``params`` (a dict as :func:`init_deepfm` returns) or drawn
     from ``generator``; on ``device`` (default: the CUDA card). The weights
-    are parameters that do not require grad: the serving path has no
-    backward yet.
+    are parameters that require grad, so ``deepfm_loss(cfg, model.params(),
+    ...)`` trains them; serve under ``torch.no_grad()``, which builds no
+    graph.
     """
 
     def __init__(self, cfg: DeepFMConfig, generator: torch.Generator | None
@@ -160,14 +165,14 @@ class DeepFM(nn.Module):
             params = init_deepfm(cfg, generator, device)
         self.cfg = cfg
 
-        def frozen(t):
-            return nn.Parameter(t.to(device), requires_grad=False)
+        def param(t):
+            return nn.Parameter(t.detach().to(device))
 
-        self.table = frozen(params["table"])
-        self.first_order = frozen(params["first_order"])
-        self.bias = frozen(params["bias"])
-        self.mlp_w = nn.ParameterList(frozen(w) for w in params["mlp"]["w"])
-        self.mlp_b = nn.ParameterList(frozen(b) for b in params["mlp"]["b"])
+        self.table = param(params["table"])
+        self.first_order = param(params["first_order"])
+        self.bias = param(params["bias"])
+        self.mlp_w = nn.ParameterList(param(w) for w in params["mlp"]["w"])
+        self.mlp_b = nn.ParameterList(param(b) for b in params["mlp"]["b"])
 
     def params(self) -> dict:
         """The parameters in :func:`init_deepfm`'s layout."""

@@ -2,9 +2,11 @@
 
 An embedding bag is a sum-semiring SpMV with one-hot rows. The unweighted
 bag sum goes through the hand-written kernel
-(``repro_torch.kernels.embedding_bag``) on the card; weighted bags keep the
-reference's composition (gather, scale, masked sum), as the JAX package has
-no kernel for them.
+(``repro_torch.kernels.embedding_bag``) on the card; where ``table``
+requires grad, through ``BagSum``, whose backward is the deterministic
+backward kernel. Weighted bags keep the reference's composition (gather,
+scale, masked sum) and its autograd, as the JAX package has no kernel for
+them.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
 
     Multi-hot bags reduce over the trailing H axis. ``mode``: sum|mean.
     """
-    from repro_torch.kernels.embedding_bag import embedding_bag_kernel
+    from repro_torch.kernels.embedding_bag import BagSum, embedding_bag_kernel
 
     if mode not in ("sum", "mean"):
         raise ValueError(f"embedding_bag: unknown mode {mode!r}")
@@ -31,8 +33,11 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
         (indices >= 0) & (indices < V)
     if weights is None:
         bags = indices.reshape(-1, indices.shape[-1])  # a view, no copy
-        out = embedding_bag_kernel(table, bags).reshape(*indices.shape[:-1],
-                                                        d)
+        if table.requires_grad and torch.is_grad_enabled():
+            out = BagSum.apply(table, bags)
+        else:
+            out = embedding_bag_kernel(table, bags)
+        out = out.reshape(*indices.shape[:-1], d)
     else:
         vecs = take_fill(table, indices, 0) * weights[..., None]
         out = torch.where(valid[..., None], vecs, 0).sum(dim=-2)

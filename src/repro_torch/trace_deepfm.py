@@ -1,14 +1,22 @@
-"""Where the time of DeepFM serving goes on the card.
+"""Where the time of DeepFM serving and training goes on the card.
 
-    python -m repro_torch.trace_deepfm [--trace-dir DIR]
+    python -m repro_torch.trace_deepfm [--trace-dir DIR] [--train]
 
 Builds DeepFM at ``configs/deepfm.py::FULL`` (weights from a seeded
 generator) and profiles, with ``trace_solve.profile_call``, one warm call
-of each serving shape on ids already on the card: a serve_p99 request
-(B = 512), a serve_bulk batch (B = 262,144) and a retrieval_cand call
-(10^6 candidates of field 0). For each: the untraced wall time, device
-time by kernel name, the number of kernel launches and the device's busy
-share. ``--trace-dir`` writes one Chrome trace per shape. Prints one JSON
+of each serving shape on ids already on the card, under
+``torch.no_grad()``: a serve_p99 request (B = 512), a serve_bulk batch
+(B = 262,144) and a retrieval_cand call (10^6 candidates of field 0).
+With ``--train``, one warm training step instead (``train_batch``, B =
+65,536: ``configs.deepfm.make_train_step`` with AdamW, f32 moments, on
+the first batch of ``recsys_batch_stream(seed=0)``), then its parts
+alone: the forward (``train_forward``, no graph), the loss and gradients
+(``train_grads``) and AdamW (``train_adamw``); each one's device time is
+also summed by group: the matrix products, the bag kernels (forward and
+backward), the backward's sort, and the elementwise and reduction rest
+(``other``). For each: the untraced wall time, device time by
+kernel name, the number of kernel launches and the device's busy share.
+``--trace-dir`` writes one Chrome trace per shape. Prints one JSON
 object. It needs a CUDA device.
 """
 
@@ -18,18 +26,40 @@ import argparse
 import json
 import sys
 
+# device kernels by group, by a part of the name the profiler reports
+# (first match wins; everything else is "other")
+TRAIN_GROUPS = (("bag_forward", ("bag_tiles_kernel",)),
+                ("bag_backward", ("bag_grad_pieces", "bag_grad_runs")),
+                ("sort", ("RadixSort",)),
+                ("gemm", ("gemm", "gemv")))
+
+
+def train_groups(kernels) -> dict:
+    """``{group: ms}`` of ``(kernel name, ms)`` pairs."""
+    out = {}
+    for name, ms in kernels:
+        group = next((g for g, parts in TRAIN_GROUPS
+                      if any(p in name for p in parts)), "other")
+        out[group] = round(out.get(group, 0.0) + ms, 4)
+    return out
+
 
 def main(argv=None) -> int:
     import torch
 
-    from repro_torch.configs.deepfm import FULL, SHAPE_DIMS
+    from repro_torch.configs.deepfm import (FULL, SHAPE_DIMS, loss_and_grads,
+                                            make_train_step)
     from repro_torch.data.synthetic import recsys_batch_stream
-    from repro_torch.models.recsys.deepfm import DeepFM
+    from repro_torch.models.recsys.deepfm import (DeepFM, deepfm_loss,
+                                                  init_deepfm)
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
     from repro_torch.trace_solve import profile_call
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--trace-dir", default=None,
                     help="directory for one Chrome trace per shape")
+    ap.add_argument("--train", action="store_true",
+                    help="profile one training step instead of serving")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("trace_deepfm: needs a CUDA device", file=sys.stderr)
@@ -38,7 +68,45 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False    # full float32 products
     dev = torch.device("cuda")
     cfg = FULL
-    model = DeepFM(cfg, torch.Generator(device=dev).manual_seed(0))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = dict(device=torch.cuda.get_device_name(0))
+
+    def trace(shape, fn, top=10):
+        path = (f"{args.trace_dir}/deepfm_{shape}.json" if args.trace_dir
+                else None)
+        return profile_call(torch, fn, path, top=top)[1]
+
+    if args.train:
+        B = SHAPE_DIMS["train_batch"]["batch"]
+        _, idx, lab = next(recsys_batch_stream(cfg.vocab_per_field, B,
+                                               cfg.multi_hot, seed=0))
+        batch = (torch.from_numpy(idx).to(dev), torch.from_numpy(lab).to(dev))
+        params = init_deepfm(cfg, gen)
+        opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=30)
+        opt = adamw_init(params, opt_cfg)
+        step = make_train_step(cfg, opt_cfg)
+        _, grads = loss_and_grads(cfg, params, *batch)
+
+        def forward():
+            with torch.no_grad():
+                return deepfm_loss(cfg, params, *batch)
+
+        # the same state every call: each traced step starts from it; then
+        # its parts alone: the forward, loss and gradients, AdamW
+        parts = dict(train_batch=lambda: step(params, opt, *batch),
+                     train_forward=forward,
+                     train_grads=lambda: loss_and_grads(cfg, params, *batch),
+                     train_adamw=lambda: adamw_update(opt_cfg, params, grads,
+                                                      opt))
+        for shape, fn in parts.items():
+            res = trace(shape, fn, top=1000)  # every kernel, for the groups
+            res["groups_ms"] = train_groups(
+                (k["name"], k["ms"]) for k in res["top_kernels"])
+            out[shape] = res
+        print(json.dumps(out))
+        return 0
+
+    model = DeepFM(cfg, gen)
     batches = {}
     for shape in ("serve_p99", "serve_bulk"):
         _, idx, _ = next(recsys_batch_stream(
@@ -51,11 +119,9 @@ def main(argv=None) -> int:
     calls = dict(serve_p99=lambda: model(batches["serve_p99"]),
                  serve_bulk=lambda: model(batches["serve_bulk"]),
                  retrieval_cand=lambda: model.retrieval_scores(user, cands))
-    out = dict(device=torch.cuda.get_device_name(0))
-    for shape, fn in calls.items():
-        path = (f"{args.trace_dir}/deepfm_{shape}.json" if args.trace_dir
-                else None)
-        out[shape] = profile_call(torch, fn, path)[1]
+    with torch.no_grad():               # serving builds no graph
+        for shape, fn in calls.items():
+            out[shape] = trace(shape, fn)
     print(json.dumps(out))
     return 0
 

@@ -50,9 +50,13 @@ def _stage_seconds(prof: cProfile.Profile) -> dict:
     return {k: round(out[k], 3) for k in SETUP_STAGES if k in out}
 
 
-# the port's own kernels, by a part of the name the profiler reports
+# the port's own kernels, by a part of the name the profiler reports; a
+# kernel of two device kernels (the bag backward's two passes, launched
+# once each a call) has two parts
 PORT_KERNELS = {"StoreRow": "spmv_ell", "JacobiRow": "jacobi",
-                "VoteRow": "agg_vote", "bag_tiles_kernel": "embedding_bag"}
+                "VoteRow": "agg_vote", "bag_tiles_kernel": "embedding_bag",
+                "bag_grad_pieces": "embedding_bag_backward",
+                "bag_grad_runs": "embedding_bag_backward"}
 
 
 def kernel_device_ms(torch, fn, kernel: str, reps: int = 20):
@@ -66,7 +70,9 @@ def kernel_device_ms(torch, fn, kernel: str, reps: int = 20):
     drop some or all of a window's launches (on an H100, once all of them
     in three windows in a row), so a window that saw no launch is
     profiled again, up to ten in all; ``(nan, 0, 10)`` means none saw
-    one."""
+    one. For a kernel of several device kernels (parts), one launch's time
+    is the sum of each part's mean, its count the fewest any part shows,
+    and a window must see every part."""
     from torch.profiler import ProfilerActivity, profile
 
     parts = [part for part, name in PORT_KERNELS.items() if name == kernel]
@@ -80,14 +86,19 @@ def kernel_device_ms(torch, fn, kernel: str, reps: int = 20):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        count, us = 0, 0.0
+        seen = {part: (0, 0.0) for part in parts}
         for e in p.key_averages():
-            if (e.device_type == torch.autograd.DeviceType.CUDA
-                    and any(part in e.key for part in parts)):
-                count += e.count
-                us += e.self_device_time_total
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            for part in parts:
+                if part in e.key:
+                    count, us = seen[part]
+                    seen[part] = (count + e.count,
+                                  us + e.self_device_time_total)
+        count = min(c for c, _ in seen.values())
         if count:
-            return us / 1e3 / count, count, window
+            ms = sum(us / c for c, us in seen.values()) / 1e3
+            return ms, count, window
     return float("nan"), 0, window
 
 
@@ -98,8 +109,9 @@ def profile_call(torch, fn, trace_path=None, top: int = 10):
     runs on one stream, so kernel times add up), the busy share against
     the untraced wall time and, as a lower bound, against the traced one,
     which the profiler's own host overhead stretches; the device time and
-    launches of each of the port's kernels (all its instantiations
-    together); ``trace_path`` writes the Chrome trace."""
+    launches of each of the port's kernels (all its instantiations and
+    parts together; a launch of a kernel of two parts counts once);
+    ``trace_path`` writes the Chrome trace."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -123,9 +135,14 @@ def profile_call(torch, fn, trace_path=None, top: int = 10):
     for e in kernels:
         for part, name in PORT_KERNELS.items():
             if part in e.key:
-                count, us = port.get(name, (0, 0.0))
-                port[name] = (count + e.count,
-                              us + e.self_device_time_total)
+                parts = port.setdefault(name, {})
+                count, us = parts.get(part, (0, 0))
+                parts[part] = (count + e.count,
+                               us + e.self_device_time_total)
+    # launches of a kernel of several parts: those of its busiest part
+    port = {name: (max(c for c, _ in parts.values()),
+                   sum(us for _, us in parts.values()))
+            for name, parts in port.items()}
     return out, dict(
         untraced_ms=round(untraced_ms, 3), traced_ms=round(wall_ms, 3),
         device_busy_ms=round(busy_ms, 3),

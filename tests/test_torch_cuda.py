@@ -26,6 +26,7 @@ torch.set_num_threads(1)
 from repro_torch.kernels import bag_tile_plan, ell_tile_plan  # noqa: E402
 from repro_torch.kernels.agg_vote import vote_reduce, vote_reduce_ref  # noqa: E402
 from repro_torch.kernels.embedding_bag import (  # noqa: E402
+    BagSum, embedding_bag_backward, embedding_bag_backward_ref,
     embedding_bag_kernel, embedding_bag_ref)
 from repro_torch.kernels.jacobi import jacobi_step, jacobi_step_ref  # noqa: E402
 from repro_torch.kernels.spmv_ell import spmv_ell, spmv_ell_ref  # noqa: E402
@@ -193,10 +194,87 @@ def test_cuda_embedding_bag_hot_zero_and_argument_checks():
     with pytest.raises(TypeError):
         embedding_bag_kernel(table, torch.zeros((5, 2), dtype=torch.int64,
                                                 device="cuda"))
-    with pytest.raises(NotImplementedError):
-        embedding_bag_kernel(table.requires_grad_(),
-                             torch.zeros((5, 2), dtype=torch.int32,
-                                         device="cuda"))
+    # a table that requires grad is taken (BagSum differentiates the
+    # kernel); the wrapper itself builds no graph
+    n0 = embedding_bag_kernel.launches
+    out = embedding_bag_kernel(table.requires_grad_(),
+                               torch.zeros((5, 2), dtype=torch.int32,
+                                           device="cuda"))
+    assert embedding_bag_kernel.launches == n0 + 1
+    assert out.grad_fn is None and torch.equal(out, 2 * table[:5].detach())
+
+
+def _bag_grad_case(rng, n_bags, hot, d, n_vocab, skew):
+    """Ids with Zipf skew (``skew``: id 0 takes about half the slots, as in
+    ``recsys_batch_stream``), all one id (``"one"``) or uniform, with
+    sentinels; output gradients N(0, 1)."""
+    if skew == "one":
+        idx = np.zeros((n_bags, hot), np.int32)
+    elif skew:
+        u = rng.random((n_bags, hot))
+        idx = np.clip(np.minimum(u ** -1.1, n_vocab).astype(np.int64) - 1,
+                      0, n_vocab - 1).astype(np.int32)
+    else:
+        idx = rng.integers(0, n_vocab, (n_bags, hot)).astype(np.int32)
+    flat = idx.reshape(-1)
+    flat[::7] = np.resize(np.array([-2, -1, n_vocab, n_vocab + 3], np.int32),
+                          flat[::7].shape)
+    g = rng.normal(size=(n_bags, d)).astype(np.float32)
+    return _t(g).cuda(), _t(idx).cuda()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bags,hot,d,n_vocab,skew", [
+    (100_003, 2, 10, 50_000, True), (65_536 * 4, 2, 1, 3_000, True),
+    (4099, 5, 1, 300, False), (257, 1, 33, 10, False), (7, 3, 10, 4, True),
+    (300_000, 1, 10, 5, "one"), (129, 1, 3, 1, False)])
+def test_cuda_embedding_bag_backward_matches_plain_version(
+        n_bags, hot, d, n_vocab, skew):
+    """The backward kernel against its plain version (a sorted segment
+    sum in slot order) and bitwise equal from one launch to the next.
+    Tolerance: each row's difference at most 1e-6 of the row's sum of
+    |g| (a float32 sum of n terms in any two orders differs by far less
+    than n·eps of that sum; the kernel sums 128-slot pieces, then the
+    pieces). Rows no valid id touches are exactly 0."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(n_bags + d)
+    G, I = _bag_grad_case(rng, n_bags, hot, d, n_vocab, skew)
+    n0 = embedding_bag_backward.launches
+    got = embedding_bag_backward(G, I, n_vocab)
+    assert embedding_bag_backward.launches == n0 + 1
+    want = embedding_bag_backward_ref(G, I, n_vocab)
+    scale = embedding_bag_backward_ref(G.abs(), I, n_vocab)
+    assert ((got - want).abs() <= 1e-6 * scale + 1e-30).all()
+    assert torch.equal(got[scale.sum(1) == 0],
+                       torch.zeros_like(got[scale.sum(1) == 0]))
+    assert torch.equal(embedding_bag_backward(G, I, n_vocab), got)
+
+
+@pytest.mark.cuda
+def test_cuda_bag_sum_autograd_runs_both_kernels():
+    """``BagSum`` on the card: forward and backward kernels, each once, the
+    gradient equal to the CPU's within rtol / atol 1e-5; sentinel-only
+    bags give zero rows and no gradient."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(3)
+    table = rng.normal(size=(500, 10)).astype(np.float32)
+    idx = rng.integers(-1, 502, (4000, 2)).astype(np.int32)
+    idx[:5] = -1
+    w = rng.normal(size=(4000, 10)).astype(np.float32)
+    grads = []
+    for dev in ("cpu", "cuda"):
+        t = _t(table).to(dev).requires_grad_()
+        f0, b0 = embedding_bag_kernel.launches, embedding_bag_backward.launches
+        out = BagSum.apply(t, _t(idx).to(dev))
+        assert not out[:5].any()
+        (out * _t(w).to(dev)).sum().backward()
+        launched = (embedding_bag_kernel.launches - f0,
+                    embedding_bag_backward.launches - b0)
+        assert launched == ((0, 0) if dev == "cpu" else (1, 1))
+        grads.append(t.grad.cpu())
+    torch.testing.assert_close(grads[1], grads[0], rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda

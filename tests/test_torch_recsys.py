@@ -207,12 +207,15 @@ def test_fm_retrieval_scores_match_reference(carried, item_field):
 def test_deepfm_module_is_the_functional_path(carried):
     _, tc, _, tp, idx, _ = carried
     model = td.DeepFM(tc, params=tp, device="cpu")
-    assert not any(p.requires_grad for p in model.parameters())
-    np.testing.assert_array_equal(model(_t(idx)).numpy(),
+    assert all(p.requires_grad for p in model.parameters())
+    with torch.no_grad():                            # serving: no graph
+        served = model(_t(idx))
+    assert served.grad_fn is None
+    np.testing.assert_array_equal(served.numpy(),
                                   td.deepfm_forward(tc, tp, _t(idx)).numpy())
     cand = torch.arange(tc.vocab_per_field[0], dtype=torch.int32)
     np.testing.assert_array_equal(
-        model.retrieval_scores(_t(idx[:1]), cand).numpy(),
+        model.retrieval_scores(_t(idx[:1]), cand).detach().numpy(),
         td.fm_retrieval_scores(tc, tp, _t(idx[:1]), cand).numpy())
 
 
@@ -224,7 +227,7 @@ def test_init_deepfm_is_seeded_and_shaped():
     assert a["first_order"].shape == (512, 1)
     assert [tuple(w.shape) for w in a["mlp"]["w"]] == [(24, 16), (16, 16),
                                                        (16, 1)]
-    np.testing.assert_array_equal(a["table"].numpy(), b.table.numpy())
+    np.testing.assert_array_equal(a["table"].numpy(), b.table.detach().numpy())
     assert a["bias"].shape == () and a["bias"].item() == 0.0
 
 

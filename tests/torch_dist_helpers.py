@@ -153,3 +153,40 @@ def fail_on_rank_one(rank, world_size):
     if rank == 1:
         raise ValueError("rank one fails")
     dist.barrier()
+
+
+# optim.compress on a 2×2 world: each rank's inputs, from one seed
+COMPRESS_SEED = 17
+
+
+def compress_inputs(seed, world_size):
+    """Per rank: x (for compressed_psum), g and residual (for
+    ef_compress_grad), float32 numpy."""
+    rng = np.random.default_rng(seed)
+    xs = [rng.normal(size=(6, 5)).astype(np.float32) * (r + 1)
+          for r in range(world_size)]
+    gs = [rng.normal(size=(6, 5)).astype(np.float32)
+          for _ in range(world_size)]
+    rs = [rng.normal(size=(6, 5)).astype(np.float32) * 0.01
+          for _ in range(world_size)]
+    return xs, gs, rs
+
+
+def compress_body(rank, world_size, seed):
+    """``compressed_psum`` and ``ef_compress_grad`` over each axis of a 2×2
+    CPU mesh; returns ``{axis: {psum, ef, residual, calls}}``."""
+    from repro_torch.optim.compress import compressed_psum, ef_compress_grad
+
+    mesh = make_mesh((2, 2), ("data", "model"), device="cpu")
+    xs, gs, rs = compress_inputs(seed, world_size)
+    out = {}
+    for axis in ("data", "model"):
+        mesh.reset_stats()
+        psum = compressed_psum(torch.from_numpy(xs[rank]), mesh, axis)
+        ef, residual = ef_compress_grad(torch.from_numpy(gs[rank]),
+                                        torch.from_numpy(rs[rank]), mesh,
+                                        axis)
+        out[axis] = dict(psum=psum.numpy(), ef=ef.numpy(),
+                         residual=residual.numpy(),
+                         calls=mesh.stats()["calls"])
+    return out
