@@ -5,7 +5,7 @@
 
 Phases, one line each (any failure exits non-zero):
 
-1. build   — compile the five kernels of ``src/repro_torch/csrc`` for
+1. build   — compile the six kernel sources of ``src/repro_torch/csrc`` for
              sm_90a with nvcc (one process per source, all started
              together); print the seconds and the card's name and power
              limit as nvidia-smi reports them.
@@ -238,16 +238,25 @@ Phases, one line each (any failure exits non-zero):
              finite and the mean of the last 5 below that of the first 5.
              The launch counts, reset to 0 just before run A and read just
              after, must show 2 ``embedding_bag`` and 2
-             ``embedding_bag_backward`` launches per step run. Prints the
+             ``embedding_bag_backward`` launches and one
+             ``bag_grad_plan`` build and launch (the batch's one id sort,
+             which both tables' backward share) per step run. Prints the
              step's ms on the device (median of steps 5–29 of run B,
              synchronised), the loop's seconds per step with ``data_fn``,
              examples/s and model TFLOP/s, AdamW's ms, checkpoint save and
-             restore seconds and peak GiB. Then the
+             restore seconds and peak GiB. Then the ``bag_grad_plan``
+             record (bitwise its plain version, a stable ``torch.sort``,
+             on the first batch's ids and on sentinel ids) and the
              ``embedding_bag_backward`` record at the first batch's ids
-             (both tables, d = 10 and 1; seeded output gradients): within
-             1e-6 of each row's sum of |g| of its plain version, bitwise
-             equal on a repeat, sentinel ids (−1, V) giving zero rows, with
-             ``torch.zeros(V, d).index_add_`` as the library yardstick.
+             (both tables, d = 10 and 1 over one plan; seeded output
+             gradients): within 1e-6 of each row's sum of |g| of its plain
+             version, bitwise equal on a repeat and without the plan,
+             every row written (launched into an output full of NaN),
+             sentinel ids (−1, V) giving zero rows; for each d its device
+             and event times with the plan built beforehand, the plan
+             alone, plan and kernel together, the plain version's time,
+             ``torch.zeros(V, d).index_add_`` as the library yardstick,
+             and the bound.
 
 Then a ``[total]`` line with the script's seconds. The line before the
 last is the card's name and power limit, the one before it the kernels'
@@ -291,8 +300,10 @@ REPLACES = {
     "agg_vote": "src/repro/kernels/agg_vote/agg_vote.py:51",
     "embedding_bag": "src/repro/kernels/embedding_bag/embedding_bag.py:36",
     # no TPU kernel: the reference differentiates the jnp.take composition
-    # (XLA's scatter-add), not embedding_bag_pallas
+    # (XLA's scatter-add), not embedding_bag_pallas; the plan is the
+    # backward's id sort
     "embedding_bag_backward": "src/repro/models/recsys/embedding.py:14",
+    "bag_grad_plan": "src/repro/models/recsys/embedding.py:14",
 }
 # each kernel package's wrapper and its plain version
 WRAPPERS = {
@@ -304,10 +315,11 @@ WRAPPERS = {
 }
 SOLVER_KERNELS = ("repro_torch.kernels.spmv_ell", "repro_torch.kernels.jacobi",
                   "repro_torch.kernels.agg_vote")
-# the bag backward's wrapper, in the embedding_bag package beside the
-# forward's (it has no place in WRAPPERS, which pairs one per package)
+# the bag backward's wrappers (its plan and itself), in the embedding_bag
+# package beside the forward's (they have no place in WRAPPERS, which
+# pairs one per package)
 BAG_BACKWARD = ("repro_torch.kernels.embedding_bag.ops",
-                "embedding_bag_backward")
+                ("embedding_bag_backward", "bag_grad_plan"))
 
 
 class SmokeFailure(RuntimeError):
@@ -873,6 +885,7 @@ def phase_facade(torch, np, setup) -> dict:
 
     bag_ops.embedding_bag_kernel.launches = 0   # not on the facade's path
     bag_ops.embedding_bag_backward.launches = 0
+    bag_ops.bag_grad_plan.launches = 0
     n, r, c, v = setup["graph"]
     b0, x_direct = setup["b"], setup["x"]
 
@@ -1053,28 +1066,34 @@ def phase_facade(torch, np, setup) -> dict:
     check(max(diffs) <= 1e-5, f"scanned solves differ from eager: {diffs}")
     bags = bag_ops.embedding_bag_kernel.launches
     grads = bag_ops.embedding_bag_backward.launches
-    check(bags == grads == 0, f"the facade's path launched embedding_bag "
-          f"{bags} and its backward {grads} times")
+    plans = bag_ops.bag_grad_plan.launches
+    check(bags == grads == plans == 0, f"the facade's path launched "
+          f"embedding_bag {bags}, its backward {grads} and its plan {plans} "
+          "times")
     return dict(launched, agg_vote=votes, embedding_bag=bags,
-                embedding_bag_backward=grads)
+                embedding_bag_backward=grads, bag_grad_plan=plans)
 
 
-def _bag_backward():
-    return getattr(importlib.import_module(BAG_BACKWARD[0]), BAG_BACKWARD[1])
+def _bag_backward() -> dict:
+    """The bag backward's wrappers by name."""
+    mod = importlib.import_module(BAG_BACKWARD[0])
+    return {name: getattr(mod, name) for name in BAG_BACKWARD[1]}
 
 
 def phase_launches() -> dict:
     """Every kernel's launch count, by kernel name."""
     counts = dict(zip((m.rsplit(".", 1)[1] for m in WRAPPERS),
                       launch_counts(tuple(WRAPPERS))))
-    return dict(counts, embedding_bag_backward=_bag_backward().launches)
+    return dict(counts, **{name: fn.launches
+                           for name, fn in _bag_backward().items()})
 
 
 def zero_launches() -> None:
     for mod_name, (wrapper, _) in WRAPPERS.items():
         getattr(importlib.import_module(f"{mod_name}.ops"),
                 wrapper).launches = 0
-    _bag_backward().launches = 0
+    for fn in _bag_backward().values():
+        fn.launches = 0
 
 
 def phase_paper(torch, np) -> dict:
@@ -2234,8 +2253,8 @@ def _bag_launches() -> int:
 
 def phase_deepfm(torch, np):
     """DeepFM serving at FULL: returns the model, the bulk batch's
-    fused-table ids and the embedding-bag and bag-backward launches of the
-    served run."""
+    fused-table ids and the embedding-bag launches of the served run, and
+    its bag-backward and plan launches by name (both must be 0)."""
     from repro_torch.configs.deepfm import FULL, SHAPE_DIMS, serve_flops
     from repro_torch.data.synthetic import recsys_batch_stream
     from repro_torch.kernels.embedding_bag import ops as bag_ops
@@ -2287,6 +2306,7 @@ def phase_deepfm(torch, np):
 
     bag_ops.embedding_bag_kernel.launches = 0
     bag_ops.embedding_bag_backward.launches = 0
+    bag_ops.bag_grad_plan.launches = 0
     torch.cuda.synchronize()
     req_ms, logits, per_call = [], [], []
     for idx in requests:
@@ -2325,8 +2345,10 @@ def phase_deepfm(torch, np):
           "expected 2 per forward and 1 per retrieval")
     check(launches == 2 * (len(requests) + 1) + 1,
           f"deepfm: embedding_bag launched {launches} times")
-    backward = bag_ops.embedding_bag_backward.launches
-    check(backward == 0, "deepfm: serving launched the bag backward")
+    backward = dict(embedding_bag_backward=bag_ops.embedding_bag_backward
+                    .launches, bag_grad_plan=bag_ops.bag_grad_plan.launches)
+    check(not any(backward.values()),
+          f"deepfm: serving launched the bag backward or its plan {backward}")
 
     before = launch_counts(tuple(WRAPPERS))
     with plain_versions():
@@ -2450,6 +2472,7 @@ def phase_train(torch, np) -> dict:
     from repro_torch.configs.deepfm import (FULL, SHAPE_DIMS, _train_flops,
                                             loss_and_grads, make_train_step)
     from repro_torch.data.synthetic import recsys_batch_stream
+    from repro_torch.kernels.embedding_bag import bag_grad_plan
     from repro_torch.models.recsys.deepfm import _flat_ids, init_deepfm
     from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
     from repro_torch.runtime import FailureInjector, TrainLoopRunner
@@ -2500,8 +2523,10 @@ def phase_train(torch, np) -> dict:
         inj = FailureInjector(TRAIN_FAIL_AT)
         torch.cuda.reset_peak_memory_stats()
         zero_launches()
+        bag_grad_plan.builds = 0
         pa, oa, secs_a, log_a = run(os.path.join(work, "a"), inj)
         launched = phase_launches()
+        plan_builds = bag_grad_plan.builds
         peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
         pb, ob, secs_b, log_b = run(os.path.join(work, "b"), None)
 
@@ -2548,7 +2573,7 @@ def phase_train(torch, np) -> dict:
         launches=json.dumps(launched),
         bag_launches_per_step=launched["embedding_bag"] / calls,
         bag_backward_launches_per_step=launched["embedding_bag_backward"]
-        / calls)
+        / calls, bag_grad_plan_builds_per_step=plan_builds / calls)
     check(inj.fired == set(TRAIN_FAIL_AT),
           f"train: injected failures fired at {sorted(inj.fired)}")
     check(calls == TRAIN_STEPS + sum(f % TRAIN_CKPT_EVERY
@@ -2567,6 +2592,10 @@ def phase_train(torch, np) -> dict:
           and launched["embedding_bag_backward"] == 2 * calls,
           f"train: launches {launched} for {calls} steps, expected 2 "
           "forward and 2 backward bag launches a step")
+    check(plan_builds == launched["bag_grad_plan"] == calls,
+          f"train: {plan_builds} bag_grad_plan builds and "
+          f"{launched['bag_grad_plan']} launches for {calls} steps, expected "
+          "one a step")
     check(all(launched[k] == 0 for k in ("spmv_ell", "jacobi", "agg_vote")),
           f"train: a solver kernel launched: {launched}")
 
@@ -2582,9 +2611,14 @@ def phase_train(torch, np) -> dict:
                 n_vocab=pa["table"].shape[0])
 
 
-def phase_kernels_train(torch, train) -> dict:
-    """The embedding_bag_backward record at the first batch's ids."""
-    from repro_torch.kernels.embedding_bag import (embedding_bag_backward,
+def phase_kernels_train(torch, train) -> list:
+    """The bag_grad_plan and embedding_bag_backward records at the first
+    batch's ids: the plan bitwise its plain version; the backward at d =
+    10 (the record) and d = 1 (under its ``d1`` key), both over one plan
+    of those ids."""
+    from repro_torch.kernels.embedding_bag import (bag_grad_plan,
+                                                   bag_grad_plan_ref,
+                                                   embedding_bag_backward,
                                                    embedding_bag_backward_ref)
 
     flat, n_vocab = train["flat"], train["n_vocab"]
@@ -2593,64 +2627,93 @@ def phase_kernels_train(torch, train) -> dict:
     gen = torch.Generator(device=dev).manual_seed(1)
     valid = (flat >= 0) & (flat < n_vocab)
     n_valid = int(valid.sum())
-    before = embedding_bag_backward.launches
-    err, g10 = 0.0, None
+    ids = flat.reshape(-1)[valid.reshape(-1)].long()     # yardstick only
+    # sentinel ids: half the slots −1, a quarter V; and only sentinels
+    sent = flat.clone()
+    sent.view(-1)[::2] = -1
+    sent.view(-1)[1::4] = n_vocab
+    only = torch.full_like(flat, -1)
+    only.view(-1)[1::2] = n_vocab
+    before = embedding_bag_backward.launches, bag_grad_plan.launches
+    plan, want_plan = bag_grad_plan(flat, n_vocab), bag_grad_plan_ref(
+        flat, n_vocab)
+    s_plan, s_want = bag_grad_plan(sent, n_vocab), bag_grad_plan_ref(
+        sent, n_vocab)
+    same = [torch.equal(a.sorted_ids, b.sorted_ids) and torch.equal(
+        a.rows, b.rows) for a, b in ((plan, want_plan), (s_plan, s_want))]
+    check(all(same), f"bag_grad_plan is not bitwise its plain version "
+          f"(first batch, sentinel ids): {same}")
+    n_slots = n_bags * hot
+    plan_rec = kernel_record(
+        torch, "bag_grad_plan", train["bag_grad_plan"], 0.0,
+        lambda: bag_grad_plan(flat, n_vocab),
+        lambda: bag_grad_plan_ref(flat, n_vocab), 12 * n_slots, n_slots)
+    del want_plan, s_plan, s_want
+    err, rec = 0.0, None
     for d in (10, 1):
         g = torch.randn((n_bags, d), generator=gen, device=dev) / n_bags
-        got = embedding_bag_backward(g, flat, n_vocab)
-        want = embedding_bag_backward_ref(g, flat, n_vocab)
-        scale = embedding_bag_backward_ref(g.abs(), flat, n_vocab)
+        got = embedding_bag_backward(g, flat, n_vocab, plan)
+        want = embedding_bag_backward_ref(g, flat, n_vocab, plan)
+        scale = embedding_bag_backward_ref(g.abs(), flat, n_vocab, plan)
         torch.cuda.synchronize()
         check(bool(((got - want).abs() <= 1e-6 * scale).all()),
               f"embedding_bag_backward at d = {d} is not within 1e-6 of each "
               "row's sum of |g| of its plain version")
-        check(torch.equal(embedding_bag_backward(g, flat, n_vocab), got),
-              f"embedding_bag_backward at d = {d} is not bitwise repeatable")
-        err = max(err, float((got - want).abs().max()))
-        # sentinel ids: half the slots −1, a quarter V
-        sent = flat.clone()
-        sent.view(-1)[::2] = -1
-        sent.view(-1)[1::4] = n_vocab
+        check(torch.equal(embedding_bag_backward(g, flat, n_vocab, plan), got)
+              and torch.equal(embedding_bag_backward(g, flat, n_vocab), got),
+              f"embedding_bag_backward at d = {d} is not bitwise repeatable "
+              "(with the plan, and building its own)")
+        d_err = float((got - want).abs().max())
+        err = max(err, d_err)
+        # every row written: into an output full of NaN
+        nan = torch.full((n_vocab, d), float("nan"), device=dev)
+        embedding_bag_backward(g, flat, n_vocab, plan, _out=nan)
+        check(not torch.isnan(nan).any() and torch.equal(nan, got),
+              f"embedding_bag_backward at d = {d} left a row unwritten")
         s_got = embedding_bag_backward(g, sent, n_vocab)
         s_want = embedding_bag_backward_ref(g, sent, n_vocab)
         s_scale = embedding_bag_backward_ref(g.abs(), sent, n_vocab)
-        only = torch.full_like(flat, -1)
-        only.view(-1)[1::2] = n_vocab
-        zero = embedding_bag_backward(g, only, n_vocab)
+        nan.fill_(float("nan"))
+        zero = embedding_bag_backward(g, only, n_vocab, _out=nan)
         torch.cuda.synchronize()
         check(bool(((s_got - s_want).abs() <= 1e-6 * s_scale).all())
-              and not s_got[s_scale.sum(1) == 0].any() and not zero.any(),
+              and not s_got[s_scale.sum(1) == 0].any() and not zero.any()
+              and not torch.isnan(zero).any(),
               f"embedding_bag_backward at d = {d} on sentinel ids")
+        del got, want, scale, nan, s_got, s_want, s_scale, zero
+        rows = g.repeat_interleave(hot, dim=0)[valid.reshape(-1)]
+        r = kernel_record(
+            torch, "embedding_bag_backward", train["embedding_bag_backward"],
+            d_err, lambda: embedding_bag_backward(g, flat, n_vocab, plan),
+            lambda: embedding_bag_backward_ref(g, flat, n_vocab, plan),
+            4 * n_bags * hot + 4 * n_bags * d + 4 * n_vocab * d,
+            n_valid * d, library=lambda: torch.zeros(
+                (n_vocab, d), device=dev).index_add_(0, ids, rows))
+        plan_ms = plan_rec["kernel_ms"]
+        plan_kernel_ms = time_ms(
+            torch, lambda: embedding_bag_backward(g, flat, n_vocab))
+        say("kernels", name="embedding_bag_backward", d=d, plan_ms=plan_ms,
+            plan_kernel_ms=plan_kernel_ms, kernel_ms=r["kernel_ms"],
+            device_ms=r["device_ms"], library_ms=r["library_ms"],
+            plan_kernel_vs_library=round(plan_kernel_ms / r["library_ms"],
+                                         4))
+        r.update(plan_ms=plan_ms, plan_kernel_ms=plan_kernel_ms)
         if d == 10:
-            g10 = g
+            rec = r
         else:
-            fo = lambda: embedding_bag_backward(g, flat, n_vocab)  # noqa
-            b_ms, b_by = bound(4 * n_bags * hot + 4 * n_bags + 4 * n_vocab,
-                               n_valid)
-            d_ms, windows = device_ms(torch, fo, "embedding_bag_backward")
-            say("kernels", name="embedding_bag_backward", shape="first_order",
-                d=1, kernel_ms=time_ms(torch, fo), device_ms=d_ms,
-                bound_ms=b_ms, bound_by=b_by, of_bound=round(b_ms / d_ms, 4),
-                max_abs_err=float((got - want).abs().max()),
-                profiler_windows=windows)
-    check(embedding_bag_backward.launches > before,
-          "embedding_bag_backward was not launched in the comparison phase")
-
-    d = 10
-    ids = flat.reshape(-1)[valid.reshape(-1)].long()     # yardstick only
-    rows = g10.repeat_interleave(hot, dim=0)[valid.reshape(-1)]
-    rec = kernel_record(
-        torch, "embedding_bag_backward", train["embedding_bag_backward"],
-        err, lambda: embedding_bag_backward(g10, flat, n_vocab),
-        lambda: embedding_bag_backward_ref(g10, flat, n_vocab),
-        4 * n_bags * hot + 4 * n_bags * d + 4 * n_vocab * d, n_valid * d,
-        library=lambda: torch.zeros((n_vocab, d), device=dev).index_add_(
-            0, ids, rows))
-    say("kernels", name="embedding_bag_backward", bags=n_bags, hot=hot, d=d,
+            rec["d1"] = {k: r[k] for k in (
+                "max_abs_err", "device_ms", "kernel_ms", "plan_ms",
+                "plan_kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+        del rows
+    check(embedding_bag_backward.launches > before[0]
+          and bag_grad_plan.launches > before[1], "embedding_bag_backward "
+          "or bag_grad_plan was not launched in the comparison phase")
+    rec["max_abs_err"] = err
+    say("kernels", name="embedding_bag_backward", bags=n_bags, hot=hot,
         vocab=n_vocab, valid_ids=n_valid,
         distinct_valid_ids=int(torch.unique(ids).numel()),
         largest_run=int(torch.bincount(ids).max()))
-    return rec
+    return [rec, plan_rec]
 
 
 def main() -> int:
@@ -2703,13 +2766,14 @@ def main() -> int:
                             dist_launches=dist["embedding_bag"]))
     del model, flat
     train = phase_train(torch, np)
-    bwd = phase_kernels_train(torch, train)
-    records.append(dict(bwd, facade_launches=facade["embedding_bag_backward"],
-                        paper_launches=paper["embedding_bag_backward"],
-                        service_launches=service["embedding_bag_backward"],
-                        spectral_launches=spectral["embedding_bag_backward"],
-                        dist_launches=dist["embedding_bag_backward"],
-                        deepfm_launches=deepfm_bwd))
+    for rec in phase_kernels_train(torch, train):
+        name = rec["name"]
+        records.append(dict(rec, facade_launches=facade[name],
+                            paper_launches=paper[name],
+                            service_launches=service[name],
+                            spectral_launches=spectral[name],
+                            dist_launches=dist[name],
+                            deepfm_launches=deepfm_bwd[name]))
     for rec in records:                 # the train phase's own launches
         rec["train_launches"] = train[rec["name"]]
     say("total", seconds=round(time.perf_counter() - t_start, 1))

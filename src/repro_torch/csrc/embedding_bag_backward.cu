@@ -2,9 +2,10 @@
 // Hopper (sm_90a):
 //   g_table[v, j] = sum over the slots (b, h) with idx[b, h] == v of
 //                   g_out[b, j]
-// over [n_bags, d] float32 output gradients and [n_bags, hot] int32 ids;
-// rows that no valid id touches stay 0 (the wrapper zeroes g_table), ids
-// outside [0, V) contribute nothing.
+// over [n_bags, d] float32 output gradients and [n_bags, hot] int32 ids,
+// into a [V, d] float32 g_table of which every row is written exactly once:
+// a touched row with its sum, every other row with zeros (the wrapper
+// allocates it with torch.empty). Ids outside [0, V) contribute nothing.
 //
 // Replaces no TPU kernel: the reference differentiates the jnp.take
 // composition of src/repro/models/recsys/embedding.py (XLA's scatter-add),
@@ -14,198 +15,554 @@
 // changes from launch to launch, which would break the training runner's
 // bitwise replay.
 //
-// Deterministic: the same inputs give the same bits on every launch. The
-// wrapper sorts the slots by id, stably (torch.sort; ids outside [0, V)
-// are keyed V and sort last), so each id's slots form one run of the
-// sorted array, in slot order. Then two passes, each summing in a fixed
-// order:
-// - bag_grad_pieces: the sorted array is cut into pieces of kPiece slots;
-//   one thread per (piece, column) sums each run's part in the piece, in
-//   slot order from 0. A run that lies inside the piece is written to its
-//   row at once. A part that meets the piece's edge and whose run goes on
-//   beyond it goes to the piece's partials: slot 0 for the part that
-//   begins the piece (its run began in an earlier piece), slot 1 for the
-//   part that ends it.
-// - bag_grad_runs: one thread per (piece, column) whose last run starts in
-//   the piece and goes on past it sums that run's partials in piece order
-//   (its slot 1, then the slot 0 of each later piece that the run reaches)
-//   and writes the row once.
-// Cutting every run into pieces keeps the skew of recsys ids balanced:
-// with recsys_batch_stream's Zipf-like ids, row 0 of each field takes
-// about 47 % of the field's slots (≈ 61,000 at B = 65,536), which one
-// thread a run would sum alone.
+// Input: the batch's plan (csrc/bag_grad_plan.cu), built once a batch and
+// shared by DeepFM's two tables: the slots sorted by id, stably (ids
+// outside [0, V) keyed V, so they sort last), as int32 ids, and for each
+// sorted slot its g_out row (slot / hot) as int32. Each id's slots form
+// one run of the sorted array, in slot order.
 //
-// What bounds it on an H100: bytes. It reads the sorted ids and the slot
-// order (4 + 8 bytes a slot), gathers a row of g_out for each slot (4 * d
-// bytes; the d threads of a piece read one row together), and writes each
-// touched row once; the zeroed [V, d] output is the function's largest
-// stream. The adds are one a (slot, column). Each thread issues the loads
-// of kBatch slots before it adds any of them, so a thread has kBatch
-// gathers in flight instead of one.
+// What bounds it on an H100: bytes. The function must read the ids
+// (4 bytes a slot) and g_out (4·d a bag) and write the [V, d] output once;
+// at DeepFM's train shape (5.1 M slots, V = 3.7 M, d = 10) the output is
+// the largest stream (149 MB). In practice the gathers of g_out rows cost
+// most: in the order of the sorted ids they are random, each 40-byte row
+// costs two or three 32-byte sectors, and a bag's row is read once for
+// each of its slots (g_out, 102 MB, does not fit the 50 MB L2). The adds
+// are one a (slot, column), far below the float32 line.
+//
+// Design, two launches:
+// - bag_grad_chunks: the sorted slots are cut into chunks of kChunk = 256,
+//   one a warp, and each lane takes 8 consecutive slots: it reads their
+//   ids and rows with 16-byte loads, gathers their g_out rows (DT columns
+//   in registers: d = 1 is specialised, other widths run in tiles of 8
+//   columns; the gathers of 4 rows, or all 8 at d = 1, are issued before
+//   any is added) and adds them in slot order, a run at a time. At d = 10
+//   (chunk_sums_d10) five lanes share a slot instead, two columns each, so
+//   that one load instruction reads six whole rows: a lane reading a
+//   40-byte row of its own touches a cache line of its own, and on an H100
+//   those line lookups, not the bytes, bounded the pass. A run that begins and ends in the
+//   lane's slots is written at once. The lanes' last runs then go through
+//   one segmented inclusive scan over the lanes (shuffles, segments from
+//   the ballot of the lanes where a run begins), whose value at a run's
+//   last lane is the run's sum in the chunk; a lane's first run that began
+//   in an earlier lane adds the scan's value of the lane before. So a
+//   chunk costs one scan of DT columns, and the adds are one a (slot,
+//   column). The part of a run that meets the chunk's edge goes to the
+//   chunk's partials: slot 0 for the part that begins the chunk (its run
+//   began earlier), slot 1 for the part that ends it. So the Zipf hot rows
+//   (about 61,500 slots on each field's row 0 at B = 65,536) are spread
+//   over some 240 warps. Where a part is written, its id's bit is set in a
+//   bitmap of touched rows (an integer atomicOr; the launcher clears the
+//   bitmap, V / 8 bytes, first).
+// - bag_grad_finish, warps of two kinds. One a chunk: if the chunk's last
+//   run begins in it and goes on past it, the warp sums the run's partials
+//   (its slot 1, then the slot 0 of each later chunk the run reaches:
+//   lanes over chunks, then a butterfly over the lanes) and writes the
+//   row. One a tile of 2^tile_log2 rows (4096 floats, from 32 to 1024
+//   rows): the tile's untouched rows are zeroed, with 16-byte stores where
+//   four floats are all untouched. So there is no zero fill before the
+//   kernel, and gaps between touched rows, which reach 750,000 rows (30 MB
+//   at d = 10) in the Zipf tail, are zeroed by many warps, while the long
+//   runs' partials are summed.
+// The order of every sum depends on the ids and kChunk only, never on
+// timing, so every launch gives the same bits; there are no float atomics
+// (the bitmap's integer ORs give the same bits in any order).
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace {
 
-constexpr int kPiece = 128;   // sorted slots a piece
-constexpr int kBatch = 8;     // slots (or partials) whose loads go together
-constexpr int kThreads = 256;
+constexpr int kWarp = 32;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kChunk = 256;              // sorted slots a warp
+constexpr int kPer = kChunk / kWarp;     // consecutive slots a lane
+constexpr int kWarps = 4;                // warps a block
+constexpr int kMaxTileRows = 1024;
 
-__device__ __forceinline__ bool valid_id(int id, int n_vocab) {
-  return static_cast<unsigned>(id) < static_cast<unsigned>(n_vocab);
-}
+struct Args {
+  const int* ids;       // [n_slots] sorted keys: ids in [0, V), then V
+  const int* rows;      // [n_slots] the g_out row of each sorted slot
+  const float* g_out;   // [n_bags, d]
+  float* g_table;       // [V, d]
+  float* partial;       // [n_chunks, 2, d]
+  unsigned* touched;    // [ceil(V / 32)] a bit a row
+  long long n_slots, n_chunks;
+  int d, n_vocab, tile_log2, n_tiles;
+};
 
-// Write the part [seg, end) of the run of `id` in the piece [a, b): to its
-// row if the run lies inside the piece, else to the piece's partials.
-__device__ __forceinline__ void flush(int id, float acc, long long seg,
-                                      long long end, long long a,
-                                      long long b, int prev, int next,
-                                      long long c, int j, int d,
-                                      float* __restrict__ g_table,
-                                      float* __restrict__ partial) {
-  const bool head = seg == a && prev == id;
-  const bool tail = end == b && next == id;
-  if (!head && !tail) {
-    g_table[static_cast<long long>(id) * d + j] = acc;
+// The lane's kPer sorted slots from s0: ids (V past the last slot) and
+// rows; two 16-byte loads of each where the slots are whole and aligned.
+__device__ __forceinline__ void lane_slots(const Args& a, long long s0,
+                                           int (&id)[kPer], int (&row)[kPer]) {
+  const int* ip = a.ids + s0;
+  const int* rp = a.rows + s0;
+  if (s0 + kPer <= a.n_slots &&
+      ((reinterpret_cast<uintptr_t>(ip) | reinterpret_cast<uintptr_t>(rp)) &
+       15) == 0) {
+#pragma unroll
+    for (int h = 0; h < kPer / 4; ++h) {
+      const int4 i4 = __ldg(reinterpret_cast<const int4*>(ip) + h);
+      const int4 r4 = __ldg(reinterpret_cast<const int4*>(rp) + h);
+      id[4 * h] = i4.x;
+      id[4 * h + 1] = i4.y;
+      id[4 * h + 2] = i4.z;
+      id[4 * h + 3] = i4.w;
+      row[4 * h] = r4.x;
+      row[4 * h + 1] = r4.y;
+      row[4 * h + 2] = r4.z;
+      row[4 * h + 3] = r4.w;
+    }
   } else {
-    partial[(c * 2 + (head ? 0 : 1)) * d + j] = acc;
+#pragma unroll
+    for (int j = 0; j < kPer; ++j) {
+      const bool in = s0 + j < a.n_slots;
+      id[j] = in ? __ldg(ip + j) : a.n_vocab;
+      row[j] = in ? __ldg(rp + j) : 0;
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-bag_grad_pieces(const int* __restrict__ sorted_ids,
-                const long long* __restrict__ order,
-                const float* __restrict__ g_out, float* __restrict__ g_table,
-                float* __restrict__ partial, long long n_slots, int hot,
-                int d, int n_vocab, long long n_pieces) {
-  const long long t =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long c = t / d;
-  const int j = static_cast<int>(t % d);
-  if (c >= n_pieces) return;
-  const long long a = c * kPiece;
-  const long long b = a + kPiece < n_slots ? a + kPiece : n_slots;
-  const int prev = a > 0 ? sorted_ids[a - 1] : -1;
-  const int next = b < n_slots ? sorted_ids[b] : -1;
-  int cur = -1;
-  long long seg = a;
-  float acc = 0.0f;
-  for (long long i0 = a; i0 < b; i0 += kBatch) {
-    int id[kBatch];
-    long long slot[kBatch];
-    float g[kBatch];
+// Columns [c0, c0 + DT) of g_out's row `row` (0 where !ok or past d).
+template <int DT, bool EXACT>
+__device__ __forceinline__ void load_row(const Args& a, int row, int c0,
+                                         bool ok, float (&v)[DT]) {
+  const float* p = a.g_out + static_cast<long long>(row) * a.d + c0;
 #pragma unroll
-    for (int k = 0; k < kBatch; ++k) {
-      id[k] = i0 + k < b ? sorted_ids[i0 + k] : n_vocab;
-    }
-#pragma unroll
-    for (int k = 0; k < kBatch; ++k) {
-      slot[k] = valid_id(id[k], n_vocab) ? order[i0 + k] : 0;
-    }
-#pragma unroll
-    for (int k = 0; k < kBatch; ++k) {
-      g[k] = valid_id(id[k], n_vocab)
-                 ? __ldg(g_out + (slot[k] / hot) * d + j)
-                 : 0.0f;
-    }
-#pragma unroll
-    for (int k = 0; k < kBatch; ++k) {
-      const long long i = i0 + k;
-      if (i >= b || !valid_id(id[k], n_vocab)) {
-        // past the piece, or the ids outside [0, V), which sort last
-        if (cur >= 0) {
-          flush(cur, acc, seg, i < b ? i : b, a, b, prev, next, c, j, d,
-                g_table, partial);
-        }
-        return;
-      }
-      if (id[k] != cur) {
-        if (cur >= 0) {
-          flush(cur, acc, seg, i, a, b, prev, next, c, j, d, g_table,
-                partial);
-        }
-        cur = id[k];
-        seg = i;
-        acc = 0.0f;
-      }
-      acc = __fadd_rn(acc, g[k]);
-    }
-  }
-  if (cur >= 0) {
-    flush(cur, acc, seg, b, a, b, prev, next, c, j, d, g_table, partial);
+  for (int j = 0; j < DT; ++j) {
+    v[j] = ok && (EXACT || c0 + j < a.d) ? __ldg(p + j) : 0.0f;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-bag_grad_runs(const int* __restrict__ sorted_ids,
-              const float* __restrict__ partial, float* __restrict__ g_table,
-              long long n_slots, int d, int n_vocab, long long n_pieces) {
-  const long long t =
-      static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const long long c = t / d;
-  const int j = static_cast<int>(t % d);
-  if (c >= n_pieces) return;
-  const long long a = c * kPiece;
-  const long long b = a + kPiece;
-  if (b >= n_slots) return;  // no run goes on past the last piece
-  const int id = sorted_ids[b - 1];
-  if (!valid_id(id, n_vocab) || sorted_ids[b] != id) return;
-  if (a > 0 && sorted_ids[a - 1] == id && sorted_ids[a] == id) {
-    return;  // the run began in an earlier piece, which sums it
+// The sum v (columns [c0, c0 + DT)) of the part of run `id` in chunk c
+// that ends at this lane: to the run's row, or, where the part meets the
+// chunk's edge, to the chunk's partials (slot 0: the part begins the chunk
+// and its run began earlier; slot 1: the part ends the chunk and its run
+// goes on). Marks the row touched.
+template <int DT, bool EXACT>
+__device__ __forceinline__ void write_part(const Args& a, long long c, int c0,
+                                           int id, bool head, bool tail,
+                                           const float (&v)[DT]) {
+  float* dst = !head && !tail
+                   ? a.g_table + static_cast<long long>(id) * a.d + c0
+                   : a.partial + (c * 2 + (head ? 0 : 1)) * a.d + c0;
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    if (EXACT || c0 + j < a.d) dst[j] = v[j];
   }
-  float acc = partial[(c * 2 + 1) * d + j];
-  for (long long k0 = c + 1; k0 < n_pieces; k0 += kBatch) {
-    int first[kBatch];
-    float p[kBatch];
+  if (c0 == 0) atomicOr(a.touched + (id >> 5), 1u << (id & 31));
+}
+
+// The sums of chunk c (one warp, a lane 8 slots).
+template <int DT, bool EXACT>
+__device__ void chunk_sums(const Args& a, long long c, int lane) {
+  constexpr int G = DT == 1 ? kPer : 4;   // rows whose gathers go together
+  const int V = a.n_vocab;
+  const long long c_first = c * kChunk;
+  const long long c_end =
+      c_first + kChunk < a.n_slots ? c_first + kChunk : a.n_slots;
+  int id[kPer], row[kPer];
+  lane_slots(a, c_first + kPer * lane, id, row);
+  const int prev = c_first > 0 ? a.ids[c_first - 1] : -1;
+  const int next = c_end < a.n_slots ? a.ids[c_end] : -1;
+  const int first = __shfl_sync(kFull, id[0], 0);
+  // my head run (id h) and tail run (id t); whole: one run in my slots
+  const int h = id[0], t = id[kPer - 1];
+  const int up_t = __shfl_up_sync(kFull, t, 1);
+  const int down_h = __shfl_down_sync(kFull, h, 1);
+  const int before = lane == 0 ? prev : up_t;
+  const int after = lane == kWarp - 1 ? next : down_h;
+  const bool whole = h == t;
+  const bool cont = h == before;
+  // the scan's segments: a lane starts one unless it is a whole lane
+  // that continues the run before it
+  const unsigned heads = __ballot_sync(kFull, lane == 0 || !(whole && cont));
+  const unsigned upto = lane == kWarp - 1 ? kFull : (2u << lane) - 1u;
+  const int lo = 31 - __clz(heads & upto);
+  const bool h_valid = static_cast<unsigned>(h) < static_cast<unsigned>(V);
+  const bool t_valid = static_cast<unsigned>(t) < static_cast<unsigned>(V);
+
+  for (int c0 = 0; c0 < a.d; c0 += DT) {
+    float head[DT], acc[DT];
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      first[u] = k0 + u < n_pieces ? sorted_ids[(k0 + u) * kPiece] : -1;
-    }
+    for (int j = 0; j < DT; ++j) head[j] = acc[j] = 0.0f;
+    // my slots in order: the head run's part, whole runs (written at
+    // once: they lie inside the chunk), the tail run's part in acc
+    int cur = h;
+    bool broke = false;
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      // a piece whose first id is not the run's wrote no slot 0 for it:
-      // its value is read but never added
-      p[u] = k0 + u < n_pieces ? partial[((k0 + u) * 2) * d + j] : 0.0f;
-    }
+    for (int j0 = 0; j0 < kPer; j0 += G) {
+      float v[G][DT];
 #pragma unroll
-    for (int u = 0; u < kBatch; ++u) {
-      if (first[u] != id) {
-        g_table[static_cast<long long>(id) * d + j] = acc;
-        return;
+      for (int g = 0; g < G; ++g) {
+        const bool ok = static_cast<unsigned>(id[j0 + g]) <
+                        static_cast<unsigned>(V);
+        load_row<DT, EXACT>(a, ok ? row[j0 + g] : 0, c0, ok, v[g]);
       }
-      acc = __fadd_rn(acc, p[u]);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        if (id[j0 + g] != cur) {
+          if (!broke) {
+#pragma unroll
+            for (int j = 0; j < DT; ++j) head[j] = acc[j];
+            broke = true;
+          } else if (static_cast<unsigned>(cur) < static_cast<unsigned>(V)) {
+            write_part<DT, EXACT>(a, c, c0, cur, false, false, acc);
+          }
+          cur = id[j0 + g];
+#pragma unroll
+          for (int j = 0; j < DT; ++j) acc[j] = 0.0f;
+        }
+#pragma unroll
+        for (int j = 0; j < DT; ++j) acc[j] = __fadd_rn(acc[j], v[g][j]);
+      }
+    }
+    // segmented inclusive scan of the tail parts over the lanes: acc is
+    // then the sum of my tail run's parts from the lane where it began
+#pragma unroll
+    for (int off = 1; off < kWarp; off <<= 1) {
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        const float x = __shfl_up_sync(kFull, acc[j], off);
+        if (lane - off >= lo) acc[j] = __fadd_rn(x, acc[j]);
+      }
+    }
+    float up[DT];
+#pragma unroll
+    for (int j = 0; j < DT; ++j) up[j] = __shfl_up_sync(kFull, acc[j], 1);
+    if (!whole && h_valid) {   // my head run ends in my slots
+      if (cont && lane > 0) {
+#pragma unroll
+        for (int j = 0; j < DT; ++j) head[j] = __fadd_rn(up[j], head[j]);
+      }
+      write_part<DT, EXACT>(a, c, c0, h, h == first && prev == h,
+                                 false, head);
+    }
+    if (t_valid && (after != t || lane == kWarp - 1)) {   // my tail run
+      write_part<DT, EXACT>(a, c, c0, t, t == first && prev == t,
+                                 lane == kWarp - 1 && next == t, acc);
     }
   }
-  g_table[static_cast<long long>(id) * d + j] = acc;
+}
+
+// Zero the untouched rows of tile t (one warp): its bitmap words staged in
+// `words`, then 16-byte stores where four floats are all untouched.
+template <int DT, bool EXACT>
+__device__ void zero_tile(const Args& a, long long t, unsigned* words,
+                          int lane) {
+  const int d = EXACT ? DT : a.d;
+  const long long r0 = t << a.tile_log2;
+  const int rows = static_cast<int>(
+      (1ll << a.tile_log2) < a.n_vocab - r0 ? (1ll << a.tile_log2)
+                                            : a.n_vocab - r0);
+  if (lane < (rows + 31) / 32) words[lane] = a.touched[(r0 >> 5) + lane];
+  __syncwarp();
+  float* base = a.g_table + r0 * d;
+  const int n = rows * d;
+  const int n4 = n / 4;
+  for (int m = lane; m < n4; m += kWarp) {
+    unsigned hit = 0;   // bit e: float 4m + e lies in a touched row
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = (4 * m + e) / d;
+      hit |= ((words[r >> 5] >> (r & 31)) & 1u) << e;
+    }
+    if (hit == 0) {
+      reinterpret_cast<float4*>(base)[m] = make_float4(0.0f, 0.0f, 0.0f,
+                                                       0.0f);
+    } else if (hit != 15) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (!((hit >> e) & 1u)) base[4 * m + e] = 0.0f;
+      }
+    }
+  }
+  for (int f = 4 * n4 + lane; f < n; f += kWarp) {
+    const int r = f / d;
+    if (!((words[r >> 5] >> (r & 31)) & 1u)) base[f] = 0.0f;
+  }
+}
+
+// Copy the chunk's n (<= kChunk) ints from src into the warp's shared
+// dst, `fill` past n: 16-byte loads for a whole aligned chunk.
+__device__ __forceinline__ void stage(int* dst, const int* src, int n,
+                                      int fill, int lane) {
+  if (n == kChunk && (reinterpret_cast<uintptr_t>(src) & 15) == 0) {
+#pragma unroll
+    for (int k = lane; k < kChunk / 4; k += kWarp) {
+      reinterpret_cast<int4*>(dst)[k] =
+          __ldg(reinterpret_cast<const int4*>(src) + k);
+    }
+  } else {
+    for (int k = lane; k < kChunk; k += kWarp) {
+      dst[k] = k < n ? __ldg(src + k) : fill;
+    }
+  }
+}
+
+// The sums of chunk c at d = 10 (one warp; ALIGNED: g_out 8-byte aligned,
+// read with 8-byte loads, else with 4-byte ones in the same order).
+// The lanes go in 6 groups of kGW = 5 (lanes 30 and 31 idle), each lane
+// two columns: a group reads a slot's 40-byte row with one 8-byte load a
+// lane, so a load instruction reads 6 rows (each lane reading a whole row
+// of its own touches up to 32 cache lines an instruction: on an H100 that
+// bounded chunk_sums at d = 10). Group g takes the chunk's slots [256·g/6,
+// 256·(g+1)/6) from shared memory and walks them as a lane of chunk_sums
+// walks its 8; the groups' last runs then go through one segmented scan
+// over the groups.
+constexpr int kGW = 5;
+constexpr int kGroups = kWarp / kGW;
+
+__device__ __forceinline__ void write_pair(const Args& a, long long c,
+                                           int id, bool head, bool tail,
+                                           int k, float2 v) {
+  float* dst = !head && !tail ? a.g_table + static_cast<long long>(id) * 10
+                              : a.partial + (c * 2 + (head ? 0 : 1)) * 10;
+  reinterpret_cast<float2*>(dst)[k] = v;
+  if (k == 0) atomicOr(a.touched + (id >> 5), 1u << (id & 31));
+}
+
+template <bool ALIGNED>
+__device__ void chunk_sums_d10(const Args& a, long long c, int lane,
+                               int* sid, int* srow) {
+  constexpr int B = 8;   // slots whose gathers go together
+  const int V = a.n_vocab;
+  const long long c_first = c * kChunk;
+  const int len = static_cast<int>(
+      a.n_slots - c_first < kChunk ? a.n_slots - c_first : kChunk);
+  stage(sid, a.ids + c_first, len, V, lane);
+  stage(srow, a.rows + c_first, len, 0, lane);
+  __syncwarp();
+  const int prev = c_first > 0 ? a.ids[c_first - 1] : -1;
+  const int next = c_first + len < a.n_slots ? a.ids[c_first + len] : -1;
+  const int first = sid[0];
+  const int g = lane / kGW, k = lane % kGW;
+  const bool active = g < kGroups;
+  const bool last_g = g == kGroups - 1;
+  const int s_lo = active ? g * kChunk / kGroups : kChunk;
+  const int s_hi = active ? (g + 1) * kChunk / kGroups : kChunk;
+  const int h = active ? sid[s_lo] : V, t = active ? sid[s_hi - 1] : V;
+  const int up_t = __shfl_up_sync(kFull, t, kGW);
+  const int down_h = __shfl_down_sync(kFull, h, kGW);
+  const int before = g == 0 ? prev : up_t;
+  const int after = last_g ? next : down_h;
+  const bool whole = h == t;
+  const bool cont = h == before;
+  // the groups' scan segments, by the bit of each group's lane 0
+  const unsigned heads = __ballot_sync(
+      kFull, active && k == 0 && (g == 0 || !(whole && cont)));
+  const unsigned upto = lane == kWarp - 1 ? kFull : (2u << lane) - 1u;
+  const int lo = (31 - __clz((heads & upto) | 1u)) / kGW;
+
+  float2 head = make_float2(0.0f, 0.0f), acc = head;
+  int cur = h;
+  bool broke = false;
+  for (int s0 = s_lo; s0 < s_hi; s0 += B) {
+    int id[B];
+    float2 v[B];
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      const int s = s0 + b < s_hi ? s0 + b : s_hi - 1;
+      id[b] = sid[s];
+      const bool ok = s0 + b < s_hi &&
+                      static_cast<unsigned>(id[b]) < static_cast<unsigned>(V);
+      const float* p = a.g_out + static_cast<long long>(srow[s]) * 10 + 2 * k;
+      if constexpr (ALIGNED) {
+        v[b] = ok ? __ldg(reinterpret_cast<const float2*>(p))
+                  : make_float2(0.0f, 0.0f);
+      } else {
+        v[b] = ok ? make_float2(__ldg(p), __ldg(p + 1))
+                  : make_float2(0.0f, 0.0f);
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < B; ++b) {
+      if (s0 + b >= s_hi) break;
+      if (id[b] != cur) {
+        if (!broke) {
+          head = acc;
+          broke = true;
+        } else if (static_cast<unsigned>(cur) < static_cast<unsigned>(V)) {
+          write_pair(a, c, cur, false, false, k, acc);
+        }
+        cur = id[b];
+        acc = make_float2(0.0f, 0.0f);
+      }
+      acc.x = __fadd_rn(acc.x, v[b].x);
+      acc.y = __fadd_rn(acc.y, v[b].y);
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < kGroups; off <<= 1) {
+    const float x = __shfl_up_sync(kFull, acc.x, off * kGW);
+    const float y = __shfl_up_sync(kFull, acc.y, off * kGW);
+    if (g - off >= lo) {
+      acc.x = __fadd_rn(x, acc.x);
+      acc.y = __fadd_rn(y, acc.y);
+    }
+  }
+  const float ux = __shfl_up_sync(kFull, acc.x, kGW);
+  const float uy = __shfl_up_sync(kFull, acc.y, kGW);
+  if (!active) return;
+  if (!whole && static_cast<unsigned>(h) < static_cast<unsigned>(V)) {
+    if (cont && g > 0) {
+      head.x = __fadd_rn(ux, head.x);
+      head.y = __fadd_rn(uy, head.y);
+    }
+    write_pair(a, c, h, h == first && prev == h, false, k, head);
+  }
+  if (static_cast<unsigned>(t) < static_cast<unsigned>(V) &&
+      (after != t || last_g)) {
+    write_pair(a, c, t, t == first && prev == t, last_g && next == t, k,
+               acc);
+  }
+}
+
+// d = 10 (ALIGNED or not) by chunk_sums_d10, other widths by chunk_sums.
+template <int DT, bool EXACT, bool ALIGNED>
+__global__ void __launch_bounds__(kWarps * kWarp)
+bag_grad_chunks(const Args a) {
+  constexpr bool kD10 = EXACT && DT == 10;
+  __shared__ __align__(16) int s_ids[kWarps][kD10 ? kChunk : 1];
+  __shared__ __align__(16) int s_rows[kWarps][kD10 ? kChunk : 1];
+  const int w = threadIdx.x / kWarp;
+  const long long c = static_cast<long long>(blockIdx.x) * kWarps + w;
+  if (c >= a.n_chunks) return;
+  if constexpr (kD10) {
+    chunk_sums_d10<ALIGNED>(a, c, threadIdx.x % kWarp, s_ids[w], s_rows[w]);
+  } else {
+    chunk_sums<DT, EXACT>(a, c, threadIdx.x % kWarp);
+  }
+}
+
+// The run that begins in chunk c and goes on past it: its partials in
+// chunk order (slot 1 of c, then slot 0 of each chunk the run reaches),
+// written to its row (one warp). The partials of a round of 32 chunks
+// are loaded with their first ids, then masked.
+template <int DT, bool EXACT>
+__device__ void finish_run(const Args& a, long long c, int lane) {
+  if (c + 1 >= a.n_chunks) return;
+  const long long c_first = c * kChunk, c_end = c_first + kChunk;
+  const int id = a.ids[c_end - 1];
+  if (static_cast<unsigned>(id) >= static_cast<unsigned>(a.n_vocab) ||
+      a.ids[c_end] != id) {
+    return;
+  }
+  if (c > 0 && a.ids[c_first] == id && a.ids[c_first - 1] == id) return;
+  const int d = a.d;
+  for (int c0 = 0; c0 < d; c0 += DT) {
+    float acc[DT];
+#pragma unroll
+    for (int j = 0; j < DT; ++j) acc[j] = 0.0f;
+    for (long long k0 = c + 1;; k0 += kWarp) {
+      const long long k = k0 + lane < a.n_chunks ? k0 + lane : c;
+      const float* p = a.partial + k * 2 * d + c0;
+      float v[DT];
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        v[j] = EXACT || c0 + j < d ? p[j] : 0.0f;
+      }
+      const bool in = k != c && a.ids[k * kChunk] == id;
+      if (in) {
+#pragma unroll
+        for (int j = 0; j < DT; ++j) acc[j] = __fadd_rn(acc[j], v[j]);
+      }
+      if (__ballot_sync(kFull, in) != kFull) break;
+    }
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off >>= 1) {
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        acc[j] = __fadd_rn(acc[j], __shfl_xor_sync(kFull, acc[j], off));
+      }
+    }
+    if (lane == 0) {
+      const float* t = a.partial + (c * 2 + 1) * d + c0;
+      float* dst = a.g_table + static_cast<long long>(id) * d + c0;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        if (EXACT || c0 + j < d) dst[j] = __fadd_rn(t[j], acc[j]);
+      }
+    }
+  }
+}
+
+// Warps [0, run_warps): one a chunk (finish_run); then one a tile of rows
+// (zero_tile).
+template <int DT, bool EXACT>
+__global__ void __launch_bounds__(kWarps * kWarp)
+bag_grad_finish(const Args a, long long run_warps) {
+  __shared__ unsigned s_words[kWarps][kWarp];
+  const int lane = threadIdx.x % kWarp;
+  const int wb = threadIdx.x / kWarp;
+  const long long w = static_cast<long long>(blockIdx.x) * kWarps + wb;
+  if (w < run_warps) {
+    finish_run<DT, EXACT>(a, w, lane);
+  } else if (w - run_warps < a.n_tiles) {
+    zero_tile<DT, EXACT>(a, w - run_warps, s_words[wb], lane);
+  }
+}
+
+template <int DT, bool EXACT, bool ALIGNED>
+int launch(const Args& a, cudaStream_t s) {
+  const long long run_blocks = (a.n_chunks + kWarps - 1) / kWarps;
+  const long long tile_blocks = (a.n_tiles + kWarps - 1LL) / kWarps;
+  if (run_blocks + tile_blocks > INT_MAX) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  bag_grad_chunks<DT, EXACT, ALIGNED>
+      <<<static_cast<unsigned>(run_blocks), kWarps * kWarp, 0, s>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bag_grad_finish<DT, EXACT>
+      <<<static_cast<unsigned>(run_blocks + tile_blocks), kWarps * kWarp, 0,
+         s>>>(a, run_blocks * kWarps);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// scratch: the chunks' partials (n_chunks * 2 * d floats), then at the
+// next 16-byte boundary the bitmap of touched rows (ceil(V / 32) words);
+// the wrapper computes its size with the same rule
+// (kernels.embedding_bag.ops.bag_grad_layout). g_table must be 16-byte
+// aligned.
 extern "C" int repro_embedding_bag_backward_f32(
-    const void* sorted_ids, const void* order, const void* g_out,
-    void* g_table, void* partial, long long n_slots, int hot, int d,
-    int n_vocab, long long n_pieces, void* stream) {
+    const void* sorted_ids, const void* rows, const void* g_out,
+    void* g_table, void* scratch, long long scratch_bytes, long long n_slots,
+    int d, int n_vocab, int chunk, int tile_log2, void* stream) {
   if (n_slots <= 0 || d <= 0) return 0;
-  if (hot <= 0 || n_vocab <= 0 ||
-      n_pieces != (n_slots + kPiece - 1) / kPiece) {
+  if (chunk != kChunk || n_vocab <= 0 || tile_log2 < 5 ||
+      (1 << tile_log2) > kMaxTileRows ||
+      (reinterpret_cast<uintptr_t>(g_table) & 15) != 0 ||
+      (reinterpret_cast<uintptr_t>(scratch) & 15) != 0 ||
+      static_cast<long long>(kMaxTileRows) * d > INT_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long threads = n_pieces * d;
-  const long long blocks = (threads + kThreads - 1) / kThreads;
-  if (blocks > 0x7fffffffll) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n_chunks = (n_slots + kChunk - 1) / kChunk;
+  const long long n_tiles =
+      (static_cast<long long>(n_vocab) + (1ll << tile_log2) - 1) >> tile_log2;
+  const long long n_words = (static_cast<long long>(n_vocab) + 31) / 32;
+  const long long words_at = (n_chunks * 2 * d * 4 + 15) / 16 * 16;
+  if (scratch_bytes < words_at + 4 * n_words) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  Args a{static_cast<const int*>(sorted_ids), static_cast<const int*>(rows),
+         static_cast<const float*>(g_out), static_cast<float*>(g_table),
+         reinterpret_cast<float*>(base),
+         reinterpret_cast<unsigned*>(base + words_at), n_slots, n_chunks, d,
+         n_vocab, tile_log2, static_cast<int>(n_tiles)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* ids = static_cast<const int*>(sorted_ids);
-  float* part = static_cast<float*>(partial);
-  float* out = static_cast<float*>(g_table);
-  bag_grad_pieces<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      ids, static_cast<const long long*>(order),
-      static_cast<const float*>(g_out), out, part, n_slots, hot, d, n_vocab,
-      n_pieces);
-  cudaError_t e = cudaGetLastError();
+  const cudaError_t e = cudaMemsetAsync(a.touched, 0, 4 * n_words, s);
   if (e != cudaSuccess) return static_cast<int>(e);
-  bag_grad_runs<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      ids, part, out, n_slots, d, n_vocab, n_pieces);
-  return static_cast<int>(cudaGetLastError());
+  if (d == 1) return launch<1, true, false>(a, s);
+  if (d == 10) {
+    return (reinterpret_cast<uintptr_t>(g_out) & 7) == 0
+               ? launch<10, true, true>(a, s)
+               : launch<10, true, false>(a, s);
+  }
+  return launch<8, false, false>(a, s);
 }

@@ -4,7 +4,8 @@ The sources in ``repro_torch/csrc/*.cu`` have a plain C interface; the
 ELL kernels (``spmv_ell``, ``jacobi``, ``agg_vote``) share the TMA-staged
 row tiles of ``csrc/ell_tiles.cuh``, and they and ``embedding_bag`` the
 bulk-copy primitives of ``csrc/bulk_copy.cuh``; ``embedding_bag_backward``
-stands alone. On first use they are compiled for ``sm_90a``
+stands alone, and ``bag_grad_plan`` (its sorted ids) includes the CUDA
+toolkit's CUB. On first use they are compiled for ``sm_90a``
 with ``nvcc`` (one process per source, all started together, then one
 link) into a shared library under
 ``<repo>/build/repro_torch_kernels/``, named by a hash of the sources and
@@ -27,21 +28,24 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch_kernels"
 SOURCES = ("spmv_ell.cu", "jacobi.cu", "agg_vote.cu", "embedding_bag.cu",
-           "embedding_bag_backward.cu")
+           "embedding_bag_backward.cu", "bag_grad_plan.cu")
 HEADERS = ("bulk_copy.cuh", "ell_tiles.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_float)
+_PL = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "repro_spmv_ell_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "repro_jacobi_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
     "repro_agg_vote_i32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, _P),
     "repro_embedding_bag_f32": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
-    "repro_embedding_bag_backward_f32": (_P, _P, _P, _P, _P, _L, _I, _I, _I,
-                                         _L, _P),
+    "repro_embedding_bag_backward_f32": (_P, _P, _P, _P, _P, _L, _L, _I, _I,
+                                         _I, _I, _P),
+    "repro_bag_grad_plan_i32": (_P, _L, _I, _I, _P, _P, _P, _P, _P, _PL,
+                                _P),
 }
 
 _lib = None

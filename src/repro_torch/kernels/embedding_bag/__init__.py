@@ -1,8 +1,13 @@
-from repro_torch.kernels.embedding_bag.ops import (BagSum,
+from repro_torch.kernels.embedding_bag.ops import (BagGradPlan, BagSum,
+                                                  bag_grad_layout,
+                                                  bag_grad_plan,
+                                                  bag_grad_plan_ref,
                                                   embedding_bag_backward,
                                                   embedding_bag_backward_ref,
                                                   embedding_bag_kernel,
                                                   embedding_bag_ref)
 
-__all__ = ["BagSum", "embedding_bag_backward", "embedding_bag_backward_ref",
-           "embedding_bag_kernel", "embedding_bag_ref"]
+__all__ = ["BagGradPlan", "BagSum", "bag_grad_layout", "bag_grad_plan",
+           "bag_grad_plan_ref", "embedding_bag_backward",
+           "embedding_bag_backward_ref", "embedding_bag_kernel",
+           "embedding_bag_ref"]

@@ -16,21 +16,49 @@ Backward: the table's gradient of the bag sum
 (``repro_torch/csrc/embedding_bag_backward.cu``), which replaces no TPU
 kernel: the reference differentiates its ``jnp.take`` composition. It is
 deterministic, as the training runner's bitwise replay needs: the slots
-are sorted by id once (``torch.sort``, stable) and each id's run is summed
-in a fixed order. :class:`BagSum` is the ``torch.autograd.Function`` that
-pairs the two.
+are sorted by id once a batch (:func:`bag_grad_plan`, a stable
+``torch.sort``; DeepFM's two tables share one plan) and each id's run is
+summed in a fixed order; every row of the ``[V, d]`` output is written
+once, untouched rows with zeros. :class:`BagSum` is the
+``torch.autograd.Function`` that pairs the two.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+
 import torch
 
-from repro_torch.kernels import bag_tile_plan, on_cuda, require, stream_of
-from repro_torch.sparse.segment import segment_sum, take_fill
+from repro_torch.kernels import (bag_tile_plan, on_cuda, require,
+                                 require_aligned, stream_of)
+from repro_torch.kernels._build import check, library
+from repro_torch.sparse.segment import sorted_segment_sum, take_fill
 
-# sorted slots a piece of the backward kernel (kPiece in its source)
-BAG_GRAD_PIECE = 128
+# sorted slots a warp of the backward kernel (kChunk in its source)
+BAG_GRAD_CHUNK = 256
+# floats of a tile of output rows that one warp of the backward zeroes
+_BAG_GRAD_TILE_FLOATS = 4096
 _I32_MAX = torch.iinfo(torch.int32).max
+_LIB = None
+
+
+def _lib():
+    """The kernel library, looked up once (built on first use)."""
+    global _LIB
+    if _LIB is None:
+        _LIB = library()
+    return _LIB
+
+
+def _launch(t: torch.Tensor, fn, *args) -> int:
+    """``fn(*args, stream)`` on ``t``'s stream; under ``t``'s device only
+    when that is not the current one (a launch runs on the current
+    device)."""
+    if t.device.index == torch.cuda.current_device():
+        return fn(*args, stream_of(t))
+    with torch.cuda.device(t.device):
+        return fn(*args, stream_of(t))
 
 
 def embedding_bag_ref(table: torch.Tensor,
@@ -48,8 +76,6 @@ def embedding_bag_kernel(table: torch.Tensor,
     autograd graph: :class:`BagSum` differentiates it."""
     if not on_cuda("embedding_bag", table, indices):
         return embedding_bag_ref(table, indices)
-    from repro_torch.kernels._build import check, library
-
     n_vocab, d = table.shape
     n_bags, hot = indices.shape
     require("embedding_bag table", table, torch.float32, (n_vocab, d))
@@ -58,12 +84,9 @@ def embedding_bag_kernel(table: torch.Tensor,
     if n_bags == 0 or hot == 0 or d == 0:
         return out.zero_()
     bags, stages, smem = bag_tile_plan(hot, d)
-    lib = library()
-    with torch.cuda.device(table.device):
-        check(lib.repro_embedding_bag_f32(
-            table.data_ptr(), indices.data_ptr(), out.data_ptr(), n_bags,
-            hot, d, n_vocab, bags, stages, smem, stream_of(table)),
-            "embedding_bag")
+    check(_launch(table, _lib().repro_embedding_bag_f32, table.data_ptr(),
+                  indices.data_ptr(), out.data_ptr(), n_bags, hot, d,
+                  n_vocab, bags, stages, smem), "embedding_bag")
     embedding_bag_kernel.launches += 1
     return out
 
@@ -71,26 +94,135 @@ def embedding_bag_kernel(table: torch.Tensor,
 embedding_bag_kernel.launches = 0
 
 
+@dataclasses.dataclass(frozen=True)
+class BagGradPlan:
+    """The sorted slots of one ``[n_bags, hot]`` id batch, for the
+    backward: ``sorted_ids`` [n_slots] int32, the ids sorted stably with
+    every id outside ``[0, n_vocab)`` keyed ``n_vocab`` (so those sort
+    last), and ``rows`` [n_slots] int32, each sorted slot's bag (its
+    ``g_out`` row, ``slot // hot``). Any table of ``n_vocab`` rows that the
+    same ids index can use it."""
+
+    sorted_ids: torch.Tensor
+    rows: torch.Tensor
+    n_vocab: int
+    hot: int
+
+
+def bag_grad_plan_ref(indices: torch.Tensor, n_vocab: int) -> BagGradPlan:
+    """Plain version of :func:`bag_grad_plan`: the keyed ids sorted by one
+    stable ``torch.sort`` (int64 slot indices), the rows divided out."""
+    hot = indices.shape[1]
+    flat = indices.reshape(-1)
+    key = torch.where((flat >= 0) & (flat < n_vocab), flat, n_vocab)
+    sorted_ids, order = torch.sort(key.to(torch.int32), stable=True)
+    rows = torch.div(order, max(hot, 1), rounding_mode="floor")
+    return BagGradPlan(sorted_ids, rows.to(torch.int32), n_vocab, hot)
+
+
+def bag_grad_plan(indices: torch.Tensor, n_vocab: int) -> BagGradPlan:
+    """Sort the slots of ``indices`` [n_bags, hot] by id for the backward
+    of bag sums over tables of ``n_vocab`` rows: on CUDA ids the kernel
+    (``csrc/bag_grad_plan.cu``: a radix sort over only the bits of ``[0,
+    n_vocab]``, int32 rows), on CPU ones the plain version; the same bits
+    either way. Counts every build in ``bag_grad_plan.builds`` and the
+    kernel's launches in ``bag_grad_plan.launches``."""
+    if indices.dim() != 2:
+        raise ValueError(f"bag_grad_plan: indices must be [n_bags, hot], "
+                         f"got shape {tuple(indices.shape)}")
+    if not 0 < n_vocab < _I32_MAX:
+        raise ValueError(f"bag_grad_plan: n_vocab {n_vocab} out of range")
+    bag_grad_plan.builds += 1
+    n_bags, hot = indices.shape
+    n_slots = n_bags * hot
+    if not on_cuda("bag_grad_plan", indices) or n_slots == 0:
+        return bag_grad_plan_ref(indices, n_vocab)
+    require("bag_grad_plan indices", indices, torch.int32, (n_bags, hot))
+    if n_slots > _I32_MAX:
+        raise ValueError(f"bag_grad_plan: {n_slots} slots, more than int32")
+    fn = _lib().repro_bag_grad_plan_i32
+    temp_bytes = ctypes.c_longlong(0)       # the sort's scratch: asked first
+    check(fn(None, n_slots, hot, n_vocab, None, None, None, None, None,
+             ctypes.byref(temp_bytes), None), "bag_grad_plan")
+    dev = indices.device
+    keys_in, rows_in, sorted_ids, rows = (
+        torch.empty(n_slots, dtype=torch.int32, device=dev) for _ in range(4))
+    temp = torch.empty(max(temp_bytes.value, 1), dtype=torch.uint8,
+                       device=dev)
+    check(_launch(indices, fn, indices.data_ptr(), n_slots, hot, n_vocab,
+                  keys_in.data_ptr(), rows_in.data_ptr(),
+                  sorted_ids.data_ptr(), rows.data_ptr(), temp.data_ptr(),
+                  ctypes.byref(temp_bytes)), "bag_grad_plan")
+    bag_grad_plan.launches += 1
+    return BagGradPlan(sorted_ids, rows, n_vocab, hot)
+
+
+bag_grad_plan.builds = 0
+bag_grad_plan.launches = 0
+
+
+def _checked_plan(plan: BagGradPlan | None, indices: torch.Tensor,
+                  n_vocab: int) -> BagGradPlan:
+    """``plan``, or a new one for ``indices``; raises if ``plan`` cannot
+    be that of ``indices`` for ``n_vocab`` rows (its ids are not read)."""
+    if plan is None:
+        return bag_grad_plan(indices, n_vocab)
+    n_slots = indices.shape[0] * indices.shape[1]
+    if (plan.n_vocab != n_vocab or plan.hot != indices.shape[1]
+            or plan.sorted_ids.shape != (n_slots,)
+            or plan.sorted_ids.device != indices.device):
+        raise ValueError(
+            f"embedding_bag_backward: the plan (n_vocab {plan.n_vocab}, hot "
+            f"{plan.hot}, {plan.sorted_ids.shape[0]} slots on "
+            f"{plan.sorted_ids.device}) is not one of these ids (n_vocab "
+            f"{n_vocab}, shape {tuple(indices.shape)} on {indices.device})")
+    return plan
+
+
+def bag_grad_layout(n_slots: int, n_vocab: int, d: int) -> tuple[int, int,
+                                                                 int]:
+    """The backward kernel's layout: ``(chunk, tile_log2, scratch_bytes)``.
+    The sorted slots go in chunks of ``BAG_GRAD_CHUNK``, one a warp; the
+    output rows in tiles of ``2**tile_log2`` rows, one a warp in the pass
+    that zeroes untouched rows: the least power of two of rows that holds
+    ``_BAG_GRAD_TILE_FLOATS`` floats at width ``d``, from 32 to 1024 rows
+    (one to 32 words of the touched-row bitmap). The scratch holds two
+    partial rows a chunk, then (at a 16-byte boundary) the bitmap, a bit a
+    row in 32-bit words."""
+    rows = -(-_BAG_GRAD_TILE_FLOATS // d)
+    tile_log2 = min(10, max(5, (rows - 1).bit_length()))
+    words_at = -(-(-(-n_slots // BAG_GRAD_CHUNK) * 2 * d * 4) // 16) * 16
+    return BAG_GRAD_CHUNK, tile_log2, words_at + 4 * -(-n_vocab // 32)
+
+
 def embedding_bag_backward_ref(g_out: torch.Tensor, indices: torch.Tensor,
-                               n_vocab: int) -> torch.Tensor:
+                               n_vocab: int,
+                               plan: BagGradPlan | None = None
+                               ) -> torch.Tensor:
     """Plain version of the backward: ``g_table[v] = Σ_{(b, h): indices[b,
     h] = v} g_out[b]``, ``[n_vocab, d]``, rows no valid id touches 0. A
-    deterministic sorted segment sum (``sparse.segment.segment_sum``):
-    each row's slots in slot order, from 0."""
-    n_bags, hot = indices.shape
-    d = g_out.shape[1]
-    rows = g_out.float()[:, None, :].expand(n_bags, hot, d).reshape(-1, d)
-    return segment_sum(rows, indices.reshape(-1), n_vocab)
+    deterministic sorted segment sum (``sparse.segment``) over ``plan``'s
+    order (built here when none is given): each row's slots in slot
+    order, from 0, the same bits with a plan or without one."""
+    plan = _checked_plan(plan, indices, n_vocab)
+    rows = g_out.float().index_select(0, plan.rows.long())
+    return sorted_segment_sum(rows, plan.sorted_ids, n_vocab)
 
 
 def embedding_bag_backward(g_out: torch.Tensor, indices: torch.Tensor,
-                           n_vocab: int) -> torch.Tensor:
+                           n_vocab: int, plan: BagGradPlan | None = None, *,
+                           _out: torch.Tensor | None = None) -> torch.Tensor:
     """g_out [n_bags, d] float32, indices [n_bags, hot] int32 -> the
     table's gradient [n_vocab, d]: the kernel on CUDA tensors, the plain
-    version on CPU ones. Same bits on every launch."""
+    version on CPU ones. ``plan`` is :func:`bag_grad_plan` of ``indices``
+    (built here when none is given). Same bits on every launch.
+
+    ``_out`` (a contiguous float32 ``[n_vocab, d]`` on the same device)
+    receives the result in place of a new tensor; it exists to check that
+    the kernel writes every row."""
     if not on_cuda("embedding_bag_backward", g_out, indices):
-        return embedding_bag_backward_ref(g_out, indices, n_vocab)
-    from repro_torch.kernels._build import check, library
+        got = embedding_bag_backward_ref(g_out, indices, n_vocab, plan)
+        return got if _out is None else _out.copy_(got)
 
     n_bags, hot = indices.shape
     d = g_out.shape[1] if g_out.dim() == 2 else -1
@@ -99,25 +231,29 @@ def embedding_bag_backward(g_out: torch.Tensor, indices: torch.Tensor,
     if indices.dtype != torch.int32:
         raise TypeError(f"embedding_bag_backward indices: expected "
                         f"torch.int32, got {indices.dtype}")
-    if not 0 < n_vocab < _I32_MAX:
-        raise ValueError(f"embedding_bag_backward: n_vocab {n_vocab} out "
-                         "of range")
-    out = torch.zeros((n_vocab, d), dtype=torch.float32, device=g_out.device)
+    plan = _checked_plan(plan, indices, n_vocab)
+    if _out is None:
+        out = torch.empty((n_vocab, d), dtype=torch.float32,
+                          device=g_out.device)
+    else:
+        require("embedding_bag_backward _out", _out, torch.float32,
+                (n_vocab, d))
+        require_aligned("embedding_bag_backward _out", _out)
+        if _out.device != g_out.device:
+            raise ValueError("embedding_bag_backward: _out is on "
+                             f"{_out.device}, g_out on {g_out.device}")
+        out = _out
     n_slots = n_bags * hot
     if n_slots == 0 or d == 0:
-        return out
-    flat = indices.reshape(-1)
-    key = torch.where((flat >= 0) & (flat < n_vocab), flat, n_vocab)
-    sorted_ids, order = torch.sort(key, stable=True)
-    n_pieces = -(-n_slots // BAG_GRAD_PIECE)
-    partial = torch.empty((n_pieces, 2, d), dtype=torch.float32,
+        return out.zero_()
+    chunk, tile_log2, scratch_bytes = bag_grad_layout(n_slots, n_vocab, d)
+    scratch = torch.empty(scratch_bytes, dtype=torch.uint8,
                           device=g_out.device)
-    lib = library()
-    with torch.cuda.device(g_out.device):
-        check(lib.repro_embedding_bag_backward_f32(
-            sorted_ids.data_ptr(), order.data_ptr(), g_out.data_ptr(),
-            out.data_ptr(), partial.data_ptr(), n_slots, hot, d, n_vocab,
-            n_pieces, stream_of(g_out)), "embedding_bag_backward")
+    check(_launch(g_out, _lib().repro_embedding_bag_backward_f32,
+                  plan.sorted_ids.data_ptr(), plan.rows.data_ptr(),
+                  g_out.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                  scratch_bytes, n_slots, d, n_vocab, chunk, tile_log2),
+          "embedding_bag_backward")
     embedding_bag_backward.launches += 1
     return out
 
@@ -127,14 +263,18 @@ embedding_bag_backward.launches = 0
 
 class BagSum(torch.autograd.Function):
     """The unweighted bag sum with a gradient for ``table``:
-    ``BagSum.apply(table [V, d], indices [n_bags, hot] int32)``. Forward
-    and backward run the kernels on CUDA tensors (and raise if one fails
-    to build or launch), the plain versions on CPU ones."""
+    ``BagSum.apply(table [V, d], indices [n_bags, hot] int32, plan=None)``,
+    ``plan`` a :func:`bag_grad_plan` of ``indices`` for ``V`` rows that the
+    backward uses (without one it builds its own). Forward and backward
+    run the kernels on CUDA tensors (and raise if one fails to build or
+    launch), the plain versions on CPU ones."""
 
     @staticmethod
-    def forward(ctx, table: torch.Tensor, indices: torch.Tensor):
+    def forward(ctx, table: torch.Tensor, indices: torch.Tensor,
+                plan: BagGradPlan | None = None):
         ctx.save_for_backward(indices)
         ctx.n_vocab = table.shape[0]
+        ctx.plan = plan
         return embedding_bag_kernel(table, indices)
 
     @staticmethod
@@ -142,4 +282,4 @@ class BagSum(torch.autograd.Function):
         (indices,) = ctx.saved_tensors
         # e.g. the first-order term's gradient arrives as a stride-0 expand
         return (embedding_bag_backward(g_out.contiguous(), indices,
-                                       ctx.n_vocab), None)
+                                       ctx.n_vocab, ctx.plan), None, None)

@@ -8,7 +8,8 @@ against many candidates of one field with the FM decomposition (one
 field embeddings and the first-order weights) run through the
 embedding-bag kernel on the card, and where the parameters require grad
 their gradients through its backward kernel (``kernels.embedding_bag.
-BagSum``). The training step (loss, gradients, AdamW) is
+BagSum``), over one sort of the batch's ids that both share
+(``bag_grad_plan``). The training step (loss, gradients, AdamW) is
 ``repro_torch.configs.deepfm.make_train_step``. The products run in full
 float32: callers on the card keep TF32 off, as the reference's are.
 """
@@ -22,6 +23,7 @@ import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.embedding_bag import bag_grad_plan
 from repro_torch.models.gnn.common import init_mlp, mlp_apply
 from repro_torch.models.recsys.embedding import embedding_bag
 from repro_torch.sparse.segment import take_fill
@@ -99,10 +101,18 @@ def _field_embeddings(cfg: DeepFMConfig, params: dict,
 
 def deepfm_forward(cfg: DeepFMConfig, params: dict,
                    indices: torch.Tensor) -> torch.Tensor:
-    """indices [B, F, H] int32 -> logits [B]."""
+    """indices [B, F, H] int32 -> logits [B]. Where a table requires grad
+    (and grad is enabled), the batch's ids are sorted once
+    (``bag_grad_plan``) for both tables' backward."""
     flat_ids = _flat_ids(cfg, indices)
-    v = embedding_bag(params["table"], flat_ids)             # [B, F, d]
-    first = embedding_bag(params["first_order"], flat_ids).sum(dim=(1, 2))
+    table, first_order = params["table"], params["first_order"]
+    plan = None
+    if torch.is_grad_enabled() and (table.requires_grad
+                                    or first_order.requires_grad):
+        plan = bag_grad_plan(flat_ids.reshape(-1, flat_ids.shape[-1]),
+                             table.shape[0])
+    v = embedding_bag(table, flat_ids, plan=plan)            # [B, F, d]
+    first = embedding_bag(first_order, flat_ids, plan=plan).sum(dim=(1, 2))
 
     # FM second order: ½ Σ_d [(Σ_f v)² − Σ_f v²]
     sum_v = v.sum(dim=1)

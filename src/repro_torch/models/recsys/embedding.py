@@ -4,7 +4,8 @@ An embedding bag is a sum-semiring SpMV with one-hot rows. The unweighted
 bag sum goes through the hand-written kernel
 (``repro_torch.kernels.embedding_bag``) on the card; where ``table``
 requires grad, through ``BagSum``, whose backward is the deterministic
-backward kernel. Weighted bags keep the reference's composition (gather,
+backward kernel (over a ``bag_grad_plan`` that callers summing several
+tables over the same ids build once and pass in). Weighted bags keep the reference's composition (gather,
 scale, masked sum) and its autograd, as the JAX package has no kernel for
 them.
 """
@@ -19,10 +20,13 @@ from repro_torch.sparse.segment import take_fill
 
 def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
                   weights: torch.Tensor | None = None,
-                  mode: str = "sum") -> torch.Tensor:
+                  mode: str = "sum", plan=None) -> torch.Tensor:
     """table [V, d]; indices [..., H] (out-of-range = padding) -> [..., d].
 
     Multi-hot bags reduce over the trailing H axis. ``mode``: sum|mean.
+    ``plan``: ``kernels.embedding_bag.bag_grad_plan`` of ``indices``
+    reshaped to ``[-1, H]`` for ``V`` rows, which the unweighted bag sum's
+    backward then uses instead of building its own.
     """
     from repro_torch.kernels.embedding_bag import BagSum, embedding_bag_kernel
 
@@ -34,7 +38,7 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
     if weights is None:
         bags = indices.reshape(-1, indices.shape[-1])  # a view, no copy
         if table.requires_grad and torch.is_grad_enabled():
-            out = BagSum.apply(table, bags)
+            out = BagSum.apply(table, bags, plan)
         else:
             out = embedding_bag_kernel(table, bags)
         out = out.reshape(*indices.shape[:-1], d)

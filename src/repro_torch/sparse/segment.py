@@ -74,23 +74,45 @@ def segment_sum_plan(ids: torch.Tensor, num_segments: int):
     num_segments)``, for callers that sum over the same ids many times."""
     seg = _seg_ids(ids, num_segments)
     order = torch.argsort(seg, stable=True)
-    m, dev = seg.shape[0], seg.device
+    lengths = _sorted_lengths(seg.index_select(0, order), num_segments)
+
+    def apply(data: torch.Tensor) -> torch.Tensor:
+        return _sum_sorted(data.index_select(0, order), lengths,
+                           num_segments)
+
+    return apply
+
+
+def sorted_segment_sum(data: torch.Tensor, sorted_ids: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """The float :func:`segment_sum` of rows already in the order of
+    ``sorted_ids``, the ids sorted ascending with every id outside ``[0,
+    num_segments)`` keyed ``num_segments``: bit for bit ``segment_sum``
+    of the same rows in their unsorted order, when that order's stable
+    sort gives this one."""
+    return _sum_sorted(data, _sorted_lengths(sorted_ids, num_segments),
+                       num_segments)
+
+
+def _sorted_lengths(sorted_seg: torch.Tensor,
+                    num_segments: int) -> torch.Tensor:
     # segment starts from the sorted ids (a CUDA bincount would read the
     # largest id back to the host); the dropped entries, sorted last, go
     # in chunks of _DROP_CHUNK so that no one segment holds them all: the
     # CUDA reduction of a 2-D segment runs one thread a column
-    bounds = torch.searchsorted(seg.index_select(0, order),
-                                torch.arange(num_segments + 1, device=dev))
+    m, dev = sorted_seg.shape[0], sorted_seg.device
+    bounds = torch.searchsorted(sorted_seg, torch.arange(
+        num_segments + 1, device=dev, dtype=sorted_seg.dtype))
     tail = torch.arange(1, m // _DROP_CHUNK + 2, device=dev) * _DROP_CHUNK
     bounds = torch.cat([bounds, torch.clamp(bounds[-1] + tail, max=m)])
-    lengths = bounds[1:] - bounds[:-1]
+    return bounds[1:] - bounds[:-1]
 
-    def apply(data: torch.Tensor) -> torch.Tensor:
-        out = torch.segment_reduce(data.index_select(0, order), "sum",
-                                   lengths=lengths, axis=0, unsafe=True)
-        return out[:num_segments]
 
-    return apply
+def _sum_sorted(data: torch.Tensor, lengths: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    out = torch.segment_reduce(data, "sum", lengths=lengths, axis=0,
+                               unsafe=True)
+    return out[:num_segments]
 
 
 def _segment_extreme(data, ids, num_segments, reduce, init):

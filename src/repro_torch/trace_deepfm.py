@@ -1,6 +1,6 @@
 """Where the time of DeepFM serving and training goes on the card.
 
-    python -m repro_torch.trace_deepfm [--trace-dir DIR] [--train]
+    python -m repro_torch.trace_deepfm [--trace-dir DIR] [--train | --bag-grad]
 
 Builds DeepFM at ``configs/deepfm.py::FULL`` (weights from a seeded
 generator) and profiles, with ``trace_solve.profile_call``, one warm call
@@ -11,13 +11,14 @@ With ``--train``, one warm training step instead (``train_batch``, B =
 65,536: ``configs.deepfm.make_train_step`` with AdamW, f32 moments, on
 the first batch of ``recsys_batch_stream(seed=0)``), then its parts
 alone: the forward (``train_forward``, no graph), the loss and gradients
-(``train_grads``) and AdamW (``train_adamw``); each one's device time is
-also summed by group: the matrix products, the bag kernels (forward and
-backward), the backward's sort, and the elementwise and reduction rest
-(``other``). For each: the untraced wall time, device time by
+(``train_grads``) and AdamW (``train_adamw``); each one's device time and
+launches are also summed by group: the matrix products, the bag kernels (forward and
+backward), the sort of the batch's ids (``bag_grad_plan``, one a step),
+and the elementwise and reduction rest (``other``). For each: the untraced wall time, device time by
 kernel name, the number of kernel launches and the device's busy share.
-``--trace-dir`` writes one Chrome trace per shape. Prints one JSON
-object. It needs a CUDA device.
+With ``--bag-grad``, the bag backward alone at the train batch's ids
+(:func:`bag_grad_breakdown`). ``--trace-dir`` writes one Chrome trace per
+shape. Prints one JSON object. It needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -29,18 +30,71 @@ import sys
 # device kernels by group, by a part of the name the profiler reports
 # (first match wins; everything else is "other")
 TRAIN_GROUPS = (("bag_forward", ("bag_tiles_kernel",)),
-                ("bag_backward", ("bag_grad_pieces", "bag_grad_runs")),
-                ("sort", ("RadixSort",)),
+                ("bag_backward", ("bag_grad_chunks", "bag_grad_finish")),
+                ("sort", ("bag_grad_keys", "RadixSort")),
                 ("gemm", ("gemm", "gemv")))
 
 
 def train_groups(kernels) -> dict:
-    """``{group: ms}`` of ``(kernel name, ms)`` pairs."""
+    """``{group: total}`` of ``(kernel name, ms or launches)`` pairs."""
     out = {}
-    for name, ms in kernels:
+    for name, x in kernels:
         group = next((g for g, parts in TRAIN_GROUPS
                       if any(p in name for p in parts)), "other")
-        out[group] = round(out.get(group, 0.0) + ms, 4)
+        out[group] = round(out.get(group, 0) + x, 4)
+    return out
+
+
+def _short(key: str) -> str:
+    return key.replace("void ", "").replace("(anonymous namespace)::",
+                                            "").split("(")[0][:60]
+
+
+def bag_grad_breakdown(torch, flat, n_vocab: int, reps: int = 20) -> dict:
+    """Device ms a launch of each device kernel of the bag backward
+    (``kernels.embedding_bag.embedding_bag_backward``) at the ids ``flat``
+    [n_bags, hot], d = 10 and d = 1, over three plans with the batch's
+    sorted ids: the batch's own (``batch``), its gathered rows replaced by
+    rows in slot order (``rows_in_order``: the gathers stream) and by row 0
+    (``one_row``: every gather hits one cached row). The last two compute
+    nothing useful; against ``batch`` they show what the random gathers
+    cost."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.embedding_bag import (BagGradPlan,
+                                                   bag_grad_plan,
+                                                   embedding_bag_backward)
+
+    plan = bag_grad_plan(flat, n_vocab)
+    in_order = torch.div(torch.arange(plan.rows.numel(), device=flat.device,
+                                      dtype=torch.int32),
+                         plan.hot, rounding_mode="floor")
+    plans = dict(batch=plan,
+                 rows_in_order=BagGradPlan(plan.sorted_ids, in_order,
+                                           n_vocab, plan.hot),
+                 one_row=BagGradPlan(plan.sorted_ids,
+                                     torch.zeros_like(in_order), n_vocab,
+                                     plan.hot))
+    gen = torch.Generator(device=flat.device).manual_seed(1)
+    out = {}
+    for d in (10, 1):
+        g = torch.randn((flat.shape[0], d), generator=gen, device=flat.device)
+        for name, p in plans.items():
+            def fn(p=p):
+                return embedding_bag_backward(g, flat, n_vocab, p)
+
+            for _ in range(3):
+                fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            out[f"d{d}_{name}"] = {
+                _short(e.key): round(e.self_device_time_total / e.count
+                                     / 1e3, 4)
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA}
     return out
 
 
@@ -50,8 +104,9 @@ def main(argv=None) -> int:
     from repro_torch.configs.deepfm import (FULL, SHAPE_DIMS, loss_and_grads,
                                             make_train_step)
     from repro_torch.data.synthetic import recsys_batch_stream
-    from repro_torch.models.recsys.deepfm import (DeepFM, deepfm_loss,
-                                                  init_deepfm)
+    from repro_torch.models.recsys.deepfm import (DeepFM, _flat_ids,
+                                                  deepfm_loss, init_deepfm,
+                                                  padded_rows)
     from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
     from repro_torch.trace_solve import profile_call
 
@@ -60,6 +115,9 @@ def main(argv=None) -> int:
                     help="directory for one Chrome trace per shape")
     ap.add_argument("--train", action="store_true",
                     help="profile one training step instead of serving")
+    ap.add_argument("--bag-grad", action="store_true",
+                    help="time the bag backward's kernels at the train "
+                         "batch's ids instead")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("trace_deepfm: needs a CUDA device", file=sys.stderr)
@@ -75,6 +133,16 @@ def main(argv=None) -> int:
         path = (f"{args.trace_dir}/deepfm_{shape}.json" if args.trace_dir
                 else None)
         return profile_call(torch, fn, path, top=top)[1]
+
+    if args.bag_grad:
+        B = SHAPE_DIMS["train_batch"]["batch"]
+        _, idx, _ = next(recsys_batch_stream(cfg.vocab_per_field, B,
+                                             cfg.multi_hot, seed=0))
+        flat = _flat_ids(cfg, torch.from_numpy(idx).to(dev))
+        out.update(bag_grad_breakdown(
+            torch, flat.reshape(-1, cfg.multi_hot), padded_rows(cfg)))
+        print(json.dumps(out))
+        return 0
 
     if args.train:
         B = SHAPE_DIMS["train_batch"]["batch"]
@@ -102,6 +170,8 @@ def main(argv=None) -> int:
             res = trace(shape, fn, top=1000)  # every kernel, for the groups
             res["groups_ms"] = train_groups(
                 (k["name"], k["ms"]) for k in res["top_kernels"])
+            res["groups_launches"] = train_groups(
+                (k["name"], k["count"]) for k in res["top_kernels"])
             out[shape] = res
         print(json.dumps(out))
         return 0

@@ -51,12 +51,16 @@ def _stage_seconds(prof: cProfile.Profile) -> dict:
 
 
 # the port's own kernels, by a part of the name the profiler reports; a
-# kernel of two device kernels (the bag backward's two passes, launched
-# once each a call) has two parts
+# kernel of several device kernels has a part each, its first part
+# launched once a call: the bag backward's two passes, and its plan's key
+# pass and the radix sort's kernels (CUB compiled under the namespace
+# repro_bag_plan: a histogram, a scan and a pass per 8 bits of the keys)
 PORT_KERNELS = {"StoreRow": "spmv_ell", "JacobiRow": "jacobi",
                 "VoteRow": "agg_vote", "bag_tiles_kernel": "embedding_bag",
-                "bag_grad_pieces": "embedding_bag_backward",
-                "bag_grad_runs": "embedding_bag_backward"}
+                "bag_grad_chunks": "embedding_bag_backward",
+                "bag_grad_finish": "embedding_bag_backward",
+                "bag_grad_keys": "bag_grad_plan",
+                "repro_bag_plan::": "bag_grad_plan"}
 
 
 def kernel_device_ms(torch, fn, kernel: str, reps: int = 20):
@@ -70,9 +74,11 @@ def kernel_device_ms(torch, fn, kernel: str, reps: int = 20):
     drop some or all of a window's launches (on an H100, once all of them
     in three windows in a row), so a window that saw no launch is
     profiled again, up to ten in all; ``(nan, 0, 10)`` means none saw
-    one. For a kernel of several device kernels (parts), one launch's time
-    is the sum of each part's mean, its count the fewest any part shows,
-    and a window must see every part."""
+    one. For a kernel of several device kernels (parts), a window must see
+    every part; the launches are those of its first part, and one launch's
+    time is the sum over the parts of each part's mean time per device
+    kernel times its device kernels per launch (its count over the first
+    part's, rounded)."""
     from torch.profiler import ProfilerActivity, profile
 
     parts = [part for part, name in PORT_KERNELS.items() if name == kernel]
@@ -95,9 +101,10 @@ def kernel_device_ms(torch, fn, kernel: str, reps: int = 20):
                     count, us = seen[part]
                     seen[part] = (count + e.count,
                                   us + e.self_device_time_total)
-        count = min(c for c, _ in seen.values())
-        if count:
-            ms = sum(us / c for c, us in seen.values()) / 1e3
+        count = seen[parts[0]][0]
+        if all(c for c, _ in seen.values()):
+            ms = sum(us / c * max(1, round(c / count))
+                     for c, us in seen.values()) / 1e3
             return ms, count, window
     return float("nan"), 0, window
 
@@ -139,8 +146,11 @@ def profile_call(torch, fn, trace_path=None, top: int = 10):
                 count, us = parts.get(part, (0, 0))
                 parts[part] = (count + e.count,
                                us + e.self_device_time_total)
-    # launches of a kernel of several parts: those of its busiest part
-    port = {name: (max(c for c, _ in parts.values()),
+    # launches of a kernel of several parts: those of its first part
+    first = {}
+    for part, name in PORT_KERNELS.items():
+        first.setdefault(name, part)
+    port = {name: (parts.get(first[name], (0, 0))[0],
                    sum(us for _, us in parts.values()))
             for name, parts in port.items()}
     return out, dict(

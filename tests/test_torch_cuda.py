@@ -26,8 +26,9 @@ torch.set_num_threads(1)
 from repro_torch.kernels import bag_tile_plan, ell_tile_plan  # noqa: E402
 from repro_torch.kernels.agg_vote import vote_reduce, vote_reduce_ref  # noqa: E402
 from repro_torch.kernels.embedding_bag import (  # noqa: E402
-    BagSum, embedding_bag_backward, embedding_bag_backward_ref,
-    embedding_bag_kernel, embedding_bag_ref)
+    BagSum, bag_grad_layout, bag_grad_plan, bag_grad_plan_ref,
+    embedding_bag_backward, embedding_bag_backward_ref, embedding_bag_kernel,
+    embedding_bag_ref)
 from repro_torch.kernels.jacobi import jacobi_step, jacobi_step_ref  # noqa: E402
 from repro_torch.kernels.spmv_ell import spmv_ell, spmv_ell_ref  # noqa: E402
 
@@ -207,7 +208,12 @@ def test_cuda_embedding_bag_hot_zero_and_argument_checks():
 def _bag_grad_case(rng, n_bags, hot, d, n_vocab, skew):
     """Ids with Zipf skew (``skew``: id 0 takes about half the slots, as in
     ``recsys_batch_stream``), all one id (``"one"``) or uniform, with
-    sentinels; output gradients N(0, 1)."""
+    sentinels; or every slot the last id and no sentinel (``"all"``);
+    output gradients N(0, 1)."""
+    if skew == "all":
+        idx = np.full((n_bags, hot), n_vocab - 1, np.int32)
+        g = rng.normal(size=(n_bags, d)).astype(np.float32)
+        return _t(g).cuda(), _t(idx).cuda()
     if skew == "one":
         idx = np.zeros((n_bags, hot), np.int32)
     elif skew:
@@ -223,19 +229,39 @@ def _bag_grad_case(rng, n_bags, hot, d, n_vocab, skew):
     return _t(g).cuda(), _t(idx).cuda()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n_bags,hot,d,n_vocab,skew", [
+def _assert_bag_grad(got, G, I, n_vocab, plan=None):
+    """Within 1e-6 of each row's sum of |g| of the plain version; rows no
+    valid id touches exactly 0."""
+    want = embedding_bag_backward_ref(G, I, n_vocab, plan)
+    scale = embedding_bag_backward_ref(G.abs(), I, n_vocab, plan)
+    assert ((got - want).abs() <= 1e-6 * scale + 1e-30).all()
+    assert torch.equal(got[scale.sum(1) == 0],
+                       torch.zeros_like(got[scale.sum(1) == 0]))
+
+
+# (n_bags, hot, d, n_vocab, skew): the first cases, then widths 16 and 33
+# (the general path's column tiles), a vocabulary that is not a multiple
+# of the zeroed tiles (nor of a chunk), and one id in every slot
+BAG_GRAD_CASES = [
     (100_003, 2, 10, 50_000, True), (65_536 * 4, 2, 1, 3_000, True),
     (4099, 5, 1, 300, False), (257, 1, 33, 10, False), (7, 3, 10, 4, True),
-    (300_000, 1, 10, 5, "one"), (129, 1, 3, 1, False)])
+    (300_000, 1, 10, 5, "one"), (129, 1, 3, 1, False),
+    (20_011, 3, 16, 70_001, True), (9_999, 2, 33, 12_345, False),
+    (33_333, 2, 10, 1_000_003, True), (50_000, 3, 10, 777, "all"),
+    (40_000, 2, 1, 1, "all")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bags,hot,d,n_vocab,skew", BAG_GRAD_CASES)
 def test_cuda_embedding_bag_backward_matches_plain_version(
         n_bags, hot, d, n_vocab, skew):
     """The backward kernel against its plain version (a sorted segment
     sum in slot order) and bitwise equal from one launch to the next.
     Tolerance: each row's difference at most 1e-6 of the row's sum of
     |g| (a float32 sum of n terms in any two orders differs by far less
-    than n·eps of that sum; the kernel sums 128-slot pieces, then the
-    pieces). Rows no valid id touches are exactly 0."""
+    than n·eps of that sum; the kernel sums each 256-slot chunk's runs in
+    trees over the lanes, then a long run's chunks). Rows no valid id
+    touches are exactly 0."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     rng = np.random.default_rng(n_bags + d)
@@ -243,12 +269,95 @@ def test_cuda_embedding_bag_backward_matches_plain_version(
     n0 = embedding_bag_backward.launches
     got = embedding_bag_backward(G, I, n_vocab)
     assert embedding_bag_backward.launches == n0 + 1
-    want = embedding_bag_backward_ref(G, I, n_vocab)
-    scale = embedding_bag_backward_ref(G.abs(), I, n_vocab)
-    assert ((got - want).abs() <= 1e-6 * scale + 1e-30).all()
-    assert torch.equal(got[scale.sum(1) == 0],
-                       torch.zeros_like(got[scale.sum(1) == 0]))
+    _assert_bag_grad(got, G, I, n_vocab)
     assert torch.equal(embedding_bag_backward(G, I, n_vocab), got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bags,hot,d,n_vocab,skew", BAG_GRAD_CASES)
+def test_cuda_embedding_bag_backward_writes_every_row_once(
+        n_bags, hot, d, n_vocab, skew):
+    """Into an output filled with NaN (the wrapper's private ``_out``):
+    no NaN is left, so every row was written, and the result is the bits
+    of a launch into a new tensor, so no row was written twice with
+    different values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(n_bags + d + 1)
+    G, I = _bag_grad_case(rng, n_bags, hot, d, n_vocab, skew)
+    out = torch.full((n_vocab, d), float("nan"), device="cuda")
+    got = embedding_bag_backward(G, I, n_vocab, _out=out)
+    assert got is out and not torch.isnan(out).any()
+    assert torch.equal(out, embedding_bag_backward(G, I, n_vocab))
+    # only sentinels: all rows 0
+    only = torch.full_like(I, -1)
+    only.view(-1)[1::2] = n_vocab
+    out.fill_(float("nan"))
+    embedding_bag_backward(G, only, n_vocab, _out=out)
+    assert not out.any() and not torch.isnan(out).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_bags,hot,d,n_vocab,skew", BAG_GRAD_CASES)
+def test_cuda_bag_grad_plan_matches_plain_version(n_bags, hot, d, n_vocab,
+                                                  skew):
+    """The plan's kernel (keys, then a radix sort over the bits of [0, V])
+    bitwise the plain version's stable ``torch.sort``; one launch; odd
+    slot counts too (the ids view from the second slot on)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(n_bags + hot)
+    _, I = _bag_grad_case(rng, n_bags, hot, d, n_vocab, skew)
+    for ids in (I, I.reshape(-1)[1:].reshape(-1, 1)):
+        n0 = bag_grad_plan.launches
+        got = bag_grad_plan(ids, n_vocab)
+        assert bag_grad_plan.launches == n0 + 1
+        want = bag_grad_plan_ref(ids, n_vocab)
+        assert torch.equal(got.sorted_ids, want.sorted_ids)
+        assert torch.equal(got.rows, want.rows)
+        assert (got.n_vocab, got.hot) == (want.n_vocab, want.hot)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2, 4])
+def test_cuda_embedding_bag_backward_g_out_views(offset):
+    """g_out starting ``offset`` floats into its buffer (4-, 8- and
+    16-byte aligned: the d = 10 gathers read 8 bytes a lane where g_out
+    allows, else 4) gives the bits of an aligned copy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(offset)
+    G, I = _bag_grad_case(rng, 30_001, 2, 10, 20_000, True)
+    buf = torch.empty(G.numel() + offset, device="cuda")
+    view = buf[offset:].view(G.shape)
+    view.copy_(G)
+    assert torch.equal(embedding_bag_backward(view, I, 20_000),
+                       embedding_bag_backward(G, I, 20_000))
+
+
+@pytest.mark.cuda
+def test_cuda_embedding_bag_backward_shares_one_plan():
+    """One plan for a d = 10 and a d = 1 call (DeepFM's two tables): each
+    result bitwise that of the same call building its own plan, and one
+    build in all."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(11)
+    n_vocab = 40_000
+    G10, I = _bag_grad_case(rng, 60_000, 2, 10, n_vocab, True)
+    G1 = G10[:, :1].contiguous()
+    b0 = bag_grad_plan.builds
+    plan = bag_grad_plan(I, n_vocab)
+    got10 = embedding_bag_backward(G10, I, n_vocab, plan)
+    got1 = embedding_bag_backward(G1, I, n_vocab, plan)
+    assert bag_grad_plan.builds == b0 + 1
+    assert torch.equal(got10, embedding_bag_backward(G10, I, n_vocab))
+    assert torch.equal(got1, embedding_bag_backward(G1, I, n_vocab))
+    _assert_bag_grad(got10, G10, I, n_vocab, plan)
+    _assert_bag_grad(got1, G1, I, n_vocab, plan)
+    with pytest.raises(ValueError):     # a plan for another vocabulary
+        embedding_bag_backward(G1, I, n_vocab + 1, plan)
+    assert bag_grad_layout(I.numel(), n_vocab, 10)[0] == 256
 
 
 @pytest.mark.cuda
