@@ -258,6 +258,41 @@ Phases, one line each (any failure exits non-zero):
              ``torch.zeros(V, d).index_add_`` as the library yardstick,
              and the bound.
 
+12. gnn   — the scalar-payload GNNs (``repro_torch.configs.meshgraphnet``,
+             ``pna``, ``egnn``) training at their ``FULL`` widths on
+             ``minibatch_lg``: the neighbour-sampled subgraph (batch 1024,
+             fanouts 15-10, seed 0, 602 features; 169,984 node and 168,960
+             edge slots) of a seeded Barabási–Albert stand-in (m = 4) for
+             the 232,965-vertex graph, labels ``argmax(node_feat[:,
+             :41])``, a seeded ``[E, 8]`` edge_feat (MeshGraphNet) and
+             ``[N, 3]`` pos (EGNN). The launch counts are set to 0, the
+             graph's two plans (``GraphBatch.with_plans``: senders,
+             receivers) built, and (a) each model takes 20 steps of
+             ``gnn_train_step`` on ``node_class_loss`` (AdamW lr 1e-3,
+             warm-up 5): every loss finite, the mean of the last 5 below
+             the first 5's, ``embedding_bag`` and ``embedding_bag_backward``
+             launched by each model, exactly 2 plan builds and launches in
+             all, no solver kernel; step ms (CUDA events, median of steps
+             5–19), nodes/s, model TFLOP/s from the config's ``flops``,
+             peak GiB. (b) Each trained model's forward with the kernels,
+             twice (bitwise), against the same forward with the bag
+             wrappers rebound to their plain versions (no launch; within
+             1e-5 of the output's max |x|). (c) MeshGraphNet's 20 steps
+             through ``TrainLoopRunner`` with a failure injected at step 11
+             and checkpoints every 5: bitwise (a)'s parameters and
+             optimizer state. (d) EGNN at ``molecule`` (128 graphs of 30
+             nodes and 128 seeded edges, ``graph_reg_loss``, 3 plans): 10
+             finite steps, then a seeded rotation and translation of pos
+             leaves node_out within 1e-4 relative and moves the coordinates
+             with it within 1e-4 relative. (e) ``gnn_gather_d{128,75,3}``
+             (``embedding_bag`` with bags of one id over the senders:
+             bitwise its plain version, ``index_select`` as the library
+             yardstick) and ``gnn_scatter_d{…}`` (``embedding_bag_backward``
+             over the receivers' plan: within 1e-6 of each row's sum of |m|,
+             bitwise on a repeat, every row written; ``zeros(N,
+             d).index_add_``) records; every record gets ``gnn_launches``,
+             the launches of (a).
+
 Then a ``[total]`` line with the script's seconds. The line before the
 last is the card's name and power limit, the one before it the kernels'
 JSON record; the last line is ``{"ok": true, "device": {...}}``.
@@ -294,6 +329,20 @@ DIST_GRID_N = 1 << 18   # the dist phase's 2×2 world: BA n = 2^18
 DIST_WORLD_TIMEOUT_S = 400.0
 TRAIN_STEPS, TRAIN_CKPT_EVERY = 30, 10   # each run of the train phase
 TRAIN_FAIL_AT = (13, 24)                 # run A's injected failures
+GNN_ARCHS = ("meshgraphnet", "pna", "egnn")
+GNN_BA_N = 232_965      # the vertices of minibatch_lg's full graph
+GNN_BATCH, GNN_FANOUTS = 1024, (15, 10)  # its sampler: seeds, fanouts
+GNN_STEPS, GNN_TIMED_FROM = 20, 5        # (a): the median of steps 5–19
+GNN_CKPT_EVERY, GNN_FAIL_AT = 5, (11,)   # (c): MeshGraphNet's replay
+GNN_MOLECULE_STEPS = 10
+GNN_WIDTHS = (128, 75, 3)   # MeshGraphNet, PNA, EGNN's coordinates
+# (b): kernels vs plain, of the output's max |x|: 7× the largest error
+# measured on an H100 (1.38e-6, EGNN; PERF.md)
+GNN_REL_TOL = 1e-5
+BAG_OPS = ("repro_torch.kernels.embedding_bag",
+           "repro_torch.kernels.embedding_bag.ops")
+BAG_PLAIN = {"embedding_bag_kernel": "embedding_bag_ref",
+             "embedding_bag_backward": "embedding_bag_backward_ref"}
 REPLACES = {
     "spmv_ell": "src/repro/kernels/spmv_ell/spmv_ell.py:41",
     "jacobi": "src/repro/kernels/jacobi/jacobi.py:35",
@@ -490,24 +539,28 @@ def registry_line(ledger: dict) -> str:
 
 
 def kernel_record(torch, name, launches, err, kernel, plain, bytes_moved,
-                  ops, library=None) -> dict:
+                  ops, library=None, label=None, replaces=None) -> dict:
     """One kernel's entry of the ``kernels`` JSON line, printed as it is
-    made: ``kernel``, ``plain`` and ``library`` are calls to time."""
+    made: ``kernel``, ``plain`` and ``library`` are calls to time. A
+    ``label`` names a record of kernel ``name`` at another path's shapes
+    (the record then says ``kernel``: ``name``), ``replaces`` what it
+    stands in for there."""
     b_ms, b_by = bound(bytes_moved, ops)
     k_ms, (d_ms, windows) = (time_ms(torch, kernel),
                              device_ms(torch, kernel, name))
     plain_ms = time_ms(torch, plain)
     library_ms = time_ms(torch, library) if library else None
-    say("kernels", name=name, max_abs_err=err, kernel_ms=k_ms,
+    say("kernels", name=label or name, max_abs_err=err, kernel_ms=k_ms,
         device_ms=d_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         of_bound=round(b_ms / d_ms, 4), library_ms=library_ms,
         bytes=int(bytes_moved), profiler_windows=windows)
-    return dict(name=name, route="cuda",
-                source=f"src/repro_torch/csrc/{name}.cu",
-                replaces=REPLACES[name], launches=launches,
-                max_abs_err=err, ms=d_ms, kernel_ms=k_ms, device_ms=d_ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms)
+    rec = dict(name=label or name, route="cuda",
+               source=f"src/repro_torch/csrc/{name}.cu",
+               replaces=replaces or REPLACES[name], launches=launches,
+               max_abs_err=err, ms=d_ms, kernel_ms=k_ms, device_ms=d_ms,
+               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               library_ms=library_ms)
+    return rec if label is None else dict(rec, kernel=name)
 
 
 def graph(n: int, seed: int):
@@ -2716,6 +2769,387 @@ def phase_kernels_train(torch, train) -> list:
     return [rec, plan_rec]
 
 
+@contextlib.contextmanager
+def plain_bag_ops():
+    """Rebind the bag forward and backward wrappers to their plain versions
+    in the package and in ``ops`` (whose globals ``BagSum`` and
+    ``ScatterSum`` read) for the duration of the block: the GNNs' gathers
+    and scatters then run the plain versions, on the card too. A check of
+    the kernels only; the port has no such switch."""
+    mods = [importlib.import_module(m) for m in BAG_OPS]
+    saved = [(m, k, getattr(m, k)) for m in mods for k in BAG_PLAIN]
+    for m in mods:
+        for k, ref in BAG_PLAIN.items():
+            setattr(m, k, getattr(mods[1], ref))
+    try:
+        yield
+    finally:
+        for m, k, fn in saved:
+            setattr(m, k, fn)
+
+
+def gnn_minibatch(torch, np):
+    """``minibatch_lg`` on the card (``configs.gnn_common.
+    minibatch_lg_graph``: GNN_BATCH seeds, GNN_FANOUTS, a BA stand-in of
+    GNN_BA_N vertices), checked for the shape's slot counts, every slot
+    real. Returns the GraphBatch (no plans yet), the labels and the
+    seconds it took (host numpy, then the copy)."""
+    from repro_torch.configs.gnn_common import SHAPE_DIMS, minibatch_lg_graph
+
+    dims = SHAPE_DIMS["minibatch_lg"]
+    t0 = time.perf_counter()
+    g, labels = minibatch_lg_graph("cuda", GNN_BA_N, GNN_BATCH, GNN_FANOUTS)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    N, E = g.n_nodes, g.n_edges
+    check((N, E) == (dims["n_nodes"], dims["n_edges"])
+          and bool((g.senders < N).all()) and bool((g.receivers < N).all()),
+          f"gnn: the sample has {N} node and {E} edge slots, expected "
+          f"{dims['n_nodes']} and {dims['n_edges']}, all real")
+    return g, labels, host_s
+
+
+def gnn_model(arch):
+    """``(cfg, init, forward, flops)`` of ``arch`` at ``minibatch_lg``:
+    the config's FULL widths with 602 input features."""
+    from repro_torch.configs.gnn_common import SHAPE_DIMS
+
+    mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    cfg, init, fwd = mod.make_model("minibatch_lg",
+                                    SHAPE_DIMS["minibatch_lg"]["d_feat"])
+    return cfg, init, fwd, mod.flops
+
+
+def first_out(out):
+    return out[0] if isinstance(out, tuple) else out
+
+
+def gnn_train(torch, np, arch, g, labels, opt_cfg) -> dict:
+    """(a) GNN_STEPS steps of ``gnn_train_step`` on ``node_class_loss``
+    from seeded weights on the card; each step's device time by CUDA
+    events."""
+    from repro_torch.configs.gnn_common import gnn_train_step, node_class_loss
+    from repro_torch.optim.adamw import adamw_init
+
+    cfg, init, fwd, _ = gnn_model(arch)
+
+    def loss_fn(p, b):
+        return node_class_loss(first_out(fwd(cfg, p, b["graph"])),
+                               b["labels"], b["graph"].n_nodes)
+
+    step = gnn_train_step(loss_fn, opt_cfg)
+    params = init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw_init(params, opt_cfg)
+    batch = dict(graph=g, labels=labels)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    marks, losses = [], []
+    for _ in range(GNN_STEPS):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        params, opt, metrics = step(params, opt, batch)
+        e1.record()
+        marks.append((e0, e1))
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    return dict(cfg=cfg, fwd=fwd, step=step, batch=batch, params=params,
+                opt=opt, losses=[float(x) for x in losses],
+                step_ms=[a.elapsed_time(b) for a, b in marks],
+                peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def gnn_vs_plain(torch, run) -> dict:
+    """(b) The trained model's forward with the kernels, twice (bitwise),
+    against the same forward through the plain versions on the card."""
+    cfg, fwd, params, g = run["cfg"], run["fwd"], run["params"], \
+        run["batch"]["graph"]
+    with torch.no_grad():
+        got = fwd(cfg, params, g)
+        again = fwd(cfg, params, g)
+        before = phase_launches()
+        with plain_bag_ops():
+            want = fwd(cfg, params, g)
+        after = phase_launches()
+    got, again, want = ((x,) if not isinstance(x, tuple) else x
+                        for x in (got, again, want))
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          "gnn: a repeated forward is not bitwise equal")
+    check(before == after, "gnn: the plain forward launched a kernel")
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    scale = max(float(b.abs().max()) for b in want)
+    check(all(bool(torch.isfinite(a).all()) for a in got)
+          and err <= GNN_REL_TOL * scale,
+          f"gnn: the forward with the kernels is {err} off the plain "
+          f"versions' (max |out| {scale})")
+    return dict(max_abs_err=err, max_abs_out=scale, rel_err=err / scale)
+
+
+def gnn_replay(torch, run) -> dict:
+    """(c) The same steps through ``TrainLoopRunner`` with an injected
+    failure and checkpoints: bitwise the uninterrupted run."""
+    import shutil
+    import tempfile
+
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime import FailureInjector, TrainLoopRunner
+
+    cfg, init, _, _ = gnn_model("meshgraphnet")
+    calls = [0]
+
+    def step_fn(params, opt, batch):
+        calls[0] += 1
+        return run["step"](params, opt, batch)
+
+    params = init(cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt_state = adamw_init(params, run["opt_cfg"])
+    inj = FailureInjector(GNN_FAIL_AT)
+    work = tempfile.mkdtemp(prefix="repro_torch_gnn_")
+    t0 = time.perf_counter()
+    try:
+        runner = TrainLoopRunner(step_fn, lambda s: run["batch"], work,
+                                 ckpt_every=GNN_CKPT_EVERY,
+                                 failure_injector=inj)
+        params, opt_state, _ = runner.run(params, opt_state, GNN_STEPS)
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    check(inj.fired == set(GNN_FAIL_AT), f"gnn: injected failures fired at "
+          f"{sorted(inj.fired)}")
+    check(bitwise_equal(torch, dict(params=params, opt=opt_state),
+                        dict(params=run["params"], opt=run["opt"])),
+          "gnn: the recovered MeshGraphNet run is not bitwise the "
+          "uninterrupted one")
+    return dict(step_calls=calls[0], loop_s=secs)
+
+
+def molecule_graph(torch, np, n_graphs=128, nodes=30, edges=128):
+    """``molecule``: ``n_graphs`` graphs of ``nodes`` nodes and ``edges``
+    seeded edges each, endpoints inside their graph; 16 seeded features,
+    seeded positions and per-graph targets."""
+    from repro_torch.models.gnn.common import GraphBatch
+
+    rng = np.random.default_rng(4)
+    base = np.repeat(np.arange(n_graphs) * nodes, edges)
+    s = (base + rng.integers(0, nodes, n_graphs * edges)).astype(np.int32)
+    r = (base + rng.integers(0, nodes, n_graphs * edges)).astype(np.int32)
+    n = n_graphs * nodes
+
+    def dev(a):
+        return torch.as_tensor(a, device="cuda")
+
+    g = GraphBatch(senders=dev(s), receivers=dev(r),
+                   node_feat=dev(rng.normal(size=(n, 16)).astype(np.float32)),
+                   pos=dev(rng.normal(size=(n, 3)).astype(np.float32)),
+                   graph_id=dev(np.repeat(np.arange(n_graphs),
+                                          nodes).astype(np.int32)))
+    targets = dev(rng.normal(size=n_graphs).astype(np.float32))
+    return g, targets
+
+
+def gnn_molecule(torch, np, opt_cfg) -> dict:
+    """(d) EGNN at FULL widths on ``molecule``: GNN_MOLECULE_STEPS steps
+    of ``graph_reg_loss`` (its pooling a scatter-sum over ``graph_id``
+    with its own plan), then a seeded rotation and translation of ``pos``
+    on the trained weights."""
+    from repro_torch.configs import egnn
+    from repro_torch.configs.gnn_common import (SHAPE_DIMS, gnn_train_step,
+                                                graph_reg_loss)
+    from repro_torch.kernels.embedding_bag import bag_grad_plan
+    from repro_torch.optim.adamw import adamw_init
+
+    dims = SHAPE_DIMS["molecule"]
+    n_graphs = dims["n_graphs"]
+    g, targets = molecule_graph(torch, np, n_graphs)
+    check((g.n_nodes, g.n_edges) == (dims["n_nodes"], dims["n_edges"]),
+          f"gnn: molecule has {g.n_nodes} nodes and {g.n_edges} edges")
+    cfg, init, fwd = egnn.make_model("molecule", dims["d_feat"])
+    builds = bag_grad_plan.builds
+    g = g.with_plans()
+    gplan = bag_grad_plan(g.graph_id.view(-1, 1), n_graphs)
+    plans = bag_grad_plan.builds - builds
+
+    def loss_fn(p, b):
+        return graph_reg_loss(fwd(cfg, p, b)[0], b.graph_id, targets,
+                              n_graphs, gplan)
+
+    step = gnn_train_step(loss_fn, opt_cfg)
+    params = init(cfg, torch.Generator(device="cuda").manual_seed(1))
+    opt = adamw_init(params, opt_cfg)
+    losses = []
+    for _ in range(GNN_MOLECULE_STEPS):
+        params, opt, m = step(params, opt, g)
+        losses.append(float(m["loss"]))
+    check(all(np.isfinite(losses)), f"gnn: a molecule loss is not finite: "
+          f"{losses}")
+    check(plans == 3 and bag_grad_plan.builds - builds == 3,
+          f"gnn: molecule built {bag_grad_plan.builds - builds} plans, "
+          "expected 3 (senders, receivers, graph_id)")
+    rot, _ = np.linalg.qr(np.random.default_rng(5).normal(size=(3, 3)))
+    if np.linalg.det(rot) < 0:
+        rot[:, 0] = -rot[:, 0]
+    rot = torch.as_tensor(rot.astype(np.float32), device="cuda")
+    shift = torch.tensor([0.7, -1.3, 2.1], device="cuda")
+    moved = dataclasses.replace(g, pos=g.pos @ rot.T + shift)
+    with torch.no_grad():
+        h, x = fwd(cfg, params, g)
+        h2, x2 = fwd(cfg, params, moved)
+    want = x @ rot.T + shift
+    h_err = float((h2 - h).abs().max() / h.abs().max())
+    x_err = float((x2 - want).abs().max() / want.abs().max())
+    check(h_err <= 1e-4 and x_err <= 1e-4, f"gnn: EGNN is not E(n) "
+          f"equivariant on the card: node_out {h_err}, coords {x_err} "
+          "relative")
+    return dict(losses=losses, node_out_rel_err=h_err, coords_rel_err=x_err,
+                moved=float((x - g.pos).abs().max()))
+
+
+def phase_gnn(torch, np) -> dict:
+    """The scalar-payload GNNs training at FULL widths on minibatch_lg.
+    Returns the launches of the main path (a) by kernel and the GNN-shape
+    kernel records."""
+    from repro_torch.kernels.embedding_bag import bag_grad_plan
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import leaves
+
+    t_phase = time.perf_counter()
+    g, labels, host_s = gnn_minibatch(torch, np)
+    N, E = g.n_nodes, g.n_edges
+    say("gnn", shape="minibatch_lg", nodes=N, edges=E,
+        d_feat=g.node_feat.shape[1], classes=int(labels.max()) + 1,
+        graph_s=round(host_s, 2))
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=GNN_STEPS)
+    zero_launches()
+    builds = bag_grad_plan.builds
+    g = g.with_plans()
+    plans = bag_grad_plan.builds - builds
+    runs, per_model = {}, {}
+    for arch in GNN_ARCHS:
+        before = phase_launches()
+        run = runs[arch] = gnn_train(torch, np, arch, g, labels, opt_cfg)
+        run["opt_cfg"] = opt_cfg
+        after = phase_launches()
+        per_model[arch] = {k: after[k] - before[k] for k in after}
+    launched = phase_launches()
+    check(plans == 2 and bag_grad_plan.builds - builds == 2
+          and launched["bag_grad_plan"] == 2,
+          f"gnn: {bag_grad_plan.builds - builds} plan builds and "
+          f"{launched['bag_grad_plan']} launches for the graph's 2 index "
+          "arrays (senders, receivers), expected one each")
+    check(all(launched[k] == 0 for k in ("spmv_ell", "jacobi", "agg_vote")),
+          f"gnn: a solver kernel launched: {launched}")
+    for arch, run in runs.items():
+        cfg, losses = run["cfg"], run["losses"]
+        timed = run["step_ms"][GNN_TIMED_FROM:]
+        step_ms = float(np.median(timed))
+        flop = gnn_model(arch)[3](cfg, N, E)
+        first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        k = per_model[arch]
+        say("gnn", model=arch, layers=cfg.n_layers, d_hidden=cfg.d_hidden,
+            d_out=cfg.d_out,
+            params=sum(t.numel() for t in leaves(run["params"])),
+            step_ms_median=step_ms, step_ms_min=min(timed),
+            step_ms_max=max(timed), first_step_ms=run["step_ms"][0],
+            nodes_per_s=N / (step_ms / 1e3),
+            model_tflop_per_step=flop / 1e12,
+            model_tflops=flop / (step_ms / 1e3) / 1e12,
+            peak_gib=round(run["peak_gib"], 3),
+            bag_launches_per_step=k["embedding_bag"] / GNN_STEPS,
+            bag_backward_launches_per_step=k["embedding_bag_backward"]
+            / GNN_STEPS)
+        say("gnn", model=arch, loss_first5_mean=first, loss_last5_mean=last,
+            losses=json.dumps([round(x, 5) for x in losses]))
+        check(all(np.isfinite(losses)), f"gnn: {arch}: a loss is not finite")
+        check(last < first, f"gnn: {arch}: the loss did not fall "
+              f"({first} -> {last})")
+        check(k["embedding_bag"] > 0 and k["embedding_bag_backward"] > 0,
+              f"gnn: {arch} did not launch the gather and scatter kernels: "
+              f"{k}")
+    t_a = time.perf_counter() - t_phase
+    for arch in GNN_ARCHS:                     # (b)
+        say("gnn", model=arch, check="kernels_vs_plain",
+            **gnn_vs_plain(torch, runs[arch]))
+    replay = gnn_replay(torch, runs["meshgraphnet"])    # (c)
+    say("gnn", model="meshgraphnet", check="replay",
+        fail_at=json.dumps(list(GNN_FAIL_AT)), ckpt_every=GNN_CKPT_EVERY,
+        bitwise=True, **replay)
+    del runs
+    mol = gnn_molecule(torch, np, opt_cfg)             # (d)
+    say("gnn", model="egnn", shape="molecule",
+        losses=json.dumps([round(x, 5) for x in mol.pop("losses")]), **mol)
+    records = phase_kernels_gnn(torch, np, g, launched)    # (e)
+    secs = time.perf_counter() - t_phase
+    say("gnn", seconds=round(secs, 1), train_seconds=round(t_a, 1))
+    return dict(launched, records=records)
+
+
+def phase_kernels_gnn(torch, np, g, launched) -> list:
+    """(e) The gather (``embedding_bag``, bags of one id) and the scatter
+    (``embedding_bag_backward`` over the receivers' plan) at the
+    minibatch_lg graph and each width of GNN_WIDTHS, against their plain
+    versions, with ``index_select`` and ``zeros(N, d).index_add_`` as the
+    library yardsticks."""
+    from repro_torch.kernels.embedding_bag import (embedding_bag_backward,
+                                                   embedding_bag_backward_ref,
+                                                   embedding_bag_kernel,
+                                                   embedding_bag_ref)
+
+    N, E = g.n_nodes, g.n_edges
+    S, R = g.senders.view(-1, 1), g.receivers.view(-1, 1)
+    plan = g.receiver_plan
+    s_long, r_long = g.senders.long(), g.receivers.long()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    before = embedding_bag_kernel.launches, embedding_bag_backward.launches
+    records = []
+    for d in GNN_WIDTHS:
+        x = torch.randn((N, d), generator=gen, device="cuda")
+        m = torch.randn((E, d), generator=gen, device="cuda")
+        got, want = embedding_bag_kernel(x, S), embedding_bag_ref(x, S)
+        check(torch.equal(got, want) and torch.equal(
+            embedding_bag_kernel(x, S), got),
+            f"gnn gather at d = {d} is not bitwise its plain version, or "
+            "not bitwise on a repeat")
+        records.append(kernel_record(
+            torch, "embedding_bag", launched["embedding_bag"], 0.0,
+            lambda: embedding_bag_kernel(x, S),
+            lambda: embedding_bag_ref(x, S), 4 * E + 8 * E * d, 0,
+            library=lambda: x.index_select(0, s_long),
+            label=f"gnn_gather_d{d}",
+            replaces="src/repro/models/gnn/common.py:50"))
+        got = embedding_bag_backward(m, R, N, plan)
+        want = embedding_bag_backward_ref(m, R, N, plan)
+        scale = embedding_bag_backward_ref(m.abs(), R, N, plan)
+        nan = torch.full((N, d), float("nan"), device="cuda")
+        embedding_bag_backward(m, R, N, plan, _out=nan)
+        torch.cuda.synchronize()
+        check(bool(((got - want).abs() <= 1e-6 * scale).all())
+              and torch.equal(embedding_bag_backward(m, R, N, plan), got)
+              and torch.equal(nan, got),
+              f"gnn scatter at d = {d}: not within 1e-6 of each row's sum of "
+              "|m| of its plain version, not bitwise on a repeat, or a row "
+              "left unwritten")
+        err = float((got - want).abs().max())
+        del got, want, scale, nan
+        records.append(kernel_record(
+            torch, "embedding_bag_backward",
+            launched["embedding_bag_backward"], err,
+            lambda: embedding_bag_backward(m, R, N, plan),
+            lambda: embedding_bag_backward_ref(m, R, N, plan),
+            8 * E + 4 * E * d + 4 * N * d, E * d,
+            library=lambda: torch.zeros((N, d), device="cuda").index_add_(
+                0, r_long, m),
+            label=f"gnn_scatter_d{d}",
+            replaces="src/repro/models/gnn/common.py:58"))
+    check(embedding_bag_kernel.launches > before[0]
+          and embedding_bag_backward.launches > before[1],
+          "gnn: the gather or scatter was not launched in the comparison")
+    for rec in records:
+        rec["gnn_launches"] = rec["launches"]
+    return records
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2776,6 +3210,11 @@ def main() -> int:
                             deepfm_launches=deepfm_bwd[name]))
     for rec in records:                 # the train phase's own launches
         rec["train_launches"] = train[rec["name"]]
+    del train
+    gnn = phase_gnn(torch, np)
+    for rec in records:                 # the gnn phase's own launches
+        rec["gnn_launches"] = gnn[rec["name"]]
+    records += gnn["records"]
     say("total", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

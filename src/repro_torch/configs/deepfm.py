@@ -20,7 +20,7 @@ from repro_torch.models.recsys.deepfm import (DeepFMConfig, deepfm_loss,
                                               fm_retrieval_scores,
                                               init_deepfm)
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
-from repro_torch.tree import leaves, tree_map, unflatten
+from repro_torch.tree import value_and_grad
 
 FULL = DeepFMConfig(n_fields=39, embed_dim=10, mlp_sizes=(400, 400, 400),
                     vocab_per_field=default_vocabs(39), multi_hot=2)
@@ -59,11 +59,8 @@ def loss_and_grads(cfg: DeepFMConfig, params: dict, indices: torch.Tensor,
     """``deepfm_loss`` and its gradient in every parameter (a tree shaped
     like ``params``): the reference's ``jax.value_and_grad``. ``params``
     is left as it is."""
-    live = tree_map(lambda t: t.detach().requires_grad_(), params)
-    with torch.enable_grad():
-        loss = deepfm_loss(cfg, live, indices, labels)
-        grads = torch.autograd.grad(loss, leaves(live))
-    return loss.detach(), unflatten(params, iter(grads))
+    return value_and_grad(lambda p: deepfm_loss(cfg, p, indices, labels),
+                          params)
 
 
 def make_train_step(cfg: DeepFMConfig, opt_cfg: AdamWConfig = AdamWConfig()):

@@ -49,4 +49,5 @@ def list_archs() -> list:
 
 def _ensure_loaded() -> None:
     # the arch modules register themselves when imported
-    from repro_torch.configs import deepfm, laplacian_solver  # noqa: F401
+    from repro_torch.configs import (deepfm, egnn,  # noqa: F401
+                                     laplacian_solver, meshgraphnet, pna)

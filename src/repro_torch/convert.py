@@ -21,6 +21,11 @@ very same hierarchy, independently of setup. The layout of ``tree``:
 the reference's ``init_deepfm`` returns, as numpy arrays:
 ``{"table", "first_order", "bias": array, "mlp": {"w": [...], "b": [...]}}``.
 
+``gnn_params_from_numpy(tree, device)`` does the same for the parameter
+dicts of the reference's ``init_mgn``, ``init_pna`` and ``init_egnn``:
+dicts and lists of MLP dicts ``{"w": [...], "b": [...]}``, with
+``ln_scale``/``ln_bias`` where the MLP ends in a LayerNorm.
+
 ``adamw_state_from_numpy(tree, device)`` takes the reference's
 ``adamw_init``/``adamw_update`` state as numpy: ``{"mu": tree, "nu": tree,
 "step": int32}``, each moment leaf a float32 array, a bfloat16 one (an
@@ -106,6 +111,22 @@ def deepfm_params_from_numpy(tree: dict, device) -> dict:
                 mlp={k: [_t(a, device, torch.float32) for a in tree["mlp"][k]]
                      for k in ("w", "b")},
                 bias=_t(tree["bias"], device, torch.float32))
+
+
+def gnn_params_from_numpy(tree, device):
+    """The port's GNN parameters (the ``init_*`` layouts of
+    ``repro_torch.models.gnn``) for a reference parameter tree of numpy
+    arrays: the same dicts and lists, every leaf a float32 tensor."""
+    device = torch.device(device)
+
+    def conv(t):
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return [conv(v) for v in t]
+        return _t(t, device, torch.float32)
+
+    return conv(tree)
 
 
 def _moment(a, device):

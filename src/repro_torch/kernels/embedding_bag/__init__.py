@@ -1,4 +1,5 @@
 from repro_torch.kernels.embedding_bag.ops import (BagGradPlan, BagSum,
+                                                  ScatterSum,
                                                   bag_grad_layout,
                                                   bag_grad_plan,
                                                   bag_grad_plan_ref,
@@ -7,7 +8,7 @@ from repro_torch.kernels.embedding_bag.ops import (BagGradPlan, BagSum,
                                                   embedding_bag_kernel,
                                                   embedding_bag_ref)
 
-__all__ = ["BagGradPlan", "BagSum", "bag_grad_layout", "bag_grad_plan",
-           "bag_grad_plan_ref", "embedding_bag_backward",
+__all__ = ["BagGradPlan", "BagSum", "ScatterSum", "bag_grad_layout",
+           "bag_grad_plan", "bag_grad_plan_ref", "embedding_bag_backward",
            "embedding_bag_backward_ref", "embedding_bag_kernel",
            "embedding_bag_ref"]

@@ -21,6 +21,15 @@ are sorted by id once a batch (:func:`bag_grad_plan`, a stable
 summed in a fixed order; every row of the ``[V, d]`` output is written
 once, untouched rows with zeros. :class:`BagSum` is the
 ``torch.autograd.Function`` that pairs the two.
+
+Message passing: with bags of one id the same two kernels are a row
+gather and its scatter-sum. ``BagSum.apply(x, senders.view(-1, 1),
+plan)`` is ``x[senders]`` (ids outside ``[0, N)`` giving 0) with the
+backward kernel as its gradient, and :class:`ScatterSum` is the
+deterministic ``Σ_{e: receivers[e] = r} msgs[e]`` with the forward
+kernel as its gradient; neither adds with float atomics, so a training
+step gives the same bits every time (``index_add_``, autograd's gather
+backward on CUDA, would not).
 """
 
 from __future__ import annotations
@@ -64,9 +73,11 @@ def _launch(t: torch.Tensor, fn, *args) -> int:
 def embedding_bag_ref(table: torch.Tensor,
                       indices: torch.Tensor) -> torch.Tensor:
     """Plain version: ``out[b] = Σ_h table[indices[b, h]]`` summed in
-    float32, ids outside ``[0, V)`` contributing 0."""
+    float32 (a float64 table in float64), ids outside ``[0, V)``
+    contributing 0."""
     vecs = take_fill(table, indices, 0)                  # [B, hot, d]
-    return vecs.sum(dim=-2, dtype=torch.float32).to(table.dtype)
+    acc = torch.promote_types(table.dtype, torch.float32)
+    return vecs.sum(dim=-2, dtype=acc).to(table.dtype)
 
 
 def embedding_bag_kernel(table: torch.Tensor,
@@ -203,9 +214,11 @@ def embedding_bag_backward_ref(g_out: torch.Tensor, indices: torch.Tensor,
     h] = v} g_out[b]``, ``[n_vocab, d]``, rows no valid id touches 0. A
     deterministic sorted segment sum (``sparse.segment``) over ``plan``'s
     order (built here when none is given): each row's slots in slot
-    order, from 0, the same bits with a plan or without one."""
+    order, from 0, the same bits with a plan or without one. In float32
+    (float64 ``g_out`` in float64)."""
     plan = _checked_plan(plan, indices, n_vocab)
-    rows = g_out.float().index_select(0, plan.rows.long())
+    acc = torch.promote_types(g_out.dtype, torch.float32)
+    rows = g_out.to(acc).index_select(0, plan.rows.long())
     return sorted_segment_sum(rows, plan.sorted_ids, n_vocab)
 
 
@@ -283,3 +296,27 @@ class BagSum(torch.autograd.Function):
         # e.g. the first-order term's gradient arrives as a stride-0 expand
         return (embedding_bag_backward(g_out.contiguous(), indices,
                                        ctx.n_vocab, ctx.plan), None, None)
+
+
+class ScatterSum(torch.autograd.Function):
+    """The scatter-sum of message passing: ``ScatterSum.apply(msgs [E, d],
+    indices [E, 1] int32, n_rows, plan=None)`` -> ``[n_rows, d]``, row r
+    the sum of the messages whose index is r (in edge order, from 0),
+    rows no index in ``[0, n_rows)`` names 0. Its forward is the bag
+    backward kernel over ``plan`` (:func:`bag_grad_plan` of ``indices``
+    for ``n_rows`` rows; built here when none is given), its backward the
+    bag forward kernel over the same ids: the gradient of each message is
+    its row's. Kernels on CUDA tensors, plain versions on CPU ones."""
+
+    @staticmethod
+    def forward(ctx, msgs: torch.Tensor, indices: torch.Tensor, n_rows: int,
+                plan: BagGradPlan | None = None):
+        ctx.save_for_backward(indices)
+        return embedding_bag_backward(msgs.contiguous(), indices, n_rows,
+                                      plan)
+
+    @staticmethod
+    def backward(ctx, g_out: torch.Tensor):
+        (indices,) = ctx.saved_tensors
+        return (embedding_bag_kernel(g_out.contiguous(), indices), None,
+                None, None)

@@ -1,3 +1,12 @@
-from repro_torch.models.gnn.common import GraphBatch, init_mlp, mlp_apply
+from repro_torch.models.gnn.common import GraphBatch, segment_mean_max
+from repro_torch.models.gnn.egnn import EGNNConfig, egnn_forward, init_egnn
+from repro_torch.models.gnn.meshgraphnet import (MeshGraphNetConfig, init_mgn,
+                                                 mgn_forward)
+from repro_torch.models.gnn.pna import PNAConfig, init_pna, pna_forward
 
-__all__ = ["GraphBatch", "init_mlp", "mlp_apply"]
+__all__ = [
+    "GraphBatch", "segment_mean_max",
+    "MeshGraphNetConfig", "init_mgn", "mgn_forward",
+    "EGNNConfig", "init_egnn", "egnn_forward",
+    "PNAConfig", "init_pna", "pna_forward",
+]

@@ -1,8 +1,20 @@
-"""Of ``repro.models.gnn.common``: the ``GraphBatch`` container and the
-tiny MLP substrate (``init_mlp``, ``mlp_apply``), as plain functions over a
-``{"w": [...], "b": [...]}`` dict. Weights keep the reference's
-``[in, out]`` layout, so ``x @ w + b``. The products go to
-``torch.matmul``, as the JAX package leaves them to XLA.
+"""Of ``repro.models.gnn.common``: the ``GraphBatch`` container, message
+passing (``gather_src``, ``gather_dst``, ``scatter_sum``,
+``segment_mean_max``), the tiny MLP substrate (``init_mlp``,
+``mlp_apply``) and ``rbf_encode``, as plain functions over tensors and a
+``{"w": [...], "b": [...]}`` dict. Weights keep the reference's ``[in,
+out]`` layout, so ``x @ w + b``. The products go to ``torch.matmul``, as
+the JAX package leaves them to XLA.
+
+Message passing is the reference's gather at edge endpoints and sum at
+receivers, on the embedding-bag kernels with bags of one id
+(``kernels.embedding_bag``): a gather is the bag forward, its gradient
+the bag backward; a scatter-sum is the bag backward, its gradient the bag
+forward. Both are deterministic (sorted, no float atomics), so a training
+step gives the same bits every time. The backward kernel reads a
+``bag_grad_plan`` (the ids sorted once): :meth:`GraphBatch.with_plans`
+builds the senders' and the receivers' once per graph, and every layer
+and step then shares them.
 """
 
 from __future__ import annotations
@@ -15,6 +27,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.embedding_bag import BagGradPlan, bag_grad_plan
+from repro_torch.sparse.segment import segment_max
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,6 +38,9 @@ class GraphBatch:
 
     ``senders``/``receivers``: [E] int32, sentinel = n_nodes for padding.
     ``node_feat``: [N, d]; optional positions [N, 3] and edge feats [E, de].
+    ``sender_plan``/``receiver_plan``: the ``bag_grad_plan`` of each
+    endpoint array for ``n_nodes`` rows (:meth:`with_plans`); without
+    them every gather's and scatter's backward sorts its ids anew.
     """
 
     senders: torch.Tensor
@@ -32,6 +49,8 @@ class GraphBatch:
     edge_feat: Optional[torch.Tensor] = None
     pos: Optional[torch.Tensor] = None
     graph_id: Optional[torch.Tensor] = None   # [N] for batched small graphs
+    sender_plan: Optional[BagGradPlan] = None
+    receiver_plan: Optional[BagGradPlan] = None
 
     @property
     def n_nodes(self) -> int:
@@ -45,12 +64,90 @@ class GraphBatch:
     def edge_valid(self) -> torch.Tensor:
         return self.senders < self.n_nodes
 
+    def with_plans(self) -> "GraphBatch":
+        """This batch with both endpoint arrays' plans built, one each."""
+        n = self.n_nodes
+        return dataclasses.replace(
+            self, sender_plan=bag_grad_plan(self.senders.reshape(-1, 1), n),
+            receiver_plan=bag_grad_plan(self.receivers.reshape(-1, 1), n))
 
-def init_mlp(sizes, generator: torch.Generator, device=None) -> dict:
+
+def gather_rows(x: torch.Tensor, idx: torch.Tensor,
+                plan: Optional[BagGradPlan] = None) -> torch.Tensor:
+    """``x[idx]`` along dim 0 for ``x`` [n, d] and ``idx`` [E] int32, rows
+    of ids outside ``[0, n)`` 0 (``jnp.take(mode="fill", fill_value=0)``):
+    the bag forward kernel, differentiable through ``BagSum`` over
+    ``plan`` (the ``bag_grad_plan`` of ``idx`` for ``n`` rows)."""
+    from repro_torch.kernels.embedding_bag import BagSum, embedding_bag_kernel
+
+    bags = idx.reshape(-1, 1)
+    x = x.contiguous()
+    if x.requires_grad and torch.is_grad_enabled():
+        return BagSum.apply(x, bags, plan)
+    return embedding_bag_kernel(x, bags)
+
+
+def scatter_rows(msgs: torch.Tensor, idx: torch.Tensor, n: int,
+                 plan: Optional[BagGradPlan] = None) -> torch.Tensor:
+    """``segment_sum(msgs, idx, n)`` for ``msgs`` [E, d] and ``idx`` [E]
+    int32, ids outside ``[0, n)`` dropped: the bag backward kernel over
+    ``plan`` (the ``bag_grad_plan`` of ``idx`` for ``n`` rows),
+    differentiable through ``ScatterSum``."""
+    from repro_torch.kernels.embedding_bag import (ScatterSum,
+                                                   embedding_bag_backward)
+
+    bags = idx.reshape(-1, 1)
+    if msgs.requires_grad and torch.is_grad_enabled():
+        return ScatterSum.apply(msgs, bags, n, plan)
+    return embedding_bag_backward(msgs.contiguous(), bags, n, plan)
+
+
+def gather_src(g: GraphBatch, x: torch.Tensor) -> torch.Tensor:
+    return gather_rows(x, g.senders, g.sender_plan)
+
+
+def gather_dst(g: GraphBatch, x: torch.Tensor) -> torch.Tensor:
+    return gather_rows(x, g.receivers, g.receiver_plan)
+
+
+def scatter_sum(g: GraphBatch, msgs: torch.Tensor) -> torch.Tensor:
+    """Σ of each node's incoming messages; a message whose sender is
+    padding (``edge_valid`` false) counts 0, as in the reference."""
+    m = torch.where(g.edge_valid[:, None], msgs, 0)
+    return scatter_rows(m, g.receivers, g.n_nodes, g.receiver_plan)
+
+
+def in_degrees(g: GraphBatch, dtype=torch.float32) -> torch.Tensor:
+    """[N, 1]: each node's count of valid incoming edges."""
+    return scatter_sum(g, torch.ones((g.n_edges, 1), dtype=dtype,
+                                     device=g.senders.device))
+
+
+def segment_mean_max(g: GraphBatch, msgs: torch.Tensor):
+    """``(mean, max, count)`` of each node's valid incoming messages; nodes
+    with none get 0 for both."""
+    valid = g.edge_valid[:, None]
+    s = scatter_sum(g, msgs)
+    cnt = in_degrees(g, msgs.dtype)
+    mean = s / torch.clamp(cnt, min=1)
+    neg = torch.finfo(msgs.dtype).min
+    mx = segment_max(torch.where(valid, msgs, neg), g.receivers, g.n_nodes)
+    mx = torch.where(cnt > 0, mx, 0)
+    return mean, mx, cnt
+
+
+# ----------------------------------------------------------------------------
+# tiny MLP substrate (framework-free)
+# ----------------------------------------------------------------------------
+
+def init_mlp(sizes, generator: torch.Generator, device=None,
+             layernorm_out: bool = False) -> dict:
     """float32 weights ``N(0, 1/fan_in)`` of shape ``[sizes[i],
-    sizes[i+1]]`` and zero biases. The draws come from ``generator`` on its
-    own device and are then moved to ``device`` (default: the CUDA card),
-    so the weights do not depend on where they are used."""
+    sizes[i+1]]`` and zero biases; with ``layernorm_out`` a LayerNorm's
+    unit ``ln_scale`` and zero ``ln_bias`` after the last layer. The draws
+    come from ``generator`` on its own device and are then moved to
+    ``device`` (default: the CUDA card), so the weights do not depend on
+    where they are used."""
     device = resolve_device(device)
     params = {"w": [], "b": []}
     for fan_in, fan_out in zip(sizes[:-1], sizes[1:]):
@@ -58,6 +155,9 @@ def init_mlp(sizes, generator: torch.Generator, device=None) -> dict:
                         device=generator.device) / math.sqrt(fan_in)
         params["w"].append(w.to(device))
         params["b"].append(torch.zeros(fan_out, device=device))
+    if layernorm_out:
+        params["ln_scale"] = torch.ones(sizes[-1], device=device)
+        params["ln_bias"] = torch.zeros(sizes[-1], device=device)
     return params
 
 
@@ -68,4 +168,18 @@ def mlp_apply(params: dict, x: torch.Tensor, act=F.silu,
         x = x @ w + b
         if i < n - 1 or final_act:
             x = act(x)
+    if "ln_scale" in params:
+        mu = torch.mean(x, dim=-1, keepdim=True)
+        var = torch.var(x, dim=-1, keepdim=True, correction=0)
+        x = (x - mu) * torch.rsqrt(var + 1e-6)
+        x = x * params["ln_scale"] + params["ln_bias"]
     return x
+
+
+def rbf_encode(dist: torch.Tensor, n_basis: int = 16,
+               r_max: float = 5.0) -> torch.Tensor:
+    """Gaussian radial basis (SchNet-style) for edge distances."""
+    centers = torch.linspace(0.0, r_max, n_basis, dtype=dist.dtype,
+                             device=dist.device)
+    gamma = n_basis / r_max
+    return torch.exp(-gamma * torch.square(dist[..., None] - centers))

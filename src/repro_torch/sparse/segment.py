@@ -117,22 +117,46 @@ def _sum_sorted(data: torch.Tensor, lengths: torch.Tensor,
 
 def _segment_extreme(data, ids, num_segments, reduce, init):
     seg = _seg_ids(ids, num_segments)
-    out = torch.full((num_segments + 1,), init, dtype=data.dtype,
-                     device=data.device)
-    out.scatter_reduce_(0, seg, data, reduce, include_self=True)
+    out = torch.full((num_segments + 1,) + data.shape[1:], init,
+                     dtype=data.dtype, device=data.device)
+    if data.dim() > 1:                  # row-wise: one id a row
+        seg = seg.reshape((-1,) + (1,) * (data.dim() - 1)).expand(
+            data.shape)
+    out = out.scatter_reduce(0, seg, data, reduce, include_self=True)
     return out[:num_segments]
 
 
 def segment_max(data, ids, num_segments):
-    """Per-segment max; empty segments give the dtype's minimum."""
-    return _segment_extreme(data, ids, num_segments, "amax",
-                            _small(data.dtype))
+    """Per-segment max of ``data`` ([m] or [m, ...], one id a row; an
+    entry's gradient is shared evenly by the entries that tie for a max,
+    as JAX's). Empty segments give the reference's identity: ``-inf`` for
+    floats, the dtype's minimum for integers."""
+    init = -float("inf") if data.is_floating_point() else _small(data.dtype)
+    return _segment_extreme(data, ids, num_segments, "amax", init)
 
 
 def segment_min(data, ids, num_segments):
-    """Per-segment min; empty segments give the dtype's maximum."""
-    return _segment_extreme(data, ids, num_segments, "amin",
-                            _big(data.dtype))
+    """Per-segment min, as :func:`segment_max`; empty segments give
+    ``inf`` for floats, the dtype's maximum for integers."""
+    init = float("inf") if data.is_floating_point() else _big(data.dtype)
+    return _segment_extreme(data, ids, num_segments, "amin", init)
+
+
+def segment_mean(values, seg_ids, num_segments):
+    """Per-segment mean of ``values`` ([m] or [m, ...]); empty segments
+    give 0."""
+    s = segment_sum(values, seg_ids, num_segments)
+    n = segment_sum(torch.ones_like(values), seg_ids, num_segments)
+    return s / torch.clamp(n, min=1)
+
+
+def segment_std(values, seg_ids, num_segments):
+    """Per-segment population standard deviation (about the segment's
+    mean, in two passes, as the reference); empty segments give 0."""
+    m = segment_mean(values, seg_ids, num_segments)
+    d = values - take_fill(m, seg_ids, 0)
+    v = segment_mean(d * d, seg_ids, num_segments)
+    return torch.sqrt(torch.maximum(v, v.new_zeros(())))
 
 
 def segment_argmax_lex(primary, secondary, payload, seg_ids, num_segments,

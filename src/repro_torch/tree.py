@@ -62,3 +62,20 @@ def tree_map(fn, tree, *rest):
         return type(tree)(tree_map(fn, sub, *(r[i] for r in rest))
                           for i, sub in enumerate(tree))
     return fn(tree, *rest)
+
+
+def value_and_grad(fn, params):
+    """``fn(params)`` (a scalar tensor) and its gradient in every leaf of
+    ``params``, a tree shaped like ``params``: the reference's
+    ``jax.value_and_grad``, by autograd. A leaf ``fn`` does not reach gets
+    zeros, as JAX gives; ``params`` is left as it is."""
+    import torch
+
+    live = tree_map(lambda t: t.detach().requires_grad_(), params)
+    flat = leaves(live)
+    with torch.enable_grad():
+        value = fn(live)
+        grads = torch.autograd.grad(value, flat, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(flat, grads)]
+    return value.detach(), unflatten(params, iter(grads))

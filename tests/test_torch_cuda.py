@@ -762,3 +762,54 @@ def test_cuda_dist_world_of_one_runs_the_kernels():
     a = sp.csr_matrix((v.astype(np.float64), (r, c)), shape=(n, n))
     res = b - (np.asarray(a.sum(axis=1)).ravel() * x - a @ x)
     assert np.linalg.norm(res) / np.linalg.norm(b) <= 1e-4
+
+
+# (n_nodes, n_edges, d): minibatch_lg's padded sample at MeshGraphNet's,
+# PNA's and EGNN's coordinates' widths, and a small graph with padding
+GNN_CASES = [(169_984, 168_960, 128), (169_984, 168_960, 75),
+             (169_984, 168_960, 3), (301, 1_000, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,e,d", GNN_CASES)
+def test_cuda_gnn_gather_and_scatter_match_plain_versions(n, e, d):
+    """The message-passing pair on the bag kernels (bags of one id): the
+    gather bitwise its plain version, the scatter within 1e-6 of each
+    row's sum of |m| of its plain version, their gradients (``BagSum``,
+    ``ScatterSum``) likewise, every result bitwise on a repeat; ids
+    outside [0, n) (every 13th sender, every 17th receiver) gather 0 and
+    are dropped from the sums."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.models.gnn.common import gather_rows, scatter_rows
+
+    rng = np.random.default_rng(n + e + d)
+    s = rng.integers(0, n, e).astype(np.int32)
+    r = rng.integers(0, n, e).astype(np.int32)
+    s[::13] = n
+    r[::17] = n
+    S, R = _t(s).cuda(), _t(r).cuda()
+    X = _t(rng.normal(size=(n, d)).astype(np.float32)).cuda()
+    M = _t(rng.normal(size=(e, d)).astype(np.float32)).cuda()
+    plan_s = bag_grad_plan(S.view(-1, 1), n)
+    plan_r = bag_grad_plan(R.view(-1, 1), n)
+    n0 = embedding_bag_kernel.launches, embedding_bag_backward.launches
+    got = gather_rows(X, S, plan_s)
+    assert torch.equal(got, embedding_bag_ref(X, S.view(-1, 1)))
+    assert torch.equal(gather_rows(X, S, plan_s), got)
+    summed = scatter_rows(M, R, n, plan_r)
+    _assert_bag_grad(summed, M, R.view(-1, 1), n, plan_r)
+    assert torch.equal(scatter_rows(M, R, n, plan_r), summed)
+    assert (embedding_bag_kernel.launches, embedding_bag_backward.launches) \
+        == (n0[0] + 2, n0[1] + 2)
+    G = _t(rng.normal(size=(e, d)).astype(np.float32)).cuda()
+    H = _t(rng.normal(size=(n, d)).astype(np.float32)).cuda()
+    grads = []
+    for _ in range(2):
+        x, m = X.clone().requires_grad_(), M.clone().requires_grad_()
+        (gather_rows(x, S, plan_s) * G).sum().backward()
+        (scatter_rows(m, R, n, plan_r) * H).sum().backward()
+        grads.append((x.grad, m.grad))
+    _assert_bag_grad(grads[0][0], G, S.view(-1, 1), n, plan_s)
+    assert torch.equal(grads[0][1], embedding_bag_ref(H, R.view(-1, 1)))
+    assert all(torch.equal(a, b) for a, b in zip(*grads))

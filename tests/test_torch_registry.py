@@ -1,14 +1,17 @@
 """The port's arch registry and synthetic data vs the JAX package, on the
 CPU.
 
-``repro_torch.configs``: ``list_archs()`` names the port's archs (DeepFM
-and the Laplacian solver, the two of the reference's eleven that the port
-has), each declares the reference's four shapes, and each smoke case runs
-on the CPU with finite outputs; the Laplacian solver's smoke case takes
-the reference's iteration count and its WDA within rtol 1e-2 (WDA
+``repro_torch.configs``: ``list_archs()`` names the port's archs (DeepFM,
+the Laplacian solver and the three scalar-payload GNNs, five of the
+reference's eleven), each declares the reference's four shapes and
+family, and each smoke case runs on the CPU with finite outputs; the
+Laplacian solver's smoke case takes the reference's iteration count and
+its WDA within rtol 1e-2 (WDA
 reads the log of the last residual norm, whose float32 reductions sum in
 another order in the two packages, ROADMAP C4; 1.2e-3 apart here).
-DeepFM's smoke case gives a finite loss, gradients and scores. ``repro_torch.data``:
+DeepFM's smoke case gives a finite loss, gradients and scores; each GNN's
+a finite output, loss and gradients, and the GNNs' shape table is the
+reference's. ``repro_torch.data``:
 ``lm_batch_stream``, ``recsys_batch_stream``, ``gnn_graph_batch`` and
 ``neighbor_sampled_batch`` are bit-identical to the reference's.
 """
@@ -27,7 +30,8 @@ import repro_torch.configs as TC  # noqa: E402
 import repro_torch.data.synthetic as TS  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
 
-PORT_ARCHS = ["deepfm", "laplacian-solver"]
+PORT_ARCHS = ["deepfm", "egnn", "laplacian-solver", "meshgraphnet", "pna"]
+GNN_ARCHS = ["egnn", "meshgraphnet", "pna"]
 
 
 def test_list_archs_names_the_port_archs():
@@ -50,6 +54,24 @@ def test_deepfm_smoke_case_is_finite():
     assert len(grads) == 9 and all(torch.isfinite(g).all() for g in grads)
     assert torch.isfinite(out["scores"]).all()
     assert any(g.abs().sum() > 0 for g in grads)
+
+
+@pytest.mark.parametrize("arch_id", GNN_ARCHS)
+def test_gnn_smoke_case_is_finite(arch_id):
+    out = TC.get_arch(arch_id).make_smoke_case(device="cpu")()
+    assert out["loss"].shape == () and torch.isfinite(out["loss"])
+    assert out["out"].shape[0] == 24 and torch.isfinite(out["out"]).all()
+    grads = leaves(out["grads"])
+    assert grads and all(torch.isfinite(g).all() for g in grads)
+    assert sum(int((g != 0).any()) for g in grads) > len(grads) // 2
+
+
+def test_gnn_shapes_are_the_reference_shapes():
+    from repro.configs import gnn_common as jg
+    from repro_torch.configs import gnn_common as tg
+
+    assert tg.GNN_SHAPES == jg.GNN_SHAPES
+    assert tg.SHAPE_DIMS == jg.SHAPE_DIMS
 
 
 def test_laplacian_solver_smoke_case_matches_the_reference():
