@@ -138,7 +138,7 @@ Phases, one line each (any failure exits non-zero):
              repeat. The phase's launches (read before those checks) go
              into the kernels JSON as ``service_launches``.
 7. spectral — the spectral layer (``repro_torch.spectral``) on a Delaunay
-             triangulation of 2^16 uniform points (unweighted), with the
+             triangulation of 2^15 uniform points (unweighted), with the
              entry points' default options (``exact_columns=False``) on
              ``matvec_backend="ell"``: ``lobpcg`` k = 8 at tol 1e-8 (all
              pairs converged; eigenvalues within rtol 1e-6 of scipy's
@@ -292,6 +292,37 @@ Phases, one line each (any failure exits non-zero):
              bitwise on a repeat, every row written; ``zeros(N,
              d).index_add_``) records; every record gets ``gnn_launches``,
              the launches of (a).
+13. equiformer — Equiformer-v2 (``repro_torch.configs.equiformer_v2``)
+             training at ``FULL`` widths (C = 128, l_max = 6, m_max = 2,
+             8 heads, 602 features in, 47 out) on the gnn phase's
+             ``minibatch_lg`` graph, EQF_LAYERS layers, with the config's
+             edge chunk (65,536) and per-layer remat. The launch counts
+             are set to 0 and the graph's 8 plans built
+             (``with_plans(edge_chunk=65536)``: the endpoints' two and
+             each of the 3 chunks' two). The memory plan: one step at 1, 2
+             and 4 layers, their peak GiB, the per-layer slope and base.
+             Then the counts are set to 0 again and (a) EQF_STEPS steps of
+             ``gnn_train_step`` on ``node_class_loss`` (AdamW lr 1e-3,
+             warm-up 3): every loss finite, the mean of the last 3 below
+             the first 3's, both bag kernels launched, no plan built and
+             no solver kernel launched in a step, the phase's own peak
+             (above what was live at its start) ≤ EQF_PEAK_LIMIT_GIB;
+             step ms (CUDA events, median of steps 3–7), nodes/s, model
+             TFLOP/s by the config's ``flops`` and by ``flops_executed``,
+             bag launches a step. (b) The trained forward with the
+             kernels, twice (bitwise), against the plain versions (within
+             1e-5 of max |out|). (c) ``molecule`` at 12 layers: the loss
+             and gradients with remat on and off, bitwise. (d) 10 steps of
+             ``graph_reg_loss`` there (3 plans), then a seeded rotation
+             and translation of pos moves the output by ≤ EQF_MOVE_TOL of
+             its max |x|. (e) ``eqf_gather_d6272`` (``embedding_bag``, a
+             chunk's 65,536 senders' rows of 6,272 floats from 169,984
+             nodes: bitwise its plain version, ``index_select``) and
+             ``eqf_scatter_d6272`` (``embedding_bag_backward`` over the
+             chunk's receivers' plan: within 1e-6 of each row's Σ|m|,
+             bitwise on a repeat, every row written; ``zeros(N,
+             d).index_add_``); every record gets ``equiformer_launches``,
+             the launches of the plans' build and (a).
 
 Then a ``[total]`` line with the script's seconds. The line before the
 last is the card's name and power limit, the one before it the kernels'
@@ -320,10 +351,11 @@ PAPER_SCALE = 1.0               # the Fig 3 stand-ins at the paper's sizes
 PAPER_DELAUNAY_N = 1 << 20      # DIMACS10 delaunay_n20's class and size
 E2E_FLOOR = 1 << 20     # above every level's n and nnz of the e2e graphs
 # the service and spectral phases' sizes, halved from 2^18 (once and
-# twice): their solves are bound by the host's launches (ROADMAP B1), so
-# their time falls slower than n
+# three times): their solves are bound by the host's launches (ROADMAP
+# B1), so their time falls slower than n; the spectral phase's third
+# halving keeps the script within its budget with the equiformer phase
 SERVICE_N, SERVICE_GRAPHS = 1 << 17, 8      # one batched setup of eight
-SPECTRAL_N = 1 << 16    # Delaunay points of the spectral phase
+SPECTRAL_N = 1 << 15    # Delaunay points of the spectral phase
 DIST_RHS = 4            # right-hand sides of the dist phase's solves
 DIST_GRID_N = 1 << 18   # the dist phase's 2×2 world: BA n = 2^18
 DIST_WORLD_TIMEOUT_S = 400.0
@@ -339,6 +371,13 @@ GNN_WIDTHS = (128, 75, 3)   # MeshGraphNet, PNA, EGNN's coordinates
 # (b): kernels vs plain, of the output's max |x|: 7× the largest error
 # measured on an H100 (1.38e-6, EGNN; PERF.md)
 GNN_REL_TOL = 1e-5
+EQF_STEPS, EQF_TIMED_FROM = 8, 3    # equiformer (a): median of steps 3–7
+# the depth that (a) trains at minibatch_lg, and the depths whose peak
+# memory gives the plan's per-layer slope and base (PERF.md §4)
+EQF_LAYERS = 12
+EQF_PROBE_LAYERS = (1, 2, 4)
+EQF_PEAK_LIMIT_GIB = 75.0
+EQF_MOVE_TOL = 1e-3     # (d): output moved by a rotation, of max |out|
 BAG_OPS = ("repro_torch.kernels.embedding_bag",
            "repro_torch.kernels.embedding_bag.ops")
 BAG_PLAIN = {"embedding_bag_kernel": "embedding_bag_ref",
@@ -1720,7 +1759,7 @@ def timed_solves(seconds: list):
 
 def phase_spectral(torch, np, smi) -> dict:
     """The spectral layer (``repro_torch.spectral``) on a Delaunay mesh of
-    2^16 uniform points: LOBPCG k = 8 at tol 1e-8 against scipy's
+    2^15 uniform points: LOBPCG k = 8 at tol 1e-8 against scipy's
     shift-invert ``eigsh``, Fiedler bisection with and without the sweep,
     spectral clustering and recursive bisection into 4, two positional
     encodings from one cache, the resistance sketch with 64 probes; then
@@ -2824,14 +2863,17 @@ def first_out(out):
     return out[0] if isinstance(out, tuple) else out
 
 
-def gnn_train(torch, np, arch, g, labels, opt_cfg) -> dict:
-    """(a) GNN_STEPS steps of ``gnn_train_step`` on ``node_class_loss``
-    from seeded weights on the card; each step's device time by CUDA
-    events."""
+def gnn_train(torch, np, arch, g, labels, opt_cfg, cfg=None,
+              steps=GNN_STEPS) -> dict:
+    """(a) ``steps`` steps of ``gnn_train_step`` on ``node_class_loss``
+    from seeded weights on the card (``cfg``: the arch's minibatch_lg
+    config, or another of its configs); each step's device time by CUDA
+    events, and the peak memory."""
     from repro_torch.configs.gnn_common import gnn_train_step, node_class_loss
     from repro_torch.optim.adamw import adamw_init
 
-    cfg, init, fwd, _ = gnn_model(arch)
+    arch_cfg, init, fwd, _ = gnn_model(arch)
+    cfg = cfg or arch_cfg
 
     def loss_fn(p, b):
         return node_class_loss(first_out(fwd(cfg, p, b["graph"])),
@@ -2844,7 +2886,7 @@ def gnn_train(torch, np, arch, g, labels, opt_cfg) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     marks, losses = [], []
-    for _ in range(GNN_STEPS):
+    for _ in range(steps):
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -3082,7 +3124,7 @@ def phase_gnn(torch, np) -> dict:
     records = phase_kernels_gnn(torch, np, g, launched)    # (e)
     secs = time.perf_counter() - t_phase
     say("gnn", seconds=round(secs, 1), train_seconds=round(t_a, 1))
-    return dict(launched, records=records)
+    return dict(launched, records=records, graph=(g, labels))
 
 
 def phase_kernels_gnn(torch, np, g, launched) -> list:
@@ -3150,8 +3192,257 @@ def phase_kernels_gnn(torch, np, g, launched) -> list:
     return records
 
 
+def eqf_probe(torch, np, g, labels, cfg, opt_cfg) -> dict:
+    """The memory plan's probes: one step at each depth of
+    EQF_PROBE_LAYERS, its peak GiB; the per-layer slope (between the two
+    deepest probes) and the base, and the peak they predict at the
+    depth (a) runs."""
+    peaks = {}
+    for n in EQF_PROBE_LAYERS:
+        run = gnn_train(torch, np, "equiformer_v2", g, labels, opt_cfg,
+                        dataclasses.replace(cfg, n_layers=n), steps=1)
+        check(np.isfinite(run["losses"][0]),
+              f"equiformer: the {n}-layer probe's loss is not finite")
+        peaks[n] = run["peak_gib"]
+        del run
+    lo, hi = EQF_PROBE_LAYERS[-2:]
+    slope = (peaks[hi] - peaks[lo]) / (hi - lo)
+    base = peaks[hi] - slope * hi
+    return dict(peaks_gib=peaks, slope_gib_per_layer=slope, base_gib=base,
+                predicted_gib=base + slope * cfg.n_layers)
+
+
+def eqf_molecule(torch, np, opt_cfg) -> dict:
+    """(c) and (d): Equiformer-v2 at FULL (12 layers) on ``molecule``.
+    (c) the loss and gradients with remat on and off, bitwise; (d)
+    GNN_MOLECULE_STEPS steps of ``graph_reg_loss`` (pooled over the
+    ``graph_id`` plan), then a seeded rotation and translation of ``pos``
+    on the trained weights."""
+    from repro_torch.configs import equiformer_v2
+    from repro_torch.configs.gnn_common import (SHAPE_DIMS, gnn_train_step,
+                                                graph_reg_loss)
+    from repro_torch.kernels.embedding_bag import bag_grad_plan
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.tree import leaves, value_and_grad
+
+    dims = SHAPE_DIMS["molecule"]
+    n_graphs = dims["n_graphs"]
+    g, targets = molecule_graph(torch, np, n_graphs)
+    cfg, init, fwd = equiformer_v2.make_model("molecule", dims["d_feat"])
+    builds = bag_grad_plan.builds
+    g = g.with_plans()
+    gplan = bag_grad_plan(g.graph_id.view(-1, 1), n_graphs)
+    params = init(cfg, torch.Generator(device="cuda").manual_seed(1))
+
+    def loss_fn(p, b, c=cfg):
+        return graph_reg_loss(fwd(c, p, b), b.graph_id, targets, n_graphs,
+                              gplan)
+
+    remat = [value_and_grad(lambda p: loss_fn(p, g, dataclasses.replace(
+        cfg, remat=r)), params) for r in (False, True)]
+    torch.cuda.synchronize()
+    (l0, g0), (l1, g1) = remat
+    check(torch.equal(l0, l1) and bitwise_equal(torch, g0, g1),
+          "equiformer: molecule's loss or gradients with remat differ from "
+          "those without")
+    nonzero = sum(int(bool((t != 0).any())) for t in leaves(g0))
+    del remat, g0, g1
+    step = gnn_train_step(loss_fn, opt_cfg)
+    opt = adamw_init(params, opt_cfg)
+    losses = []
+    for _ in range(GNN_MOLECULE_STEPS):
+        params, opt, m = step(params, opt, g)
+        losses.append(float(m["loss"]))
+    check(all(np.isfinite(losses)), f"equiformer: a molecule loss is not "
+          f"finite: {losses}")
+    check(bag_grad_plan.builds - builds == 3,
+          f"equiformer: molecule built {bag_grad_plan.builds - builds} "
+          "plans, expected 3 (senders, receivers, graph_id)")
+    rot, _ = np.linalg.qr(np.random.default_rng(5).normal(size=(3, 3)))
+    if np.linalg.det(rot) < 0:
+        rot[:, 0] = -rot[:, 0]
+    rot = torch.as_tensor(rot.astype(np.float32), device="cuda")
+    shift = torch.tensor([0.7, -1.3, 2.1], device="cuda")
+    moved = dataclasses.replace(g, pos=g.pos @ rot.T + shift)
+    with torch.no_grad():
+        out, out2 = fwd(cfg, params, g), fwd(cfg, params, moved)
+    rel = float((out2 - out).abs().max() / out.abs().max())
+    check(bool(torch.isfinite(out).all()) and rel <= EQF_MOVE_TOL,
+          f"equiformer: a rotation and translation of pos moved the "
+          f"output by {rel} of its max |x| (limit {EQF_MOVE_TOL})")
+    return dict(layers=cfg.n_layers, remat_bitwise=True,
+                nonzero_grad_leaves=nonzero, losses=losses,
+                moved_rel=rel)
+
+
+def phase_equiformer(torch, np, graph) -> dict:
+    """Equiformer-v2 training at FULL widths on minibatch_lg (the gnn
+    phase's graph) at EQF_LAYERS layers, with the chunk (65,536 edges)
+    and remat of the config. Returns the launches of its main path (the
+    plans' build and (a)) by kernel and its kernel records."""
+    from repro_torch.configs import equiformer_v2
+    from repro_torch.configs.gnn_common import SHAPE_DIMS
+    from repro_torch.kernels.embedding_bag import bag_grad_plan
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.tree import leaves
+
+    import gc
+
+    t_phase = time.perf_counter()
+    g, labels = graph
+    N, E = g.n_nodes, g.n_edges
+    cfg = dataclasses.replace(gnn_model("equiformer_v2")[0],
+                              n_layers=EQF_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    live_gib = torch.cuda.memory_allocated() / 2 ** 30
+    say("equiformer", shape="minibatch_lg", nodes=N, edges=E,
+        layers=cfg.n_layers, channels=cfg.channels, l_max=cfg.l_max,
+        m_max=cfg.m_max, heads=cfg.n_heads, edge_chunk=cfg.edge_chunk_size,
+        remat=cfg.remat, d_feat=g.node_feat.shape[1],
+        live_gib_at_start=round(live_gib, 3))
+    zero_launches()
+    builds = bag_grad_plan.builds
+    g = dataclasses.replace(g, sender_plan=None, receiver_plan=None)
+    g = g.with_plans(edge_chunk=cfg.edge_chunk_size)
+    plans = bag_grad_plan.builds - builds
+    launched = phase_launches()
+    n_chunks = len(g.chunk_plans)
+    check(plans == 2 + 2 * n_chunks == 8
+          and launched["bag_grad_plan"] == plans,
+          f"equiformer: {plans} plan builds and "
+          f"{launched['bag_grad_plan']} launches, expected 8 (the "
+          f"endpoints', and each of the {n_chunks} chunks' two)")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=3, total_steps=EQF_STEPS)
+    probe = eqf_probe(torch, np, g, labels, cfg, opt_cfg)
+    say("equiformer", check="memory_plan",
+        **{f"peak_gib_{n}_layers": round(v, 3)
+           for n, v in probe.pop("peaks_gib").items()},
+        **{k: round(v, 3) for k, v in probe.items()})
+    zero_launches()
+    t_a = time.perf_counter()
+    run = gnn_train(torch, np, "equiformer_v2", g, labels, opt_cfg, cfg,
+                    steps=EQF_STEPS)                              # (a)
+    t_a = time.perf_counter() - t_a
+    after = phase_launches()
+    launched = {k: launched[k] + after[k] for k in launched}
+    losses, timed = run["losses"], run["step_ms"][EQF_TIMED_FROM:]
+    step_ms = float(np.median(timed))
+    flop = equiformer_v2.flops(cfg, N, E)
+    flop_exec = equiformer_v2.flops_executed(cfg, N, E)
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    say("equiformer", model="equiformer-v2", layers=cfg.n_layers,
+        params=sum(t.numel() for t in leaves(run["params"])),
+        step_ms_median=step_ms, step_ms_min=min(timed),
+        step_ms_max=max(timed), first_step_ms=run["step_ms"][0],
+        nodes_per_s=N / (step_ms / 1e3),
+        model_tflop_per_step=flop / 1e12,
+        model_tflops=flop / (step_ms / 1e3) / 1e12,
+        executed_tflop_per_step=flop_exec / 1e12,
+        executed_tflops=flop_exec / (step_ms / 1e3) / 1e12,
+        peak_gib=round(run["peak_gib"], 3),
+        phase_peak_gib=round(run["peak_gib"] - live_gib, 3),
+        bag_launches_per_step=after["embedding_bag"] / EQF_STEPS,
+        bag_backward_launches_per_step=after["embedding_bag_backward"]
+        / EQF_STEPS, plan_builds=plans, train_s=round(t_a, 1))
+    say("equiformer", loss_first3_mean=first, loss_last3_mean=last,
+        losses=json.dumps([round(x, 5) for x in losses]))
+    check(all(np.isfinite(losses)), "equiformer: a loss is not finite")
+    check(last < first, f"equiformer: the loss did not fall ({first} -> "
+          f"{last})")
+    check(after["embedding_bag"] > 0 and after["embedding_bag_backward"] > 0
+          and after["bag_grad_plan"] == 0,
+          f"equiformer: the gather and scatter kernels did not launch, or "
+          f"a step built a plan: {after}")
+    check(run["peak_gib"] - live_gib <= EQF_PEAK_LIMIT_GIB,
+          f"equiformer: peak {run['peak_gib']} GiB with {live_gib} GiB live "
+          f"at the phase's start, above the plan's {EQF_PEAK_LIMIT_GIB}")
+    check(all(launched[k] == 0 for k in ("spmv_ell", "jacobi", "agg_vote")),
+          f"equiformer: a solver kernel launched: {launched}")
+    say("equiformer", check="kernels_vs_plain",
+        **gnn_vs_plain(torch, run))                               # (b)
+    del run
+    mol = eqf_molecule(torch, np, opt_cfg)                        # (c), (d)
+    say("equiformer", shape="molecule",
+        losses=json.dumps([round(x, 5) for x in mol.pop("losses")]), **mol)
+    records = phase_kernels_eqf(torch, g, launched)               # (e)
+    say("equiformer", seconds=round(time.perf_counter() - t_phase, 1),
+        train_seconds=round(t_a, 1))
+    return dict(launched, records=records)
+
+
+def phase_kernels_eqf(torch, g, launched) -> list:
+    """(e) The gather (``embedding_bag``, bags of one id) of a chunk's
+    65,536 senders' rows of (l_max+1)²·C = 6,272 floats from the 169,984
+    nodes, and the scatter (``embedding_bag_backward``) of the chunk's
+    messages over its receivers' plan, against their plain versions, with
+    ``index_select`` and ``zeros(N, d).index_add_`` as the library
+    yardsticks."""
+    from repro_torch.kernels.embedding_bag import (embedding_bag_backward,
+                                                   embedding_bag_backward_ref,
+                                                   embedding_bag_kernel,
+                                                   embedding_bag_ref)
+    from repro_torch.models.gnn.so3 import n_coeffs
+
+    cfg = gnn_model("equiformer_v2")[0]
+    N, Ec = g.n_nodes, cfg.edge_chunk_size
+    d = n_coeffs(cfg.l_max) * cfg.channels
+    S, R = g.senders[:Ec].view(-1, 1), g.receivers[:Ec].view(-1, 1)
+    plan = g.chunk_plans[0][1]
+    s_long, r_long = S[:, 0].long(), R[:, 0].long()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = torch.randn((N, d), generator=gen, device="cuda")
+    m = torch.randn((Ec, d), generator=gen, device="cuda")
+    got, want = embedding_bag_kernel(x, S), embedding_bag_ref(x, S)
+    check(torch.equal(got, want) and torch.equal(embedding_bag_kernel(x, S),
+                                                 got),
+          f"equiformer gather at d = {d} is not bitwise its plain version, "
+          "or not bitwise on a repeat")
+    del got, want
+    records = [kernel_record(
+        torch, "embedding_bag", launched["embedding_bag"], 0.0,
+        lambda: embedding_bag_kernel(x, S), lambda: embedding_bag_ref(x, S),
+        4 * Ec + 8 * Ec * d, 0,
+        library=lambda: x.index_select(0, s_long),
+        label=f"eqf_gather_d{d}",
+        replaces="src/repro/models/gnn/equiformer.py:150")]
+    del x
+    got = embedding_bag_backward(m, R, N, plan)
+    want = embedding_bag_backward_ref(m, R, N, plan)
+    scale = embedding_bag_backward_ref(m.abs(), R, N, plan)
+    ok = bool(((got - want).abs() <= 1e-6 * scale).all())
+    err = float((got - want).abs().max())
+    del want, scale
+    nan = torch.full((N, d), float("nan"), device="cuda")
+    embedding_bag_backward(m, R, N, plan, _out=nan)
+    check(ok and torch.equal(embedding_bag_backward(m, R, N, plan), got)
+          and torch.equal(nan, got),
+          f"equiformer scatter at d = {d}: not within 1e-6 of each row's sum "
+          "of |m| of its plain version, not bitwise on a repeat, or a row "
+          "left unwritten")
+    del got, nan
+    records.append(kernel_record(
+        torch, "embedding_bag_backward", launched["embedding_bag_backward"],
+        err, lambda: embedding_bag_backward(m, R, N, plan),
+        lambda: embedding_bag_backward_ref(m, R, N, plan),
+        8 * Ec + 4 * Ec * d + 4 * N * d, Ec * d,
+        library=lambda: torch.zeros((N, d), device="cuda").index_add_(
+            0, r_long, m),
+        label=f"eqf_scatter_d{d}",
+        replaces="src/repro/models/gnn/equiformer.py:158"))
+    for rec in records:
+        rec["equiformer_launches"] = rec["launches"]
+    return records
+
+
 def main() -> int:
     t_start = time.perf_counter()
+    # the equiformer phase's step peaks at ≈ 73 GiB of the card's 79.2:
+    # expandable segments keep what earlier phases leave live from
+    # splitting the free memory (with fixed segments 5.9 GiB of it stayed
+    # reserved but unusable there, and a 3.97-GiB request failed)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -3215,6 +3506,13 @@ def main() -> int:
     for rec in records:                 # the gnn phase's own launches
         rec["gnn_launches"] = gnn[rec["name"]]
     records += gnn["records"]
+    eqf = phase_equiformer(torch, np, gnn.pop("graph"))
+    for rec in records:                 # the equiformer phase's own
+        rec["equiformer_launches"] = eqf[rec.get("kernel", rec["name"])]
+    for rec in eqf["records"]:
+        rec["gnn_launches"] = gnn[rec["kernel"]]
+    records += eqf["records"]
+    del gnn, eqf
     say("total", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

@@ -50,4 +50,5 @@ def list_archs() -> list:
 def _ensure_loaded() -> None:
     # the arch modules register themselves when imported
     from repro_torch.configs import (deepfm, egnn,  # noqa: F401
-                                     laplacian_solver, meshgraphnet, pna)
+                                     equiformer_v2, laplacian_solver,
+                                     meshgraphnet, pna)

@@ -22,9 +22,11 @@ the reference's ``init_deepfm`` returns, as numpy arrays:
 ``{"table", "first_order", "bias": array, "mlp": {"w": [...], "b": [...]}}``.
 
 ``gnn_params_from_numpy(tree, device)`` does the same for the parameter
-dicts of the reference's ``init_mgn``, ``init_pna`` and ``init_egnn``:
-dicts and lists of MLP dicts ``{"w": [...], "b": [...]}``, with
-``ln_scale``/``ln_bias`` where the MLP ends in a LayerNorm.
+dicts of the reference's ``init_mgn``, ``init_pna``, ``init_egnn`` and
+``init_equiformer``: dicts and lists of MLP dicts ``{"w": [...], "b":
+[...]}``, with ``ln_scale``/``ln_bias`` where the MLP ends in a
+LayerNorm, and Equiformer-v2's bare matrices (``out_proj``, the
+``so2`` dict of ``m{m}_r``/``m{m}_i``), leaf for leaf.
 
 ``adamw_state_from_numpy(tree, device)`` takes the reference's
 ``adamw_init``/``adamw_update`` state as numpy: ``{"mu": tree, "nu": tree,

@@ -52,6 +52,16 @@ _I32_MAX = torch.iinfo(torch.int32).max
 _LIB = None
 
 
+def _c_ints(name: str, **values: int) -> None:
+    """Raise unless every value fits the kernel's ``int`` arguments (a
+    larger one would wrap in ``ctypes``); sizes that can pass 2³¹ − 1 are
+    ``long long`` in the kernels."""
+    for key, v in values.items():
+        if not 0 <= v <= _I32_MAX:
+            raise ValueError(f"{name}: {key} = {v} does not fit the "
+                             "kernel's int32 argument")
+
+
 def _lib():
     """The kernel library, looked up once (built on first use)."""
     global _LIB
@@ -91,6 +101,7 @@ def embedding_bag_kernel(table: torch.Tensor,
     n_bags, hot = indices.shape
     require("embedding_bag table", table, torch.float32, (n_vocab, d))
     require("embedding_bag indices", indices, torch.int32, (n_bags, hot))
+    _c_ints("embedding_bag", hot=hot, d=d, n_vocab=n_vocab)
     out = torch.empty((n_bags, d), dtype=torch.float32, device=table.device)
     if n_bags == 0 or hot == 0 or d == 0:
         return out.zero_()
@@ -244,6 +255,7 @@ def embedding_bag_backward(g_out: torch.Tensor, indices: torch.Tensor,
     if indices.dtype != torch.int32:
         raise TypeError(f"embedding_bag_backward indices: expected "
                         f"torch.int32, got {indices.dtype}")
+    _c_ints("embedding_bag_backward", d=d, n_vocab=n_vocab)
     plan = _checked_plan(plan, indices, n_vocab)
     if _out is None:
         out = torch.empty((n_vocab, d), dtype=torch.float32,
@@ -312,8 +324,11 @@ class ScatterSum(torch.autograd.Function):
     def forward(ctx, msgs: torch.Tensor, indices: torch.Tensor, n_rows: int,
                 plan: BagGradPlan | None = None):
         ctx.save_for_backward(indices)
-        return embedding_bag_backward(msgs.contiguous(), indices, n_rows,
-                                      plan)
+        out = embedding_bag_backward(msgs.contiguous(), indices, n_rows,
+                                     plan)
+        # the plain version's sum is a slice of a longer buffer: a view,
+        # which autograd would not let a caller add to in place
+        return out if out._base is None else out.clone()
 
     @staticmethod
     def backward(ctx, g_out: torch.Tensor):

@@ -41,6 +41,9 @@ class GraphBatch:
     ``sender_plan``/``receiver_plan``: the ``bag_grad_plan`` of each
     endpoint array for ``n_nodes`` rows (:meth:`with_plans`); without
     them every gather's and scatter's backward sorts its ids anew.
+    ``chunk_plans``: with ``edge_chunk`` set, the ``(senders',
+    receivers')`` plans of each chunk of :func:`edge_chunks` (Equiformer-v2
+    streams its edges in such chunks).
     """
 
     senders: torch.Tensor
@@ -51,6 +54,8 @@ class GraphBatch:
     graph_id: Optional[torch.Tensor] = None   # [N] for batched small graphs
     sender_plan: Optional[BagGradPlan] = None
     receiver_plan: Optional[BagGradPlan] = None
+    edge_chunk: Optional[int] = None
+    chunk_plans: Optional[tuple] = None
 
     @property
     def n_nodes(self) -> int:
@@ -64,12 +69,36 @@ class GraphBatch:
     def edge_valid(self) -> torch.Tensor:
         return self.senders < self.n_nodes
 
-    def with_plans(self) -> "GraphBatch":
-        """This batch with both endpoint arrays' plans built, one each."""
+    def with_plans(self, edge_chunk: Optional[int] = None) -> "GraphBatch":
+        """This batch with both endpoint arrays' plans built, one each;
+        with ``edge_chunk``, also each edge chunk's two (none where the
+        edges fit one chunk)."""
         n = self.n_nodes
+        chunks = (chunk_plans(self, edge_chunk)
+                  if edge_chunk is not None and self.n_edges > edge_chunk
+                  else None)
         return dataclasses.replace(
             self, sender_plan=bag_grad_plan(self.senders.reshape(-1, 1), n),
-            receiver_plan=bag_grad_plan(self.receivers.reshape(-1, 1), n))
+            receiver_plan=bag_grad_plan(self.receivers.reshape(-1, 1), n),
+            edge_chunk=edge_chunk, chunk_plans=chunks)
+
+
+def edge_chunks(n_edges: int, chunk: Optional[int]) -> list:
+    """The edge ranges ``[(start, stop)]`` of ``chunk`` edges each (the
+    last one shorter); one range where ``chunk`` is None or not below
+    ``n_edges``."""
+    if chunk is None or n_edges <= chunk:
+        return [(0, n_edges)]
+    return [(a, min(a + chunk, n_edges)) for a in range(0, n_edges, chunk)]
+
+
+def chunk_plans(g: GraphBatch, chunk: int) -> tuple:
+    """``((senders' plan, receivers' plan), ...)``, one pair for each edge
+    range of ``edge_chunks(g.n_edges, chunk)``, for ``g.n_nodes`` rows."""
+    n = g.n_nodes
+    return tuple((bag_grad_plan(g.senders[a:b].reshape(-1, 1), n),
+                  bag_grad_plan(g.receivers[a:b].reshape(-1, 1), n))
+                 for a, b in edge_chunks(g.n_edges, chunk))
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor,

@@ -159,6 +159,38 @@ def segment_std(values, seg_ids, num_segments):
     return torch.sqrt(torch.maximum(v, v.new_zeros(())))
 
 
+def segment_softmax(logits: torch.Tensor, seg_ids: torch.Tensor,
+                    num_segments: int, valid=None, plan=None) -> torch.Tensor:
+    """Numerically stable softmax within segments (GAT-style edge softmax),
+    row-wise over ``logits`` [m] or [m, h] (each column its own softmax,
+    as the reference's 1-D call vmapped over heads). Entries whose id is
+    outside ``[0, num_segments)`` or whose ``valid`` is False get 0 and
+    count in no segment; each segment's maximum (0 where it has no such
+    entry) is subtracted, and its denominator clamped at 1e-30.
+
+    The sums and the gathers of the segments' values run on the bag
+    kernels (``models.gnn.common.scatter_rows`` / ``gather_rows``) over
+    ``plan``, the ``bag_grad_plan`` of ``seg_ids`` for ``num_segments``
+    rows (built where needed when None): deterministic, no float atomics.
+    The maximum carries no gradient: the softmax does not change with it.
+    """
+    from repro_torch.models.gnn.common import gather_rows, scatter_rows
+
+    lg = logits[:, None] if logits.dim() == 1 else logits
+    ok = (seg_ids >= 0) & (seg_ids < num_segments)
+    if valid is not None:
+        ok = ok & valid
+    ok = ok[:, None]
+    m = segment_max(torch.where(ok, lg, -torch.inf).detach(), seg_ids,
+                    num_segments)
+    m = torch.where(torch.isfinite(m), m, 0)
+    z = torch.exp(torch.where(ok, lg - gather_rows(m, seg_ids), -torch.inf))
+    denom = scatter_rows(z, seg_ids, num_segments, plan)
+    d = gather_rows(torch.clamp(denom, min=1e-30), seg_ids, plan)
+    out = z / torch.where(ok, d, 1.0)
+    return out[:, 0] if logits.dim() == 1 else out
+
+
 def segment_argmax_lex(primary, secondary, payload, seg_ids, num_segments,
                        valid=None):
     """Per-segment payload of the entry maximising (primary, secondary,

@@ -1,11 +1,12 @@
 """Where the time of a GNN training step goes on the card.
 
-    python -m repro_torch.trace_gnn [--arch meshgraphnet|pna|egnn]
-                                    [--trace-dir DIR]
+    python -m repro_torch.trace_gnn
+        [--arch meshgraphnet|pna|egnn|equiformer-v2] [--trace-dir DIR]
 
 Builds ``minibatch_lg`` (``configs.gnn_common.minibatch_lg_graph``: the
 neighbour-sampled subgraph of a seeded Barabási–Albert stand-in, 169,984
-node and 168,960 edge slots, 602 features) with its two plans, and the
+node and 168,960 edge slots, 602 features) with its plans (the
+endpoints' two, and for Equiformer-v2 each edge chunk's two), and the
 model at its config's ``FULL`` widths (weights from a seeded generator),
 and profiles, with ``trace_solve.profile_call``, one warm training step
 (``gnn_train_step`` on ``node_class_loss``, AdamW with f32 moments), then
@@ -19,7 +20,9 @@ the matrix products (``gemm``), the gather and scatter kernels
 LayerNorm's means and variances, the losses, AdamW's norm), the
 elementwise passes (``elementwise``: SiLU, the LayerNorm's arithmetic,
 the residual adds, AdamW) and the rest (``other``: concatenations,
-copies, PNA's max/min scatter). ``--trace-dir`` writes one Chrome trace
+copies, PNA's max/min scatter, Equiformer-v2's edge-softmax maximum;
+its rotations are batched products, so they count under ``gemm``), and
+each part's peak memory (GiB). ``--trace-dir`` writes one Chrome trace
 per part. Prints one JSON object. It needs a CUDA device.
 """
 
@@ -61,7 +64,7 @@ def main(argv=None) -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", default="meshgraphnet",
-                    choices=("meshgraphnet", "pna", "egnn"))
+                    choices=("meshgraphnet", "pna", "egnn", "equiformer-v2"))
     ap.add_argument("--trace-dir", default=None,
                     help="directory for one Chrome trace per part")
     args = ap.parse_args(argv)
@@ -72,9 +75,10 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False    # full float32 products
     dev = torch.device("cuda")
     g, labels = minibatch_lg_graph(dev)
-    g = g.with_plans()
-    mod = importlib.import_module(f"repro_torch.configs.{args.arch}")
+    mod = importlib.import_module(
+        f"repro_torch.configs.{args.arch.replace('-', '_')}")
     cfg, init, fwd = mod.make_model("minibatch_lg", g.node_feat.shape[1])
+    g = g.with_plans(edge_chunk=getattr(cfg, "edge_chunk_size", None))
     params = init(cfg, torch.Generator(device=dev).manual_seed(0))
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=20)
     opt = adamw_init(params, opt_cfg)
@@ -100,12 +104,14 @@ def main(argv=None) -> int:
                  grads=lambda: value_and_grad(loss, params),
                  adamw=lambda: adamw_update(opt_cfg, params, grads, opt))
     out = dict(device=torch.cuda.get_device_name(0), arch=args.arch,
-               nodes=g.n_nodes, edges=g.n_edges,
+               layers=cfg.n_layers, nodes=g.n_nodes, edges=g.n_edges,
                model_flop_per_step=mod.flops(cfg, g.n_nodes, g.n_edges))
     for part, fn in parts.items():
         path = (f"{args.trace_dir}/gnn_{args.arch}_{part}.json"
                 if args.trace_dir else None)
+        torch.cuda.reset_peak_memory_stats()
         res = profile_call(torch, fn, path, top=1000)[1]
+        res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
         res["groups_ms"] = gnn_groups((k["name"], k["ms"])
                                       for k in res["top_kernels"])
         res["groups_launches"] = gnn_groups((k["name"], k["count"])

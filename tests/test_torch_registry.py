@@ -2,9 +2,8 @@
 CPU.
 
 ``repro_torch.configs``: ``list_archs()`` names the port's archs (DeepFM,
-the Laplacian solver and the three scalar-payload GNNs, five of the
-reference's eleven), each declares the reference's four shapes and
-family, and each smoke case runs on the CPU with finite outputs; the
+the Laplacian solver and the four GNNs, six of the reference's eleven),
+each declares the reference's four shapes and family, and each smoke case runs on the CPU with finite outputs; the
 Laplacian solver's smoke case takes the reference's iteration count and
 its WDA within rtol 1e-2 (WDA
 reads the log of the last residual norm, whose float32 reductions sum in
@@ -30,8 +29,9 @@ import repro_torch.configs as TC  # noqa: E402
 import repro_torch.data.synthetic as TS  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
 
-PORT_ARCHS = ["deepfm", "egnn", "laplacian-solver", "meshgraphnet", "pna"]
-GNN_ARCHS = ["egnn", "meshgraphnet", "pna"]
+PORT_ARCHS = ["deepfm", "egnn", "equiformer-v2", "laplacian-solver",
+              "meshgraphnet", "pna"]
+GNN_ARCHS = ["egnn", "equiformer-v2", "meshgraphnet", "pna"]
 
 
 def test_list_archs_names_the_port_archs():
