@@ -323,6 +323,41 @@ Phases, one line each (any failure exits non-zero):
              bitwise on a repeat, every row written; ``zeros(N,
              d).index_add_``); every record gets ``equiformer_launches``,
              the launches of the plans' build and (a).
+14. lm     — the dense LM family (``repro_torch.models.transformer``,
+             ``configs.lm_common``), after freeing what the equiformer
+             phase held; bfloat16 products accumulate in float32. (a)
+             qwen2-0.5b ``FULL`` (24 layers, d 896, 14 heads with kv 2,
+             d_ff 4,864, vocab 151,936, bf16, remat, q_chunk 1024) trains
+             LM_STEPS steps of ``lm_train_step`` on train_4k's 4,096
+             tokens at global batch 16 (256 cut) in 4 microbatches
+             (``lm_common.CARD_BATCH``, ``CARD_MICROBATCHES``), AdamW
+             with f32 moments (lr 1e-3, warm-up 2),
+             through ``TrainLoopRunner`` with a checkpoint every
+             LM_CKPT_EVERY: losses finite, the last 3 below the first 3;
+             step ms (CUDA events, median of steps 2–5), tokens/s, model
+             TFLOP/s at 6·active params·tokens, peak GiB. (b) A run
+             with (a)'s checkpoint of step 3 (hard-linked) that starts at
+             step 4, where a failure is injected: the runner restores
+             step 3 onto the card and replays steps 3–5, bitwise (a)'s
+             parameters and moments; the embedding's gradient at a
+             microbatch's Zipf ids bitwise on a repeat under
+             ``torch.use_deterministic_algorithms``. (c) ``forward`` on 1 ×
+             prefill_32k's 32,768 tokens without a graph: ms, tokens/s,
+             peak GiB, finite logits. (d) decode_32k: B = 128 against a
+             32,768-slot cache (51.5 GB, filled from a seeded generator),
+             LM_DECODE_STEPS ``decode_step``s at cache_len 32,767: ms
+             against the bound (bytes read and written over the HBM
+             rate), the cache's storage unmoved. (e) In float32 at FULL
+             widths (a copy of (a)'s weights, TF32 off), 4 sequences of 64
+             tokens decoded token by token from an empty cache give
+             ``forward``'s logits within 1e-4 of max |logits|; the bf16
+             forward's distance from the float32 one. (f) qwen2.5-3b and
+             starcoder2-3b at FULL widths and 2 layers: one step on 1 ×
+             4,096 tokens, a finite loss, ms and peak GiB. (g)
+             ``repro_torch.launch.train.main`` on the card: 30 steps end
+             below a loss of 5.0. No kernel of the port is on this path:
+             every launch count of the phase must stay 0, and each record
+             gets ``lm_launches``.
 
 Then a ``[total]`` line with the script's seconds. The line before the
 last is the card's name and power limit, the one before it the kernels'
@@ -378,6 +413,21 @@ EQF_LAYERS = 12
 EQF_PROBE_LAYERS = (1, 2, 4)
 EQF_PEAK_LIMIT_GIB = 75.0
 EQF_MOVE_TOL = 1e-3     # (d): output moved by a rotation, of max |out|
+# the lm phase: qwen2-0.5b FULL on train_4k's sequence, its global batch
+# 256 cut to lm_common's CARD_BATCH in CARD_MICROBATCHES microbatches
+# (PERF.md §4); prefill_32k's length at batch 1 (its 32 would need 318 GB
+# of logits); decode_32k's B = 128 against a 32,768-slot cache
+# (b) starts at its failing step 4 with (a)'s checkpoint of step 3, rather
+# than training from step 0 again: 3 step calls instead of 7 (PERF.md §4)
+LM_STEPS, LM_CKPT_EVERY, LM_FAIL_AT = 6, 3, (4,)
+LM_TIMED_FROM = 2                        # (a): the median of steps 2–5
+LM_PREFILL_BATCH = 1
+LM_DECODE_STEPS = 20
+LM_EQ_SEQS, LM_EQ_LEN, LM_EQ_TOL = 4, 64, 1e-4   # (e), of max |logits|
+LM_OTHER = ("qwen2p5_3b", "starcoder2_3b")       # (f), at LM_OTHER_LAYERS
+LM_OTHER_LAYERS = 2
+LM_LAUNCHER_BAR = 5.0                    # (g): the reference test's bar
+BF16_FLOPS_PER_S = 989e12                # H100 SXM dense bf16 tensor cores
 BAG_OPS = ("repro_torch.kernels.embedding_bag",
            "repro_torch.kernels.embedding_bag.ops")
 BAG_PLAIN = {"embedding_bag_kernel": "embedding_bag_ref",
@@ -563,9 +613,9 @@ def bitwise_equal(torch, ha, hb) -> bool:
     for (_, x), (_, y) in zip(la, lb):
         if x.dtype != y.dtype or x.shape != y.shape:
             return False
-        if x.dtype == torch.float32:
-            x, y = x.reshape(-1).view(torch.int32), y.reshape(-1).view(
-                torch.int32)
+        if x.is_floating_point():           # bits, bfloat16 included
+            x, y = x.reshape(-1).view(torch.uint8), y.reshape(-1).view(
+                torch.uint8)
         if not torch.equal(x, y):
             return False
     return True
@@ -3435,6 +3485,402 @@ def phase_kernels_eqf(torch, g, launched) -> list:
     return records
 
 
+def gpu_clocks() -> str:
+    """The card's SM and memory clocks, power draw and temperature now, as
+    ``nvidia-smi`` reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.mem,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def free_card(torch) -> float:
+    """Collect what nothing holds any more and give the cache back; the
+    GiB still allocated."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 2 ** 30
+
+
+def lm_tokens(torch, vocab, batch, seq, step=0):
+    """``lm_batch_stream``'s tokens of ``step`` ([batch, seq + 1], int32)
+    on the card."""
+    from repro_torch.data.synthetic import lm_batch_stream
+
+    toks = next(lm_batch_stream(vocab, batch, seq, start_step=step))[1]
+    return torch.as_tensor(toks, device="cuda")
+
+
+def lm_train(torch, cfg, opt_cfg, directory, injector=None,
+             resume_from=None) -> dict:
+    """(a), (b): steps of ``lm_train_step`` (CARD_MICROBATCHES microbatches
+    of train_4k's sequence) up to LM_STEPS through ``TrainLoopRunner``, a
+    checkpoint every LM_CKPT_EVERY; each call's CUDA-event ms and loss.
+    ``resume_from``, another run's checkpoint directory: its checkpoint at
+    step LM_CKPT_EVERY is hard-linked into ``directory`` and the run
+    starts at the failing step LM_FAIL_AT[0] with fresh weights, so the
+    injected failure makes the runner restore that checkpoint onto the
+    card (``restore_checkpoint(..., shardings=)``) and replay from it."""
+    import shutil
+
+    from repro_torch.configs.lm_common import (CARD_BATCH, CARD_MICROBATCHES,
+                                               SHAPE_DIMS, lm_train_step)
+    from repro_torch.models.sharding import null_plan
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.runtime import TrainLoopRunner
+
+    seq = SHAPE_DIMS["train_4k"]["seq_len"]
+    train_step = lm_train_step(cfg, null_plan(), opt_cfg,
+                               n_microbatches=CARD_MICROBATCHES)
+    log = dict(step_ms={}, loss={}, calls=0, step=None)
+
+    def data_fn(s):
+        log["step"] = s
+        return lm_tokens(torch, cfg.vocab, CARD_BATCH, seq, s)
+
+    def step_fn(params, opt, tokens):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, metrics = train_step(params, opt, tokens)
+        end.record()
+        end.synchronize()
+        log["step_ms"][log["step"]] = start.elapsed_time(end)
+        log["loss"][log["step"]] = float(metrics["loss"])
+        log["calls"] += 1
+        return params, opt, metrics
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt, start = adamw_init(params, opt_cfg), 0
+    if resume_from is not None:
+        name = f"step_{LM_CKPT_EVERY:08d}"
+        shutil.copytree(os.path.join(resume_from, name),   # hard links
+                        os.path.join(directory, name), copy_function=os.link)
+        start = LM_FAIL_AT[0]
+    runner = TrainLoopRunner(step_fn, data_fn, directory,
+                             ckpt_every=LM_CKPT_EVERY,
+                             failure_injector=injector)
+    params, opt, _ = runner.run(params, opt, LM_STEPS, start_step=start)
+    torch.cuda.synchronize()
+    return dict(log, params=params, opt=opt,
+                loop_s=time.perf_counter() - t0, clocks=gpu_clocks())
+
+
+def lm_embedding_grad_repeat(torch, cfg, params) -> dict:
+    """The embedding's gradient (Zipf ids, so many duplicates) at one
+    microbatch's shape, twice under ``torch.use_deterministic_algorithms``
+    (an op without a deterministic version raises): bitwise equal."""
+    from repro_torch.configs.lm_common import (CARD_BATCH, CARD_MICROBATCHES,
+                                               SHAPE_DIMS)
+
+    seq = SHAPE_DIMS["train_4k"]["seq_len"]
+    toks = lm_tokens(torch, cfg.vocab, CARD_BATCH // CARD_MICROBATCHES, seq)
+    toks = toks[:, :-1]
+    table = params["embed"].detach().requires_grad_()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    up = torch.randn((*toks.shape, cfg.d_model), generator=gen,
+                     device="cuda").to(table.dtype)
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        grads = [torch.autograd.grad(
+            torch.nn.functional.embedding(toks, table), table, up)[0]
+            for _ in range(2)]
+    finally:
+        torch.use_deterministic_algorithms(was)
+    ids = toks.reshape(-1)
+    distinct = int(torch.unique(ids).numel())
+    check(torch.equal(grads[0].view(torch.int16), grads[1].view(torch.int16)),
+          "lm: the embedding's gradient is not bitwise equal on a repeat")
+    return dict(embed_grad_ids=int(ids.numel()), embed_grad_distinct=distinct,
+                embed_grad_bitwise_repeat=True)
+
+
+def lm_prefill(torch, np, cfg, params) -> dict:
+    """(c) ``forward`` on LM_PREFILL_BATCH × prefill_32k's 32,768 tokens,
+    without a graph: ms (CUDA events, one call), tokens/s, peak GiB;
+    every logit finite."""
+    from repro_torch.configs.lm_common import SHAPE_DIMS
+    from repro_torch.models.transformer import forward
+
+    seq = SHAPE_DIMS["prefill_32k"]["seq_len"]
+    toks = lm_tokens(torch, cfg.vocab, LM_PREFILL_BATCH, seq - 1, step=7)
+    live = free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with torch.no_grad():
+        start.record()
+        logits = forward(cfg, params, toks)
+        end.record()
+        end.synchronize()
+        finite = bool(torch.isfinite(logits).all())
+    ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    shape = tuple(logits.shape)
+    del logits
+    check(finite and shape == (LM_PREFILL_BATCH, seq, cfg.vocab),
+          f"lm prefill: logits {shape}, all finite: {finite}")
+    tokens = LM_PREFILL_BATCH * seq
+    flop = 2.0 * cfg.active_param_count() * tokens
+    return dict(prefill_batch=LM_PREFILL_BATCH, prefill_seq=seq,
+                prefill_ms=ms, prefill_tokens_per_s=tokens / (ms / 1e3),
+                prefill_model_tflops=flop / (ms / 1e3) / 1e12,
+                prefill_peak_gib=round(peak, 3),
+                prefill_phase_peak_gib=round(peak - live, 3))
+
+
+def lm_decode(torch, np, cfg, params) -> dict:
+    """(d) decode_32k: B = 128 against a 32,768-slot cache (filled from a
+    seeded generator in place), LM_DECODE_STEPS ``decode_step``s at
+    ``cache_len`` 32,767; each step's ms against its bound (the cache,
+    the weights and one embedding row a sequence read, the new K/V and the
+    logits written, over the HBM rate); the cache written in place."""
+    from repro_torch.configs.lm_common import SHAPE_DIMS
+    from repro_torch.models.transformer import decode_step, init_kv_cache
+
+    dims = SHAPE_DIMS["decode_32k"]
+    B, T = dims["global_batch"], dims["seq_len"]
+    free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    cache = init_kv_cache(cfg, B, T)
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    for c in cache:
+        c.normal_(generator=gen)
+    ptrs = [c.untyped_storage().data_ptr() for c in cache]
+    toks = lm_tokens(torch, cfg.vocab, B, 0, step=9)
+    times = []
+    with torch.no_grad():
+        for _ in range(LM_DECODE_STEPS):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            logits, out = decode_step(cfg, params, toks, cache, T - 1)
+            end.record()
+            end.synchronize()
+            times.append(start.elapsed_time(end))
+            check(out[0] is cache[0] and out[1] is cache[1],
+                  "lm decode: decode_step returned another cache")
+        finite = bool(torch.isfinite(logits).all())
+    clocks = gpu_clocks()
+    in_place = [c.untyped_storage().data_ptr() for c in cache] == ptrs
+    cache_bytes = sum(c.numel() * c.element_size() for c in cache)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del cache, logits, out
+    check(in_place, "lm decode: the cache's storage moved")
+    check(finite, "lm decode: a logit is not finite")
+    item = params["embed"].element_size()
+    weights = sum(t.numel() * t.element_size() for k, t in params.items()
+                  if k != "embed")
+    written = (2 * cfg.n_layers * B * cfg.n_kv_heads * cfg.d_head
+               + B * cfg.vocab) * item
+    read = cache_bytes + weights + B * cfg.d_model * item
+    b_ms = (read + written) / HBM_BYTES_PER_S * 1e3
+    ms = float(np.median(times[1:]))
+    return dict(decode_batch=B, decode_cache_slots=T,
+                decode_cache_gib=round(cache_bytes / 2 ** 30, 3),
+                decode_ms_median=ms, decode_ms_min=min(times[1:]),
+                decode_ms_first=times[0], decode_bound_ms=b_ms,
+                decode_of_bound=round(b_ms / ms, 4),
+                decode_bytes=int(read + written),
+                decode_tokens_per_s=B / (ms / 1e3),
+                decode_peak_gib=round(peak, 3), cache_in_place=in_place,
+                decode_clocks_after=json.dumps(clocks))
+
+
+def lm_decode_equals_forward(torch, np, cfg, params) -> dict:
+    """(e) At FULL widths in float32 (a float32 copy of the trained
+    weights, TF32 off): LM_EQ_SEQS sequences of LM_EQ_LEN tokens decoded
+    token by token from an empty cache give each position's logits of
+    ``forward`` on the whole sequence within LM_EQ_TOL of max |logits|;
+    and the bfloat16 forward's distance from the float32 one."""
+    from repro_torch.models.transformer import (decode_step, forward,
+                                                init_kv_cache)
+
+    free_card(torch)
+    cfg32 = dataclasses.replace(cfg, dtype=torch.float32)
+    p32 = {k: v.float() for k, v in params.items()}
+    toks = lm_tokens(torch, cfg.vocab, LM_EQ_SEQS, LM_EQ_LEN - 1, step=13)
+    with torch.no_grad():
+        full = forward(cfg32, p32, toks)
+        cache = init_kv_cache(cfg32, LM_EQ_SEQS, LM_EQ_LEN)
+        steps = []
+        for i in range(LM_EQ_LEN):
+            logits, cache = decode_step(cfg32, p32, toks[:, i:i + 1], cache,
+                                        i)
+            steps.append(logits)
+        dec = torch.cat(steps, 1)
+        scale = float(full.abs().max())
+        err = float((dec - full).abs().max()) / scale
+        bf16 = forward(cfg, params, toks).float()
+        bf16_err = float((bf16 - full).abs().max()) / scale
+    del p32, full, cache, dec, bf16, steps
+    check(err <= LM_EQ_TOL, f"lm: decode token by token is {err} of max "
+          f"|logits| from the forward, above {LM_EQ_TOL}")
+    return dict(eq_seqs=LM_EQ_SEQS, eq_len=LM_EQ_LEN,
+                decode_vs_forward_f32=err, bf16_vs_f32_forward=bf16_err,
+                max_abs_logit_f32=scale)
+
+
+def lm_other_configs(torch, np) -> list:
+    """(f) qwen2.5-3b and starcoder2-3b at FULL widths and LM_OTHER_LAYERS
+    layers: one train step on 1 × 4,096 tokens (one microbatch): a finite
+    loss; ms (CUDA events, the shapes' first call) and peak GiB."""
+    from repro_torch.configs.lm_common import SHAPE_DIMS, lm_train_step
+    from repro_torch.models.sharding import null_plan
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+
+    seq = SHAPE_DIMS["train_4k"]["seq_len"]
+    out = []
+    for name in LM_OTHER:
+        full = importlib.import_module(f"repro_torch.configs.{name}").FULL
+        cfg = dataclasses.replace(full, n_layers=LM_OTHER_LAYERS)
+        live = free_card(torch)
+        torch.cuda.reset_peak_memory_stats()
+        params = init_params(cfg, torch.Generator(
+            device="cuda").manual_seed(0))
+        opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=6)
+        step = lm_train_step(cfg, null_plan(), opt_cfg)
+        toks = lm_tokens(torch, cfg.vocab, 1, seq, step=5)
+        opt = adamw_init(params, opt_cfg)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        params, opt, metrics = step(params, opt, toks)
+        end.record()
+        end.synchronize()
+        loss = float(metrics["loss"])
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del params, opt, metrics
+        rec = dict(model=full.name, layers=cfg.n_layers, d_model=cfg.d_model,
+                   heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
+                   vocab=cfg.vocab, loss=loss,
+                   step_ms=start.elapsed_time(end),
+                   peak_gib=round(peak, 3),
+                   phase_peak_gib=round(peak - live, 3))
+        check(np.isfinite(loss), f"lm: {full.name}'s loss is not finite")
+        out.append(rec)
+    return out
+
+
+def lm_launcher(torch) -> dict:
+    """(g) ``repro_torch.launch.train.main`` on the card (its default
+    device): the reference test's 30 steps of qwen2-0.5b-smoke at batch 4
+    × 32 tokens end below a loss of LM_LAUNCHER_BAR."""
+    import shutil
+    import tempfile
+
+    from repro_torch.launch.train import main as train_main
+
+    work = tempfile.mkdtemp(prefix="repro_torch_lm_launch_")
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as printed:
+            loss = train_main(["--steps", "30", "--batch", "4", "--seq",
+                               "32", "--ckpt-dir", work, "--ckpt-every",
+                               "10"])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    secs = time.perf_counter() - t0
+    check(loss < LM_LAUNCHER_BAR, f"lm: the launcher's loss {loss} is not "
+          f"below {LM_LAUNCHER_BAR} ({printed.getvalue().strip()})")
+    return dict(launcher_loss=loss, launcher_s=round(secs, 2))
+
+
+def phase_lm(torch, np) -> dict:
+    """The dense LM family: qwen2-0.5b at FULL trains, replays, prefills
+    and decodes on the card; decode equals the forward in float32; the
+    other two dense configs take a step; the launcher trains. Returns the
+    launches of the phase by kernel (none of the port's kernels is on
+    this path)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import qwen2_0p5b
+    from repro_torch.configs.lm_common import (CARD_BATCH, CARD_MICROBATCHES,
+                                               SHAPE_DIMS)
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.runtime import FailureInjector
+
+    t_phase = time.perf_counter()
+    live = free_card(torch)
+    cfg = qwen2_0p5b.FULL
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=LM_STEPS)
+    seq = SHAPE_DIMS["train_4k"]["seq_len"]
+    tokens = CARD_BATCH * seq
+    flop = 6.0 * cfg.active_param_count() * tokens
+    say("lm", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, d_ff=cfg.d_ff,
+        vocab=cfg.vocab, dtype=str(cfg.dtype).split(".")[1],
+        remat=cfg.remat, q_chunk=cfg.q_chunk, params=cfg.param_count(),
+        batch=CARD_BATCH, microbatches=CARD_MICROBATCHES, seq=seq,
+        steps=LM_STEPS, ckpt_every=LM_CKPT_EVERY,
+        live_gib_at_start=round(live, 3))
+    zero_launches()
+    work = tempfile.mkdtemp(prefix="repro_torch_lm_")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        a = lm_train(torch, cfg, opt_cfg, os.path.join(work, "a"))   # (a)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        inj = FailureInjector(LM_FAIL_AT)
+        b = lm_train(torch, cfg, opt_cfg, os.path.join(work, "b"), inj,
+                     resume_from=os.path.join(work, "a"))            # (b)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    timed = [a["step_ms"][k] for k in range(LM_TIMED_FROM, LM_STEPS)]
+    step_ms = float(np.median(timed))
+    losses = [a["loss"][k] for k in range(LM_STEPS)]
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    say("lm", step_ms_median=step_ms, step_ms_min=min(timed),
+        step_ms_max=max(timed), first_step_ms=a["step_ms"][0],
+        tokens_per_step=tokens, tokens_per_s=tokens / (step_ms / 1e3),
+        model_tflop_per_step=flop / 1e12,
+        model_tflops=flop / (step_ms / 1e3) / 1e12,
+        mfu_bf16=round(flop / (step_ms / 1e3) / BF16_FLOPS_PER_S, 4),
+        peak_gib=round(peak, 3), phase_peak_gib=round(peak - live, 3),
+        clocks_after_a=json.dumps(a["clocks"]),
+        loop_s_a=round(a["loop_s"], 2), loop_s_b=round(b["loop_s"], 2),
+        step_calls_b=b["calls"], fired=json.dumps(sorted(inj.fired)))
+    say("lm", loss_first3_mean=first, loss_last3_mean=last,
+        losses=json.dumps([round(x, 5) for x in losses]),
+        losses_b=json.dumps([round(b["loss"][k], 5)
+                             for k in range(LM_CKPT_EVERY, LM_STEPS)]))
+    check(all(np.isfinite(losses)), "lm: a loss is not finite")
+    check(last < first, f"lm: the loss did not fall ({first} -> {last})")
+    check(inj.fired == set(LM_FAIL_AT),
+          f"lm: injected failures fired at {sorted(inj.fired)}")
+    check(b["calls"] == LM_STEPS - LM_CKPT_EVERY,
+          f"lm: the replayed run ran {b['calls']} steps")
+    replay = bitwise_equal(torch, dict(params=a["params"], opt=a["opt"]),
+                           dict(params=b["params"], opt=b["opt"]))
+    params = a["params"]
+    del a, b
+    say("lm", check="replay_bitwise", replay_bitwise=replay,
+        **lm_embedding_grad_repeat(torch, cfg, params))
+    check(replay, "lm: the replayed run is not bitwise the uninterrupted one")
+    for part in (lm_prefill, lm_decode, lm_decode_equals_forward):  # (c-e)
+        t0 = time.perf_counter()
+        rec = part(torch, np, cfg, params)
+        say("lm", **rec, seconds=round(time.perf_counter() - t0, 1))
+    del params
+    t0 = time.perf_counter()
+    for rec in lm_other_configs(torch, np):                          # (f)
+        say("lm", **rec)
+    say("lm", other_configs_s=round(time.perf_counter() - t0, 1),
+        **lm_launcher(torch))                                        # (g)
+    launched = phase_launches()
+    check(all(n == 0 for n in launched.values()),
+          f"lm: a kernel of the port launched on the LM path: {launched}")
+    say("lm", launches=json.dumps(launched),
+        seconds=round(time.perf_counter() - t_phase, 1))
+    return launched
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # the equiformer phase's step peaks at ≈ 73 GiB of the card's 79.2:
@@ -3456,8 +3902,10 @@ def main() -> int:
         return 2
     import numpy as np
 
-    # the coarse solve's dense product in full float32, never TF32
+    # the coarse solve's dense product in full float32, never TF32; the
+    # LM's bfloat16 products accumulate in float32, as XLA's do
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     smi = phase_build(torch)
     solver, launches, per_shape, setup = phase_main(torch, np)
     phase_superstep(torch, solver, setup)
@@ -3513,6 +3961,9 @@ def main() -> int:
         rec["gnn_launches"] = gnn[rec["kernel"]]
     records += eqf["records"]
     del gnn, eqf
+    lm = phase_lm(torch, np)
+    for rec in records:                 # the lm phase's own (none)
+        rec["lm_launches"] = lm[rec.get("kernel", rec["name"])]
     say("total", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

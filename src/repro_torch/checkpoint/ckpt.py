@@ -30,6 +30,7 @@ import json
 import os
 import shutil
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -43,6 +44,10 @@ def _flatten(tree) -> dict:
 
 
 _BF16 = "bfloat16"
+# threads for the leaves' device copies and file writes or reads, which
+# release the GIL, so one leaf's copy overlaps another's file I/O (a
+# 6.3-GB LM state saves and restores in the LM training loop)
+_WORKERS = 8
 
 
 def _host(leaf) -> np.ndarray:
@@ -65,7 +70,7 @@ def _save_npy(path: str, arr: np.ndarray, dtype_name: str) -> None:
     with open(path, "wb") as f:
         np.lib.format.write_array_header_1_0(
             f, dict(descr="<V2", fortran_order=False, shape=arr.shape))
-        f.write(arr.tobytes())
+        np.ascontiguousarray(arr).tofile(f)
 
 
 def save_checkpoint(directory: str, step: int, tree,
@@ -78,13 +83,17 @@ def save_checkpoint(directory: str, step: int, tree,
     os.makedirs(tmp)
     manifest = dict(step=step, time=time.time(), extra=extra or {},
                     leaves={})
-    for key, leaf in _flatten(tree).items():
+
+    def write(item):
+        key, leaf = item
         arr = _host(leaf)
         dtype = _BF16 if arr.dtype == np.dtype("V2") else str(arr.dtype)
         fname = key.replace("/", "__") + ".npy"
         _save_npy(os.path.join(tmp, fname), arr, dtype)
-        manifest["leaves"][key] = dict(file=fname, shape=list(arr.shape),
-                                       dtype=dtype)
+        return key, dict(file=fname, shape=list(arr.shape), dtype=dtype)
+
+    with ThreadPoolExecutor(_WORKERS) as pool:   # leaves in tree order
+        manifest["leaves"].update(pool.map(write, _flatten(tree).items()))
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):
@@ -126,19 +135,19 @@ def restore_checkpoint(directory: str, step: int, tree_like, device=None,
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     flat_sh = _flatten(shardings) if shardings is not None else {}
-    default = None
-    leaves = []
-    for key in _flatten(tree_like):
+    keys = list(_flatten(tree_like))
+    default = (None if all(k in flat_sh for k in keys)
+               else resolve_device(device))
+
+    def load(key):
         info = manifest["leaves"][key]
         arr = np.load(os.path.join(path, info["file"]))
-        if key in flat_sh:
-            dev = torch.device(flat_sh[key])
-        else:
-            default = default or resolve_device(device)
-            dev = default
+        dev = torch.device(flat_sh[key]) if key in flat_sh else default
         if info["dtype"] == _BF16:
             t = torch.from_numpy(np.array(arr).view(np.int16))
-            leaves.append(t.view(torch.bfloat16).to(dev))
-        else:
-            leaves.append(torch.as_tensor(arr, device=dev))
+            return t.view(torch.bfloat16).to(dev)
+        return torch.as_tensor(arr, device=dev)
+
+    with ThreadPoolExecutor(_WORKERS) as pool:
+        leaves = list(pool.map(load, keys))
     return unflatten(tree_like, iter(leaves)), manifest

@@ -5,8 +5,9 @@ interface, less its dry-run: ``spec.shapes`` (the arch's own four input
 shapes) and ``spec.make_smoke_case(device=None)`` (a reduced config and
 tiny inputs; returns a function that runs it and returns its outputs).
 The reference's ``make_dryrun_case`` lowers a jitted step for XLA's cost
-analysis; its port waits for ``launch/dryrun.py`` (ROADMAP A12), so the
-port's ``ArchSpec`` has no such field yet.
+analysis; its port waits for ``launch/dryrun.py`` (ROADMAP A15, A16), so
+the port's ``ArchSpec`` has no such field yet. The MoE LMs (arctic-480b,
+moonshot-v1-16b-a3b) wait for their block (ROADMAP A13b).
 """
 
 from __future__ import annotations
@@ -51,4 +52,5 @@ def _ensure_loaded() -> None:
     # the arch modules register themselves when imported
     from repro_torch.configs import (deepfm, egnn,  # noqa: F401
                                      equiformer_v2, laplacian_solver,
-                                     meshgraphnet, pna)
+                                     meshgraphnet, pna, qwen2_0p5b,
+                                     qwen2p5_3b, starcoder2_3b)

@@ -28,6 +28,11 @@ dicts of the reference's ``init_mgn``, ``init_pna``, ``init_egnn`` and
 LayerNorm, and Equiformer-v2's bare matrices (``out_proj``, the
 ``so2`` dict of ``m{m}_r``/``m{m}_i``), leaf for leaf.
 
+``lm_params_from_numpy(tree, device)`` does the same for the dict the
+reference's ``models.transformer.init_params`` returns (``embed``,
+``lm_head``, the stacked ``[L, ...]`` layer weights), bfloat16 leaves
+included.
+
 ``adamw_state_from_numpy(tree, device)`` takes the reference's
 ``adamw_init``/``adamw_update`` state as numpy: ``{"mu": tree, "nu": tree,
 "step": int32}``, each moment leaf a float32 array, a bfloat16 one (an
@@ -131,15 +136,21 @@ def gnn_params_from_numpy(tree, device):
     return conv(tree)
 
 
-def _moment(a, device):
-    if isinstance(a, dict):
-        return dict(q=_t(a["q"], device, torch.int8),
-                    scale=_t(a["scale"], device, torch.float32))
+def _float_leaf(a, device) -> torch.Tensor:
+    """A bfloat16 leaf (an ``ml_dtypes`` array, or the raw ``|V2`` values
+    ``np.load`` gives for one) bit for bit; anything else as float32."""
     a = np.asarray(a)
     if a.dtype.name == "bfloat16" or a.dtype == np.dtype("V2"):
         bits = torch.from_numpy(np.array(a).view(np.int16))
         return bits.view(torch.bfloat16).to(device)
     return _t(a, device, torch.float32)
+
+
+def _moment(a, device):
+    if isinstance(a, dict):
+        return dict(q=_t(a["q"], device, torch.int8),
+                    scale=_t(a["scale"], device, torch.float32))
+    return _float_leaf(a, device)
 
 
 def adamw_state_from_numpy(tree: dict, device) -> dict:
@@ -159,3 +170,12 @@ def adamw_state_from_numpy(tree: dict, device) -> dict:
 
     return dict(mu=moments(tree["mu"]), nu=moments(tree["nu"]),
                 step=_t(tree["step"], device, torch.int32))
+
+
+def lm_params_from_numpy(tree: dict, device) -> dict:
+    """The port's LM parameters (``models.transformer.init_params``'s
+    layout: the same keys, stacked ``[L, ...]`` layer leaves) for a
+    reference parameter dict of numpy arrays; bfloat16 leaves stay
+    bfloat16 bit for bit, the rest become float32."""
+    device = torch.device(device)
+    return {k: _float_leaf(v, device) for k, v in tree.items()}

@@ -1,3 +1,4 @@
-"""Models of the port (``repro.models``'s counterpart): so far the DeepFM
-serving path of ``models/recsys``, and from ``models/gnn`` the MLP it needs
-and the ``GraphBatch`` container ``spectral/pe.py`` fills."""
+"""Models of the port (``repro.models``'s counterpart): DeepFM
+(``models/recsys``), the GNNs (``models/gnn``), the dense decoder-only
+LMs (``models/transformer.py``) and the sharding plan they take
+(``models/sharding.py``; only the null plan so far)."""

@@ -57,7 +57,7 @@ def _wait(x) -> None:
         torch.cuda.current_stream(x.device).synchronize()
 
 
-def _devices(tree):
+def tree_devices(tree):
     """``tree``'s structure with each leaf replaced by its device (the
     host for a leaf that is no tensor): the ``shardings`` that restores a
     checkpoint where the state lives."""
@@ -109,7 +109,7 @@ class TrainLoopRunner:
                 state = dict(params=params, opt=opt_state)
                 state, _ = restore_checkpoint(
                     self.ckpt_dir, restored, state,
-                    shardings=_devices(state))
+                    shardings=tree_devices(state))
                 params, opt_state = state["params"], state["opt"]
                 step = restored  # deterministic data stream replays from here
         return params, opt_state, metrics

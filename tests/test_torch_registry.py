@@ -2,18 +2,22 @@
 CPU.
 
 ``repro_torch.configs``: ``list_archs()`` names the port's archs (DeepFM,
-the Laplacian solver and the four GNNs, six of the reference's eleven),
+the Laplacian solver, the four GNNs and the three dense LMs, nine of the
+reference's eleven),
 each declares the reference's four shapes and family, and each smoke case runs on the CPU with finite outputs; the
 Laplacian solver's smoke case takes the reference's iteration count and
 its WDA within rtol 1e-2 (WDA
 reads the log of the last residual norm, whose float32 reductions sum in
 another order in the two packages, ROADMAP C4; 1.2e-3 apart here).
 DeepFM's smoke case gives a finite loss, gradients and scores; each GNN's
-a finite output, loss and gradients, and the GNNs' shape table is the
+a finite output, loss and gradients; each LM's a finite loss (one train
+step) and finite ``[2, 1, vocab]`` decode logits, and the GNNs' shape table is the
 reference's. ``repro_torch.data``:
 ``lm_batch_stream``, ``recsys_batch_stream``, ``gnn_graph_batch`` and
 ``neighbor_sampled_batch`` are bit-identical to the reference's.
 """
+
+import importlib
 
 import numpy as np
 import pytest
@@ -30,7 +34,10 @@ import repro_torch.data.synthetic as TS  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
 
 PORT_ARCHS = ["deepfm", "egnn", "equiformer-v2", "laplacian-solver",
-              "meshgraphnet", "pna"]
+              "meshgraphnet", "pna", "qwen2-0.5b", "qwen2.5-3b",
+              "starcoder2-3b"]
+LM_ARCHS = {"qwen2-0.5b": "qwen2_0p5b", "qwen2.5-3b": "qwen2p5_3b",
+            "starcoder2-3b": "starcoder2_3b"}
 GNN_ARCHS = ["egnn", "equiformer-v2", "meshgraphnet", "pna"]
 
 
@@ -64,6 +71,16 @@ def test_gnn_smoke_case_is_finite(arch_id):
     grads = leaves(out["grads"])
     assert grads and all(torch.isfinite(g).all() for g in grads)
     assert sum(int((g != 0).any()) for g in grads) > len(grads) // 2
+
+
+@pytest.mark.parametrize("arch_id", sorted(LM_ARCHS))
+def test_lm_smoke_case_is_finite(arch_id):
+    out = TC.get_arch(arch_id).make_smoke_case(device="cpu")()
+    vocab = importlib.import_module(
+        f"repro_torch.configs.{LM_ARCHS[arch_id]}").SMOKE.vocab
+    assert out["loss"].shape == () and torch.isfinite(out["loss"])
+    assert out["logits"].shape == (2, 1, vocab)
+    assert torch.isfinite(out["logits"]).all()
 
 
 def test_gnn_shapes_are_the_reference_shapes():
