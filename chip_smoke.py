@@ -358,6 +358,32 @@ Phases, one line each (any failure exits non-zero):
              below a loss of 5.0. No kernel of the port is on this path:
              every launch count of the phase must stay 0, and each record
              gets ``lm_launches``.
+15. moe    — the MoE half of the LM family (``moe_ffn``'s top-k dispatch
+             and combine: cuBLAS products and plain ops, no float atomic),
+             at ``lm_common``'s ``MOE_CARD_*`` cuts. (a)
+             moonshot-v1-16b-a3b at ``FULL`` widths (d 2,048, 16 heads
+             with kv 16, 64 experts of 1,408, top-6, 2 shared, vocab
+             163,840, bf16, remat), MOE_CARD_LAYERS = 4 of 48 layers:
+             MOE_STEPS steps of ``lm_train_step`` (donated) at 8 × 4,096
+             tokens in 8 microbatches of 1, AdamW with f32 moments: every
+             loss finite, the mean of the last 2 below the first 2's; step
+             ms (median of steps 2–4), tokens/s, model TFLOP/s at
+             6·active params·tokens and at the executed count (E·cap
+             expert rows a layer and microbatch), peak GiB, each layer's
+             dropped share of routed entries in step 1. (b) One
+             microbatch's loss and every gradient leaf bitwise on a repeat
+             (no deterministic-algorithms switch); layer 0's ``(idx, pos,
+             keep)`` equal to a numpy recount of the capacity rule from
+             its router probabilities. (c) ``forward`` on 1 × 32,768
+             tokens. (d) decode at B = 32 (MOE_CARD_DECODE_BATCH) against
+             a 32,768-slot cache, in place, against its bound (every
+             expert's weights read). (e) arctic-480b at ``FULL`` widths,
+             1 of 35 layers (128 experts, the dense residual FFN): prefill
+             1 × 32,768 and decode B = 128 × 32,768 slots, forward only.
+             (f) Both MoE archs' registry smoke cases on the card and a
+             step of arctic's ``SMOKE`` with its int8 moments: finite.
+             Every launch count must stay 0; each record gets
+             ``moe_launches``.
 
 Then a ``[total]`` line with the script's seconds. The line before the
 last is the card's name and power limit, the one before it the kernels'
@@ -427,6 +453,10 @@ LM_EQ_SEQS, LM_EQ_LEN, LM_EQ_TOL = 4, 64, 1e-4   # (e), of max |logits|
 LM_OTHER = ("qwen2p5_3b", "starcoder2_3b")       # (f), at LM_OTHER_LAYERS
 LM_OTHER_LAYERS = 2
 LM_LAUNCHER_BAR = 5.0                    # (g): the reference test's bar
+# the moe phase: moonshot-v1-16b-a3b FULL at lm_common's MOE_CARD_* cuts
+# (PERF.md §4); (a)'s steps, the median of steps 2–4, the drop shares of
+# step 1 (0-based, as the median's)
+MOE_STEPS, MOE_TIMED_FROM, MOE_DROP_STEP = 5, 2, 1
 BF16_FLOPS_PER_S = 989e12                # H100 SXM dense bf16 tensor cores
 BAG_OPS = ("repro_torch.kernels.embedding_bag",
            "repro_torch.kernels.embedding_bag.ops")
@@ -3634,17 +3664,19 @@ def lm_prefill(torch, np, cfg, params) -> dict:
                 prefill_phase_peak_gib=round(peak - live, 3))
 
 
-def lm_decode(torch, np, cfg, params) -> dict:
-    """(d) decode_32k: B = 128 against a 32,768-slot cache (filled from a
-    seeded generator in place), LM_DECODE_STEPS ``decode_step``s at
-    ``cache_len`` 32,767; each step's ms against its bound (the cache,
-    the weights and one embedding row a sequence read, the new K/V and the
-    logits written, over the HBM rate); the cache written in place."""
+def lm_decode(torch, np, cfg, params, batch=None) -> dict:
+    """(d) decode_32k: B = 128 (or ``batch``) against a 32,768-slot cache
+    (filled from a seeded generator in place), LM_DECODE_STEPS
+    ``decode_step``s at ``cache_len`` 32,767; each step's ms against its
+    bound (the cache, the weights (an MoE's every expert: its dense
+    ``[E, cap, d]`` buffer runs them all) and one embedding row a
+    sequence read, the new K/V and the logits written, over the HBM
+    rate); the cache written in place."""
     from repro_torch.configs.lm_common import SHAPE_DIMS
     from repro_torch.models.transformer import decode_step, init_kv_cache
 
     dims = SHAPE_DIMS["decode_32k"]
-    B, T = dims["global_batch"], dims["seq_len"]
+    B, T = batch or dims["global_batch"], dims["seq_len"]
     free_card(torch)
     torch.cuda.reset_peak_memory_stats()
     cache = init_kv_cache(cfg, B, T)
@@ -3881,6 +3913,278 @@ def phase_lm(torch, np) -> dict:
     return launched
 
 
+@contextlib.contextmanager
+def moe_routes(routers):
+    """Within the block, record each call of ``moe_ffn``'s routing
+    (``transformer.moe_route``, which ``moe_ffn`` looks up at call time):
+    yields a list of ``{layer, probs, idx, pos, keep, cap}`` (detached,
+    on the card), the layer found by the address of its router in
+    ``routers`` (the stacked ``[L, d, E]`` leaf the layers' views share)."""
+    import repro_torch.models.transformer as T
+
+    real = T.moe_route
+    layer = {routers[i].data_ptr(): i for i in range(routers.shape[0])}
+    calls = []
+
+    def recorded(xt, router, m):
+        r = real(xt, router, m)
+        calls.append(dict(layer=layer.get(router.data_ptr()),
+                          probs=r.probs.detach(), idx=r.idx, pos=r.pos,
+                          keep=r.keep, cap=r.cap))
+        return r
+
+    T.moe_route = recorded
+    try:
+        yield calls
+    finally:
+        T.moe_route = real
+
+
+def moe_recount(np, probs, k: int, cap: int):
+    """The reference's routing rule recounted on the host from ``probs``
+    [shards, Tl, E]: each token's k experts, highest first and the lower
+    expert first among ties; each entry's rank among the earlier entries
+    of its shard routed to its expert, counted entry by entry; kept if
+    below ``cap``."""
+    idx = np.argsort(-probs, axis=-1, kind="stable")[..., :k]
+    flat = idx.reshape(idx.shape[0], -1)
+    pos = np.empty_like(flat)
+    for s in range(flat.shape[0]):
+        seen = np.zeros(probs.shape[-1], np.int64)
+        for n, e in enumerate(flat[s]):
+            pos[s, n] = seen[e]
+            seen[e] += 1
+    pos = pos.reshape(idx.shape)
+    return idx, pos, pos < cap
+
+
+def moe_train(torch, np, cfg, opt_cfg) -> dict:
+    """(a) MOE_STEPS steps of ``lm_train_step`` (donated) at
+    MOE_CARD_BATCH × train_4k's 4,096 tokens in MOE_CARD_MICROBATCHES
+    microbatches: each step's CUDA-event ms and loss, the peak GiB, and in
+    step MOE_DROP_STEP the share of routed entries each layer dropped
+    (every forward of the step, the remat recomputation included)."""
+    from repro_torch.configs.lm_common import (MOE_CARD_BATCH,
+                                               MOE_CARD_MICROBATCHES,
+                                               SHAPE_DIMS, lm_train_step)
+    from repro_torch.models.sharding import null_plan
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import adamw_init
+
+    seq = SHAPE_DIMS["train_4k"]["seq_len"]
+    live = free_card(torch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw_init(params, opt_cfg)
+    step = lm_train_step(cfg, null_plan(), opt_cfg,
+                         n_microbatches=MOE_CARD_MICROBATCHES, donate=True)
+    step_ms, losses, drops = [], [], None
+    for s in range(MOE_STEPS):
+        toks = lm_tokens(torch, cfg.vocab, MOE_CARD_BATCH, seq, s)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        with contextlib.ExitStack() as stack:
+            if s == MOE_DROP_STEP:
+                calls = stack.enter_context(moe_routes(params["router"]))
+            start.record()
+            params, opt, metrics = step(params, opt, toks)
+            end.record()
+            end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(metrics["loss"]))
+        if s == MOE_DROP_STEP:
+            dropped = [0] * cfg.n_layers
+            routed = [0] * cfg.n_layers
+            for c in calls:
+                dropped[c["layer"]] += int((~c["keep"]).sum())
+                routed[c["layer"]] += c["keep"].numel()
+            drops = [d / r for d, r in zip(dropped, routed)]
+            cap = calls[0]["cap"]
+            del calls
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del opt
+    return dict(params=params, step_ms=step_ms, losses=losses, drops=drops,
+                cap=cap, peak_gib=peak, phase_peak_gib=peak - live,
+                loop_s=time.perf_counter() - t0, clocks=gpu_clocks())
+
+
+def moe_repeat(torch, np, cfg, params) -> dict:
+    """(b) One microbatch's loss and gradients twice: every leaf's bits
+    equal; and layer 0's routing in the first run (its first forward)
+    equal to ``moe_recount`` on the host from its router probabilities."""
+    from repro_torch.configs.lm_common import SHAPE_DIMS
+    from repro_torch.models.transformer import lm_loss
+    from repro_torch.tree import value_and_grad
+
+    seq = SHAPE_DIMS["train_4k"]["seq_len"]
+    toks = lm_tokens(torch, cfg.vocab, 1, seq, step=MOE_STEPS)
+    runs = []
+    with moe_routes(params["router"]) as calls:
+        for _ in range(2):
+            runs.append(value_and_grad(lambda p: lm_loss(cfg, p, toks),
+                                       params))
+    bitwise = bitwise_equal(torch, runs[0], runs[1])
+    finite = all(bool(torch.isfinite(g).all()) for g in runs[0][1].values())
+    del runs
+    first = next(c for c in calls if c["layer"] == 0)
+    probs = first["probs"].cpu().numpy()
+    k = cfg.moe.top_k
+    idx, pos, keep = moe_recount(np, probs, k, first["cap"])
+    recount = (np.array_equal(first["idx"].cpu().numpy(), idx)
+               and np.array_equal(first["pos"].cpu().numpy(), pos)
+               and np.array_equal(first["keep"].cpu().numpy(), keep))
+    top = -np.sort(-probs, axis=-1)
+    boundary = int((top[..., k - 1] == top[..., k]).sum())
+    within = int((top[..., :k] == top[..., 1:k + 1]).any(-1).sum())
+    del calls, first
+    check(bitwise, "moe: a microbatch's loss and gradients are not bitwise "
+          "equal on a repeat")
+    check(finite, "moe: a gradient is not finite")
+    check(recount, "moe: layer 0's (idx, pos, keep) differ from the host "
+          "recount of the capacity rule")
+    return dict(grads_bitwise_repeat=bitwise, routing_equals_recount=recount,
+                recount_tokens=int(probs.shape[0] * probs.shape[1]),
+                recount_dropped=int((~keep).sum()),
+                boundary_ties=boundary, ties_in_top_k_plus_1=within)
+
+
+def moe_arctic(torch, np) -> dict:
+    """(e) arctic-480b at FULL widths, ARCTIC_CARD_LAYERS layer(s) with
+    all 128 experts and the dense residual FFN: prefill (``lm_prefill``)
+    and decode at B = 128 (``lm_decode``); forward only."""
+    from repro_torch.configs import arctic_480b
+    from repro_torch.configs.lm_common import ARCTIC_CARD_LAYERS
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(arctic_480b.FULL, n_layers=ARCTIC_CARD_LAYERS)
+    free_card(torch)
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    out = dict(arctic_layers=cfg.n_layers, arctic_params=cfg.param_count(),
+               arctic_init_s=round(time.perf_counter() - t0, 2))
+    for part in (lm_prefill, lm_decode):
+        out.update({f"arctic_{k}": v
+                    for k, v in part(torch, np, cfg, params).items()})
+    del params
+    return out
+
+
+def moe_smoke(torch, np) -> dict:
+    """(f) Both MoE archs' registry smoke cases on the card (a train step
+    and a decode), and a step of arctic's ``SMOKE`` with its registered
+    int8 moments (``arctic_480b.OPT_CFG``): losses and logits finite."""
+    from repro_torch.configs import arctic_480b, get_arch
+    from repro_torch.configs.lm_common import lm_train_step
+    from repro_torch.models.sharding import null_plan
+    from repro_torch.models.transformer import init_params
+    from repro_torch.optim.adamw import adamw_init
+
+    out = {}
+    for arch in ("arctic-480b", "moonshot-v1-16b-a3b"):
+        res = get_arch(arch).make_smoke_case()()
+        finite = bool(torch.isfinite(res["loss"])
+                      and torch.isfinite(res["logits"]).all())
+        check(finite, f"moe: {arch}'s smoke case is not finite")
+        out[f"smoke_{arch}_loss"] = float(res["loss"])
+    cfg = arctic_480b.SMOKE
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    opt = adamw_init(params, arctic_480b.OPT_CFG)
+    toks = lm_tokens(torch, cfg.vocab, 2, 16, step=3)
+    _, opt, metrics = lm_train_step(cfg, null_plan(), arctic_480b.OPT_CFG)(
+        params, opt, toks)
+    loss = float(metrics["loss"])
+    q = opt["mu"]["moe_gate"]["q"]
+    check(np.isfinite(loss) and q.dtype == torch.int8,
+          f"moe: arctic's int8 step gave loss {loss}, moments {q.dtype}")
+    out["smoke_arctic_int8_loss"] = loss
+    return out
+
+
+def phase_moe(torch, np) -> dict:
+    """The MoE half of the LM family: moonshot-v1-16b-a3b at FULL widths
+    (MOE_CARD_LAYERS layers) trains, repeats a microbatch bitwise,
+    prefills and decodes; arctic-480b at FULL widths prefills and decodes;
+    both smoke cases run. Returns the phase's launches by kernel (none of
+    the port's kernels is on this path)."""
+    from repro_torch.configs import moonshot_v1_16b_a3b
+    from repro_torch.configs.lm_common import (MOE_CARD_BATCH,
+                                               MOE_CARD_DECODE_BATCH,
+                                               MOE_CARD_LAYERS,
+                                               MOE_CARD_MICROBATCHES,
+                                               SHAPE_DIMS)
+    from repro_torch.optim.adamw import AdamWConfig
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(moonshot_v1_16b_a3b.FULL,
+                              n_layers=MOE_CARD_LAYERS)
+    m = cfg.moe
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=MOE_STEPS)
+    seq = SHAPE_DIMS["train_4k"]["seq_len"]
+    tokens = MOE_CARD_BATCH * seq
+    say("moe", model=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+        heads=cfg.n_heads, kv_heads=cfg.n_kv_heads, experts=m.n_experts,
+        top_k=m.top_k, d_ff_expert=m.d_ff_expert, shared=m.n_shared,
+        capacity_factor=m.capacity_factor, vocab=cfg.vocab,
+        dtype=str(cfg.dtype).split(".")[1], remat=cfg.remat,
+        params=cfg.param_count(), active_params=cfg.active_param_count(),
+        batch=MOE_CARD_BATCH, microbatches=MOE_CARD_MICROBATCHES, seq=seq,
+        steps=MOE_STEPS, live_gib_at_start=round(free_card(torch), 3))
+    zero_launches()
+    a = moe_train(torch, np, cfg, opt_cfg)                         # (a)
+    timed = a["step_ms"][MOE_TIMED_FROM:]
+    step_ms = float(np.median(timed))
+    routed = cfg.n_layers * 3 * cfg.d_model * m.d_ff_expert
+    flop = 6.0 * cfg.active_param_count() * tokens
+    executed = flop + 6.0 * routed * (
+        m.n_experts * a["cap"] * MOE_CARD_MICROBATCHES - m.top_k * tokens)
+    losses = a["losses"]
+    first, last = float(np.mean(losses[:2])), float(np.mean(losses[-2:]))
+    say("moe", step_ms_median=step_ms, step_ms_min=min(timed),
+        step_ms_max=max(timed), first_step_ms=a["step_ms"][0],
+        step_ms_all=json.dumps([round(x, 1) for x in a["step_ms"]]),
+        tokens_per_step=tokens, tokens_per_s=tokens / (step_ms / 1e3),
+        model_tflop_per_step=flop / 1e12,
+        model_tflops=flop / (step_ms / 1e3) / 1e12,
+        executed_tflop_per_step=executed / 1e12,
+        executed_tflops=executed / (step_ms / 1e3) / 1e12,
+        mfu_bf16=round(flop / (step_ms / 1e3) / BF16_FLOPS_PER_S, 4),
+        cap=a["cap"], peak_gib=round(a["peak_gib"], 3),
+        phase_peak_gib=round(a["phase_peak_gib"], 3),
+        loop_s=round(a["loop_s"], 2), clocks_after_a=json.dumps(a["clocks"]))
+    say("moe", loss_first2_mean=first, loss_last2_mean=last,
+        losses=json.dumps([round(x, 5) for x in losses]),
+        dropped_share_by_layer=json.dumps([round(x, 5) for x in a["drops"]]),
+        dropped_in_step=MOE_DROP_STEP)
+    check(all(np.isfinite(losses)), "moe: a loss is not finite")
+    check(last < first, f"moe: the loss did not fall ({first} -> {last})")
+    params = a.pop("params")
+    del a
+    t0 = time.perf_counter()
+    say("moe", check="repeat_and_recount",                          # (b)
+        **moe_repeat(torch, np, cfg, params),
+        seconds=round(time.perf_counter() - t0, 1))
+    for part, kw in ((lm_prefill, {}),                              # (c)
+                     (lm_decode, dict(batch=MOE_CARD_DECODE_BATCH))):  # (d)
+        t0 = time.perf_counter()
+        rec = part(torch, np, cfg, params, **kw)
+        say("moe", **rec, seconds=round(time.perf_counter() - t0, 1))
+    del params
+    t0 = time.perf_counter()
+    say("moe", **moe_arctic(torch, np),                             # (e)
+        seconds=round(time.perf_counter() - t0, 1))
+    t0 = time.perf_counter()
+    say("moe", **moe_smoke(torch, np),                              # (f)
+        seconds=round(time.perf_counter() - t0, 1))
+    launched = phase_launches()
+    check(all(n == 0 for n in launched.values()),
+          f"moe: a kernel of the port launched on the MoE path: {launched}")
+    say("moe", launches=json.dumps(launched),
+        seconds=round(time.perf_counter() - t_phase, 1))
+    return launched
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # the equiformer phase's step peaks at ≈ 73 GiB of the card's 79.2:
@@ -3964,6 +4268,9 @@ def main() -> int:
     lm = phase_lm(torch, np)
     for rec in records:                 # the lm phase's own (none)
         rec["lm_launches"] = lm[rec.get("kernel", rec["name"])]
+    moe = phase_moe(torch, np)
+    for rec in records:                 # the moe phase's own (none)
+        rec["moe_launches"] = moe[rec.get("kernel", rec["name"])]
     say("total", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

@@ -34,17 +34,37 @@ SHAPE_DIMS = dict(
 # work), in 4 microbatches of 4 (the float32 logits chain of one
 # microbatch of 16 × 4,096 would need ≈ 120 GB)
 CARD_BATCH, CARD_MICROBATCHES = 16, 4
+# the MoE configs on one card (chip_smoke.py's moe phase, trace_lm.py).
+# moonshot-v1-16b-a3b: 4 of its 48 layers, 3.02 G parameters (1.016 G
+# active); training with microbatches and the step's state donated costs
+# ≈ 16 B a parameter (bf16 weights 2, a microbatch's gradient 2, the
+# float32 accumulator 4, float32 moments 8: ≈ 48 GB), plus a microbatch's
+# logits chain (1 × 4,096 × 163,840 × 12 B ≈ 8 GB) and AdamW's float32
+# temporaries (≈ 3 GB each for moe_gate/moe_up/moe_down); 6 layers would
+# need ≈ 84 GB. train_4k's batch 256 cut to 8 in 8 microbatches of 1 (one
+# of 2 × 4,096 would push the peak past ≈ 75 GB); decode_32k's batch 128
+# cut to 32 (its MHA cache is 268 MB a sequence a layer: 137 GB at 128).
+# arctic-480b: 1 of its 35 layers (14.07 G parameters, 28.1 GB in bf16),
+# forward and decode only (its training state is ≈ 84 GB a layer)
+MOE_CARD_LAYERS = 4
+MOE_CARD_BATCH, MOE_CARD_MICROBATCHES = 8, 8
+MOE_CARD_DECODE_BATCH = 32
+ARCTIC_CARD_LAYERS = 1
 
 
 def lm_train_step(cfg: TransformerConfig, plan, opt_cfg: AdamWConfig,
-                  n_microbatches: int = 1, accum_dtype=torch.float32):
+                  n_microbatches: int = 1, accum_dtype=torch.float32,
+                  donate: bool = False):
     """``step(params, opt_state, tokens [B, S+1]) -> (params, opt_state,
     {"loss", "grad_norm", "lr"})``: the loss and its gradients by
     autograd, then ``adamw_update``; functional, as the reference's. With
     ``n_microbatches`` > 1 the batch splits into that many equal parts,
     one after another (the activations scale with the part); their
     gradients are summed in ``accum_dtype`` and divided by their count,
-    and so is the loss (float32), in the reference's order."""
+    and so is the loss (float32), in the reference's order. ``donate``
+    (the reference trainer's ``donate_argnums=(0, 1)``): the update is
+    written into ``params`` and ``opt_state``, which the step returns,
+    so that no second copy of either is made."""
     def grad_fn(params, tokens):
         return value_and_grad(lambda p: lm_loss(cfg, p, tokens, plan),
                               params)
@@ -62,13 +82,13 @@ def lm_train_step(cfg: TransformerConfig, plan, opt_cfg: AdamWConfig,
             for i in range(n_microbatches):
                 li, gi = grad_fn(params, mb[i])
                 loss = loss + li
-                grads = tree_map(lambda a, b: a + b.to(accum_dtype), grads,
-                                 gi)
+                # in place on the step's own sums: a + b.to(accum_dtype)
+                tree_map(lambda a, b: a.add_(b), grads, gi)
                 del gi
             loss = loss / n_microbatches
-            grads = tree_map(lambda g: g / n_microbatches, grads)
+            tree_map(lambda g: g.div_(n_microbatches), grads)
         params, opt_state, metrics = adamw_update(opt_cfg, params, grads,
-                                                  opt_state)
+                                                  opt_state, donate=donate)
         return params, opt_state, dict(loss=loss, **metrics)
     return step
 

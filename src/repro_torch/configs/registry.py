@@ -6,8 +6,7 @@ shapes) and ``spec.make_smoke_case(device=None)`` (a reduced config and
 tiny inputs; returns a function that runs it and returns its outputs).
 The reference's ``make_dryrun_case`` lowers a jitted step for XLA's cost
 analysis; its port waits for ``launch/dryrun.py`` (ROADMAP A15, A16), so
-the port's ``ArchSpec`` has no such field yet. The MoE LMs (arctic-480b,
-moonshot-v1-16b-a3b) wait for their block (ROADMAP A13b).
+the port's ``ArchSpec`` has no such field yet.
 """
 
 from __future__ import annotations
@@ -50,7 +49,7 @@ def list_archs() -> list:
 
 def _ensure_loaded() -> None:
     # the arch modules register themselves when imported
-    from repro_torch.configs import (deepfm, egnn,  # noqa: F401
-                                     equiformer_v2, laplacian_solver,
-                                     meshgraphnet, pna, qwen2_0p5b,
-                                     qwen2p5_3b, starcoder2_3b)
+    from repro_torch.configs import (arctic_480b, deepfm,  # noqa: F401
+                                     egnn, equiformer_v2, laplacian_solver,
+                                     meshgraphnet, moonshot_v1_16b_a3b, pna,
+                                     qwen2_0p5b, qwen2p5_3b, starcoder2_3b)

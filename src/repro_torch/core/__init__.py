@@ -3,7 +3,8 @@ baselines (the reference's ``repro.core`` exports, where ported)."""
 
 from repro_torch.core.graph import GraphLevel, graph_from_adjacency, hash32
 from repro_torch.core.elimination import (EliminationLevel, select_eliminated,
-                                          build_elimination_level)
+                                          build_elimination_level,
+                                          eliminate_low_degree)
 from repro_torch.core.aggregation import (AggregationConfig, aggregate,
                                           renumber_aggregates)
 from repro_torch.core.coarsen import AggregationLevel, contract
@@ -21,6 +22,7 @@ from repro_torch.core.wda import wda, pcg_iteration_work, cycle_work_units
 __all__ = [
     "GraphLevel", "graph_from_adjacency", "hash32",
     "EliminationLevel", "select_eliminated", "build_elimination_level",
+    "eliminate_low_degree",
     "AggregationConfig", "aggregate", "renumber_aggregates",
     "AggregationLevel", "contract",
     "algebraic_distance_strength", "affinity_strength", "STRENGTH_METRICS",

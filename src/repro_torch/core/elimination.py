@@ -197,3 +197,14 @@ def build_elimination_level(level: GraphLevel, elim: torch.Tensor,
         f_index=out["f_index"], f_vertices=out["f_vertices"], p_f=p_f,
         inv_deg_f=out["inv_deg_f"])
 
+
+def eliminate_low_degree(level: GraphLevel, max_degree: int = MAX_ELIM_DEGREE,
+                         coarse_capacity: int | None = None):
+    """One full elimination pass: select + build. Returns None if nothing to
+    do (no vertex, or every vertex, selected)."""
+    elim = select_eliminated(level, max_degree)
+    n_elim = int(elim.sum())
+    if n_elim == 0 or n_elim == level.n:
+        return None
+    return build_elimination_level(level, elim, coarse_capacity,
+                                   n_f=n_elim, max_degree=max_degree)

@@ -1,16 +1,14 @@
-"""Decoder-only transformer family, dense part: torch port of
+"""Decoder-only transformer family: torch port of
 ``repro.models.transformer`` (GQA + RoPE (+ QKV bias) with a gated dense
-FFN).
+FFN or a capacity-based top-k MoE).
 
-One parameterisation covers the three dense LM architectures (qwen2-0.5b,
-qwen2.5-3b, starcoder2-3b). Layers are *stacked* (``[L, ...]`` leaves, the
-reference's tree and key names); the forward takes each stacked leaf apart
-once (``torch.unbind``) and runs the layers in a Python loop, under
-``cfg.remat`` each inside ``torch.utils.checkpoint``. The configs keep the
-reference's MoE fields and parameter counts, but the MoE block
-(``moe_ffn``: capacity-based top-k dispatch and combine, two scatter-adds)
-is not ported yet: ``init_params``, ``forward`` and ``decode_step`` raise
-``NotImplementedError`` for a config with ``moe`` (ROADMAP A13b).
+One parameterisation covers the five LM architectures: qwen2-0.5b,
+qwen2.5-3b and starcoder2-3b (dense), arctic-480b (MoE with a dense
+residual FFN beside it) and moonshot-v1-16b-a3b (MoE with shared
+experts). Layers are *stacked* (``[L, ...]`` leaves, the reference's tree
+and key names); the forward takes each stacked leaf apart once
+(``torch.unbind``) and runs the layers in a Python loop, under
+``cfg.remat`` each inside ``torch.utils.checkpoint``.
 
 The casts are the reference's, in its order, because they decide the
 bfloat16 bits: RMSNorm's variance in float32 and its ``rsqrt`` cast to
@@ -18,9 +16,10 @@ the activation dtype; RoPE's angles in float32 and ``cos``/``sin`` cast
 to it; attention scores in the activation dtype, divided by ``sqrt(dh)``
 there (a power-of-two divisor as an exact scaling of the queries) and
 masked with its ``finfo.min``; the softmax in float32, cast back before
-the product with V; the loss's log-sum-exp and gold logit in
-float32. Products are ``torch.matmul``/``bmm`` (cuBLAS on the card; no
-Pallas kernel stands behind this path in the reference).
+the product with V; the router's logits in the activation dtype and its
+softmax in float32; the loss's log-sum-exp and gold logit in float32.
+Products are ``torch.matmul``/``bmm`` (cuBLAS on the card; no Pallas
+kernel stands behind this path in the reference).
 
 Attention keeps the reference's row-exact chunked form: query blocks of
 ``q_chunk`` rows, each against its full key row (no online rescaling). The
@@ -29,6 +28,20 @@ that neither a 32,768-slot decode cache nor a training K is copied into
 another layout. ``decode_step`` writes the new tokens' K/V into the cache
 in place (the reference's functional ``dynamic_update_slice`` would
 double a 51.5-GB cache) and returns the same tensors.
+
+``moe_ffn`` keeps the reference's routing bit for bit: the top k of a
+*stable* descending sort of the router probabilities (``jax.lax.top_k``
+puts the lower expert first among equal values; ``torch.topk`` promises
+no order), each entry's queue position its rank among the entries of its
+expert in token-major order, and the capacity rule. Its dispatch and
+combine differ from the reference's two scatter-adds in form only (a
+deviation of the port, for determinism): the kept entries' slots are
+unique, so the dispatch writes rows and the combine gathers them, and
+each one's gradient is the other (``_Dispatch``, ``_Combine``). The only
+float sums are over a token's k entries, in entry order. So the forward
+and backward of ``moe_ffn`` hold no float atomic (no ``index_add_``,
+``scatter_add_`` or accumulating ``index_put_``), and a repeat gives the
+same bits.
 """
 
 from __future__ import annotations
@@ -112,13 +125,6 @@ class TransformerConfig:
         return total - routed_all + routed_active
 
 
-def _dense_only(cfg: TransformerConfig, what: str) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{what}: {cfg.name} has an MoE block, and moe_ffn (its "
-            "dispatch and combine) is not ported yet (ROADMAP A13b)")
-
-
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
@@ -129,14 +135,13 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
     layer leaves) in ``cfg.dtype``: N(0, 0.02²) weights drawn in float32
     from ``generator`` on its own device, unit norms, zero biases; on
     ``device`` (default: the CUDA card)."""
-    _dense_only(cfg, "init_params")
     device = resolve_device(device)
     d, L = cfg.d_model, cfg.n_layers
     dh, H, Hkv = cfg.d_head, cfg.n_heads, cfg.n_kv_heads
 
     def s(*shape):
         w = torch.randn(shape, generator=generator, device=generator.device)
-        return (w * 0.02).to(device=device, dtype=cfg.dtype)
+        return w.mul_(0.02).to(device=device, dtype=cfg.dtype)
 
     def full(shape, value):
         return torch.full(shape, value, dtype=cfg.dtype, device=device)
@@ -156,9 +161,20 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
         p["bq"] = full((L, H * dh), 0.0)
         p["bk"] = full((L, Hkv * dh), 0.0)
         p["bv"] = full((L, Hkv * dh), 0.0)
-    p["w_gate"] = s(L, d, cfg.d_ff)
-    p["w_up"] = s(L, d, cfg.d_ff)
-    p["w_down"] = s(L, cfg.d_ff, d)
+    if cfg.moe is None or cfg.moe.dense_residual:
+        p["w_gate"] = s(L, d, cfg.d_ff)
+        p["w_up"] = s(L, d, cfg.d_ff)
+        p["w_down"] = s(L, cfg.d_ff, d)
+    if cfg.moe is not None:
+        m = cfg.moe
+        p["router"] = s(L, d, m.n_experts)
+        p["moe_gate"] = s(L, m.n_experts, d, m.d_ff_expert)
+        p["moe_up"] = s(L, m.n_experts, d, m.d_ff_expert)
+        p["moe_down"] = s(L, m.n_experts, m.d_ff_expert, d)
+        if m.n_shared:
+            p["shared_gate"] = s(L, d, m.n_shared * m.d_ff_expert)
+            p["shared_up"] = s(L, d, m.n_shared * m.d_ff_expert)
+            p["shared_down"] = s(L, m.n_shared * m.d_ff_expert, d)
     return p
 
 
@@ -293,6 +309,152 @@ def dense_ffn(x, gate, up, down):
                         * torch.matmul(x, up), down)
 
 
+@dataclasses.dataclass(frozen=True)
+class MoERoute:
+    """The routing of ``[shards, Tl]`` tokens: ``probs`` [s, Tl, E] (the
+    router's float32 softmax), ``idx`` [s, Tl, k] (each token's experts,
+    highest probability first, the lower expert first among equal
+    values), ``gate`` [s, Tl, k] (their probabilities over their sum,
+    float32, differentiable), ``pos`` [s, Tl, k] (each entry's rank among
+    its shard's entries routed to its expert, in token-major order),
+    ``keep`` [s, Tl, k] (``0 <= pos < cap``) and ``cap``."""
+    probs: torch.Tensor
+    idx: torch.Tensor
+    gate: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    cap: int
+
+
+def moe_route(xt, router, m: MoEConfig) -> MoERoute:
+    """The reference's routing (``moe_ffn``'s top-k, positions and
+    capacity) of ``xt`` [shards, Tl, d]."""
+    s, Tl, _ = xt.shape
+    E, k = m.n_experts, m.top_k
+    logits = torch.matmul(xt, router.to(xt.dtype))
+    probs = torch.softmax(logits.float(), dim=-1)
+    # jax.lax.top_k's order: a stable descending sort (lower index first
+    # among ties); its backward writes each value's gradient back to its
+    # one source (a scatter, no add)
+    vals, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    idx = order[..., :k]
+    gate = vals[..., :k]
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    cap = max(int(m.capacity_factor * Tl * k / E), k, 1)
+    # the reference's one-hot running count, laid out [s, E, Tl·k] so that
+    # the count runs along the innermost dim: along dim 1 of [s, Tl·k, E]
+    # the scan took 4.7 ms a call at Tl·k = 24,576, E = 64 (NVIDIA H100
+    # 80GB HBM3, 700 W; PERF.md §6)
+    flat = idx.reshape(s, 1, Tl * k)
+    experts = torch.arange(E, device=idx.device)[None, :, None]
+    ranks = (flat == experts).cumsum(-1)                  # [s, E, Tl·k]
+    pos = (ranks.gather(1, flat) - 1).reshape(s, Tl, k)
+    keep = (pos < cap) & (pos >= 0)
+    return MoERoute(probs, idx, gate, pos, keep, cap)
+
+
+class _Dispatch(torch.autograd.Function):
+    """``buf[slot[t, j]] = x[t]`` for every kept entry ``(t, j)`` of
+    ``x`` [N, d], into a zero ``[n_slots, d]`` buffer (``slot`` [N, k]
+    holds ``n_slots`` for a dropped entry, whose row is written to a
+    spare row and discarded). Kept slots are unique, so rows are written,
+    not added: ``x + 0.0`` first, so that ``-0.0`` lands as ``+0.0``, as
+    the reference's add into zeros gives. The backward gathers each kept
+    entry's gradient row and sums a token's k rows in entry order."""
+
+    @staticmethod
+    def forward(ctx, x, slot, keep, n_slots):
+        ctx.save_for_backward(slot, keep)
+        x0 = x + 0.0
+        buf = x.new_zeros((n_slots + 1, x.shape[1]))
+        for j in range(slot.shape[1]):
+            buf.index_put_((slot[:, j],), x0)
+        return buf[:n_slots]
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        slot, keep = ctx.saved_tensors
+        safe = torch.where(keep, slot, 0)
+        gx = None
+        for j in range(slot.shape[1]):
+            g = torch.where(keep[:, j, None],
+                            grad.index_select(0, safe[:, j]), 0)
+            gx = g if gx is None else gx + g
+        return gx, None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """``rows[t, j] = buf[slot[t, j]]`` for the kept entries and 0 for the
+    dropped ones (the reference's clamped gather times ``keep``), [N, k, d]
+    from ``buf`` [n_slots, d]. The backward writes each kept entry's
+    gradient row to its slot (unique) in a zero buffer."""
+
+    @staticmethod
+    def forward(ctx, buf, slot, keep):
+        ctx.save_for_backward(slot)
+        ctx.n_slots = buf.shape[0]
+        safe = torch.where(keep, slot, 0)
+        rows = buf.index_select(0, safe.reshape(-1)).view(
+            *slot.shape, buf.shape[1])
+        return torch.where(keep[..., None], rows, 0)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        (slot,) = ctx.saved_tensors
+        d = grad.shape[-1]
+        gbuf = grad.new_zeros((ctx.n_slots + 1, d))
+        gbuf.index_put_((slot.reshape(-1),), grad.reshape(-1, d))
+        return gbuf[:ctx.n_slots], None, None
+
+
+def moe_ffn(x, lw, m: MoEConfig, plan: ShardingPlan):
+    """Capacity-based top-k dispatch (GShard) of ``x`` [B, S, d].
+
+    Dispatch positions are computed PER TOKEN SHARD
+    (``plan.moe_token_shards``; 1 when it does not divide the B·S tokens),
+    each shard with its own expert queues of ``MoERoute.cap`` slots;
+    entries past an expert's capacity drop (standard GShard semantics).
+    The queues of all shards sit in one ``[E, shards·cap, d]`` buffer, so
+    that each expert's three products are one batched product over E.
+    The combine scales each kept entry's expert output by its gate value
+    in the activation dtype and sums a token's k entries in entry order;
+    the shared experts (``n_shared``) are added after it."""
+    B, S, d = x.shape
+    T = B * S
+    E, k = m.n_experts, m.top_k
+    shards = plan.moe_token_shards or 1
+    if T % shards != 0:
+        shards = 1
+    Tl = T // shards
+    xt = x.reshape(shards, Tl, d)
+    r = moe_route(xt, lw["router"], m)
+    n_slots = E * shards * r.cap
+    shard = torch.arange(shards, device=x.device)[:, None, None]
+    slot = torch.where(r.keep, r.idx * (shards * r.cap) + shard * r.cap
+                       + r.pos, n_slots).reshape(T, k)
+    keep = r.keep.reshape(T, k)
+
+    buf = _Dispatch.apply(x.reshape(T, d), slot, keep, n_slots).view(
+        E, shards * r.cap, d)
+    h = F.silu(torch.bmm(buf, lw["moe_gate"])) * torch.bmm(buf, lw["moe_up"])
+    out_buf = torch.bmm(h, lw["moe_down"]).view(n_slots, d)
+
+    rows = _Combine.apply(out_buf, slot, keep)               # [T, k, d]
+    terms = (rows * r.gate.reshape(T, k, 1).to(x.dtype)).unbind(1)
+    out = terms[0]
+    for t in terms[1:]:
+        out = out + t
+
+    if m.n_shared:
+        xf = x.reshape(T, d)
+        shared = F.silu(torch.matmul(xf, lw["shared_gate"])) * torch.matmul(
+            xf, lw["shared_up"])
+        out = out + torch.matmul(shared, lw["shared_down"])
+    return out.reshape(B, S, d)
+
+
 # ---------------------------------------------------------------------------
 # forward passes
 # ---------------------------------------------------------------------------
@@ -337,13 +499,19 @@ def _layer(cfg: TransformerConfig, plan: ShardingPlan, x, lw, positions,
     x = plan.shard(x, "act")
 
     h = rms_norm(x, lw["ffn_norm"], cfg.norm_eps)
-    y = dense_ffn(h, lw["w_gate"], lw["w_up"], lw["w_down"])
+    if cfg.moe is None:
+        y = dense_ffn(h, lw["w_gate"], lw["w_up"], lw["w_down"])
+    else:
+        y = moe_ffn(h, lw, cfg.moe, plan)
+        if cfg.moe.dense_residual:
+            y = y + dense_ffn(h, lw["w_gate"], lw["w_up"], lw["w_down"])
     x = plan.shard(x + y, "act")
     return x, new_kv
 
 
 _STACKED = ("attn_norm", "ffn_norm", "wq", "wk", "wv", "wo", "bq", "bk", "bv",
-            "w_gate", "w_up", "w_down")
+            "w_gate", "w_up", "w_down", "router", "moe_gate", "moe_up",
+            "moe_down", "shared_gate", "shared_up", "shared_down")
 
 
 def _layer_weights(params: dict) -> list:
@@ -358,7 +526,6 @@ def _layer_weights(params: dict) -> list:
 def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
             plan: ShardingPlan = None) -> torch.Tensor:
     """tokens [B, S] -> logits [B, S, V] (training / prefill path)."""
-    _dense_only(cfg, "forward")
     plan = plan or null_plan()
     B, S = tokens.shape
     x = F.embedding(tokens, params["embed"])
@@ -415,7 +582,6 @@ def decode_step(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     the cache at ``cache_len`` in place, and the cache returned is the one
     given. ``cache_len`` (a host int) is the number of valid cache entries
     before the call."""
-    _dense_only(cfg, "decode_step")
     plan = plan or null_plan()
     cache_len = int(cache_len)
     B, S = tokens.shape

@@ -101,10 +101,23 @@ def global_norm(tree) -> torch.Tensor:
                           for x in leaves(tree)))
 
 
-def adamw_update(cfg: AdamWConfig, params, grads, state: dict):
+def _write(old, new) -> None:
+    if isinstance(old, dict):                # an int8 moment {q, scale}
+        old["q"].copy_(new["q"])
+        old["scale"].copy_(new["scale"])
+    else:
+        old.copy_(new)
+
+
+def adamw_update(cfg: AdamWConfig, params, grads, state: dict,
+                 donate: bool = False):
     """One AdamW step: returns ``(new_params, new_state, {"grad_norm",
     "lr"})``. Gradients are clipped to ``clip_norm`` by their global norm;
-    weight decay applies to every parameter."""
+    weight decay applies to every parameter. ``donate`` (the reference
+    trainer's ``donate_argnums``): each leaf's new values are written into
+    the leaf of ``params`` and ``state`` they replace as soon as they
+    exist, and those trees are returned (``step`` a new tensor), so that
+    the old and new state never live side by side; the same bits."""
     step = state["step"] + 1
     gn = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gn, min=1e-9), max=1.0)
@@ -120,8 +133,13 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: dict):
         vh = v / b2c
         new_p = p.float() - lr * (
             mh / (torch.sqrt(vh) + cfg.eps) + cfg.weight_decay * p.float())
-        return (new_p.to(p.dtype), _moment_store(m, m_store),
-                _moment_store(v, v_store))
+        new = (new_p.to(p.dtype), _moment_store(m, m_store),
+               _moment_store(v, v_store))
+        if not donate:
+            return new
+        for old, x in zip((p, m_store, v_store), new):
+            _write(old, x)
+        return p, m_store, v_store
 
     out = []                                 # (p, m, v) a leaf, in order
     with torch.no_grad():

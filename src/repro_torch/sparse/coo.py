@@ -65,6 +65,16 @@ class COO:
         return out[: self.n_rows, : self.n_cols]
 
 
+def coo_from_dense(a, capacity: int | None = None, device=None) -> COO:
+    """The nonzeros of a dense host matrix in row-major order, padded to
+    ``capacity`` (default: its nonzero count, at least 1), on ``device``
+    (default: the CUDA card); float32 values."""
+    a = np.asarray(a)
+    r, c = np.nonzero(a)
+    return coo_from_arrays(r, c, a[r, c], a.shape[0], a.shape[1],
+                           capacity=capacity, device=device)
+
+
 def coo_from_arrays(row, col, val, n_rows: int, n_cols: int,
                     capacity: int | None = None, device=None) -> COO:
     """Build a COO from host arrays, padding to ``capacity``, on ``device``
@@ -117,6 +127,12 @@ def spmm(a: COO, x: torch.Tensor) -> torch.Tensor:
 
 def row_sums(a: COO) -> torch.Tensor:
     return segment_sum(torch.where(a.valid, a.val, 0), a.row, a.n_rows)
+
+
+def extract_diag(a: COO) -> torch.Tensor:
+    """The diagonal (duplicates summed), [n_rows]."""
+    on_diag = a.valid & (a.row == a.col)
+    return segment_sum(torch.where(on_diag, a.val, 0), a.row, a.n_rows)
 
 
 def degrees(a: COO) -> torch.Tensor:

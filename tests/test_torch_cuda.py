@@ -12,7 +12,10 @@ from one call to the next, ``agg_vote`` bit-exact, ``embedding_bag``
 bitwise equal at hot <= 2 (a sum of two floats from 0 has one rounding)
 and rtol / atol 1e-6 above (PyTorch's sum may add in another order), and
 bitwise equal from one call to the next, DeepFM logits rtol / atol 1e-5
-(the card's matrix products sum in another order).
+(the card's matrix products sum in another order). The LM family, which
+runs no kernel of the port: the bf16 attention and its gradients bitwise
+the plain form of the reference's block; ``moe_ffn`` bitwise on a repeat
+and its routing equal to the CPU's.
 """
 
 import numpy as np
@@ -813,3 +816,95 @@ def test_cuda_gnn_gather_and_scatter_match_plain_versions(n, e, d):
     _assert_bag_grad(grads[0][0], G, S.view(-1, 1), n, plan_s)
     assert torch.equal(grads[0][1], embedding_bag_ref(H, R.view(-1, 1)))
     assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+# ---------------------------------------------------------------------------
+# the LM family on the card (no kernel of the port: cuBLAS and plain ops)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,T,dh,offset,chunk", [
+    (2048, 2048, 64, 0, 1024),   # sqrt(dh) = 8: the queries are scaled
+    (256, 256, 128, 0, 64),      # sqrt(dh) ≈ 11.3: the scores are divided
+    (128, 640, 64, 512, 64),     # an offset against a longer key row
+    (1, 4096, 128, 4095, 1024),  # one decoded token, a full cache
+])
+def test_cuda_attention_bf16_is_bitwise_the_plain_form(S, T, dh, offset,
+                                                       chunk):
+    """``gqa_attention`` in bfloat16 and its gradients, bit for bit the
+    plain transcription of the reference's block (``torch_lm_helpers``):
+    the query scaling by a power of two and the in-place causal fill
+    change no bit on the card either."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.models.transformer import gqa_attention
+    from torch_lm_helpers import plain_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q, d = (torch.randn((2, S, 14, dh), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((2, T, 2, dh), generator=gen, device="cuda")
+            .to(torch.bfloat16) for _ in range(2))
+    runs = []
+    for fn in (lambda *a: gqa_attention(*a, causal_offset=offset,
+                                        q_chunk=chunk),
+               lambda *a: plain_attention(*a, offset, chunk)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fn(*leaves)
+        runs.append((out, *torch.autograd.grad(out, leaves, d)))
+    assert all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+               for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_cuda_moe_ffn_bitwise_and_routing_equals_the_cpu():
+    """``moe_ffn`` at moonshot-v1-16b-a3b's FULL widths (d 2,048, 64
+    experts of 1,408, top-6, 2 shared) in bfloat16 on 384 tokens: the
+    forward and every gradient bit for bit on a repeat; and the routing
+    ``(idx, pos, keep)`` equal to the CPU's on the same tensors. Inputs
+    and router are small integers times powers of two (every logit a
+    multiple of 1/4, exact on both devices), so ties are many and the
+    comparison tests the rule, not a product's rounding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.configs.moonshot_v1_16b_a3b import FULL
+    from repro_torch.models.sharding import null_plan
+    from repro_torch.models.transformer import moe_ffn, moe_route
+
+    m, d = FULL.moe, FULL.d_model
+    f, E = m.d_ff_expert, m.n_experts
+    rng = np.random.default_rng(11)
+    x = rng.integers(-2, 3, (2, 192, d)).astype(np.float32)
+    router = np.zeros((d, E), np.float32)
+    for e in range(E):
+        router[rng.choice(d, 2, replace=False), e] = rng.integers(-1, 2, 2) / 4
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    shapes = dict(moe_gate=(E, d, f), moe_up=(E, d, f), moe_down=(E, f, d),
+                  shared_gate=(d, 2 * f), shared_up=(d, 2 * f),
+                  shared_down=(2 * f, d))
+    lw = {k: (0.02 * torch.randn(s, generator=gen, device="cuda")).to(
+        torch.bfloat16) for k, s in shapes.items()}
+    lw["router"] = _t(router).cuda().to(torch.bfloat16)
+    X = _t(x).cuda().to(torch.bfloat16)
+    up = torch.randn(X.shape, generator=gen, device="cuda").to(X.dtype)
+    runs = []
+    for _ in range(2):
+        leaves = {k: v.clone().requires_grad_() for k, v in lw.items()}
+        xi = X.clone().requires_grad_()
+        out = moe_ffn(xi, leaves, m, null_plan())
+        out.backward(up)
+        runs.append([out.detach(), xi.grad] + [leaves[k].grad
+                                              for k in sorted(leaves)])
+    assert all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+               for a, b in zip(*runs))
+    assert all(torch.isfinite(t).all() and t.abs().sum() > 0
+               for t in runs[0])
+    xt = X.reshape(1, -1, d)
+    card = moe_route(xt, lw["router"], m)
+    host = moe_route(xt.cpu(), lw["router"].cpu(), m)
+    top = torch.sort(host.probs, dim=-1, descending=True).values
+    assert (top[..., m.top_k - 1] == top[..., m.top_k]).any()   # ties
+    assert not host.keep.all()                                  # drops
+    for name in ("idx", "pos", "keep"):
+        assert torch.equal(getattr(card, name).cpu(), getattr(host, name))
+    assert card.cap == host.cap

@@ -27,8 +27,8 @@ most in the attention here):
 
 In the port alone: remat on and off give the same loss and gradients bit
 for bit; ``param_count``/``active_param_count`` equal the reference's
-for all five ``FULL`` configs, the two MoE ones included; a config with
-``moe`` raises ``NotImplementedError`` naming ROADMAP A13b. In bfloat16
+for all five ``FULL`` configs, the two MoE ones included (their model
+tests are in ``test_torch_moe.py``). In bfloat16
 (each ``SMOKE`` config with ``dtype`` bfloat16, the same weights rounded
 to bfloat16 in both packages) the forward's logits lie within 0.032 of
 their largest |x| of the reference's: 4× the largest distance measured
@@ -64,6 +64,7 @@ import repro_torch.models.transformer as TT  # noqa: E402
 from repro_torch.convert import lm_params_from_numpy  # noqa: E402
 from repro_torch.models.sharding import null_plan  # noqa: E402
 from repro_torch.tree import value_and_grad  # noqa: E402
+from torch_lm_helpers import plain_attention  # noqa: E402
 
 DENSE = {"qwen2-0.5b": (j_q05, t_q05), "qwen2.5-3b": (j_q3, t_q3),
          "starcoder2-3b": (j_sc, t_sc)}
@@ -149,32 +150,6 @@ def test_gqa_attention(kw, T, dh):
                             **kw)
     assert got.shape == want.shape
     close(got, want, 1e-6)
-
-
-def plain_attention(q, k, v, causal_offset, q_chunk):
-    """The reference's ``_attn_block`` order on the port's per-head
-    products: scores, ``/ sqrt(dh)`` in their dtype, ``where`` with the
-    dtype's min, the float32 softmax cast back, the product with V."""
-    B, S, H, dh = q.shape
-    T, Hkv = k.shape[1], k.shape[2]
-    g = H // Hkv
-    div = torch.tensor(np.sqrt(np.float32(dh))).to(q.dtype)
-    out = []
-    for st in range(0, S, q_chunk):
-        qb = q[:, st:st + q_chunk].reshape(B, -1, Hkv, g, dh)
-        Sq = qb.shape[1]
-        qi = st + torch.arange(Sq)[:, None] + causal_offset
-        mask = (torch.arange(T)[None, :] <= qi)[:, None, :]
-        heads = []
-        for h in range(Hkv):
-            s = torch.bmm(qb[:, :, h].reshape(B, Sq * g, dh),
-                          k[:, :, h].transpose(1, 2)).view(B, Sq, g, T)
-            s = torch.where(mask, s / div, torch.finfo(s.dtype).min)
-            w = torch.softmax(s.float(), dim=-1).to(q.dtype)
-            heads.append(torch.bmm(w.view(B, Sq * g, T), v[:, :, h])
-                         .view(B, Sq, g, dh))
-        out.append(torch.stack(heads, 2).reshape(B, Sq, H, dh))
-    return torch.cat(out, 1)
 
 
 @pytest.mark.parametrize("S,T,dh,offset,chunk", [
@@ -352,20 +327,6 @@ def test_dense_configs_are_the_reference_configs(name):
 def test_lm_shapes_are_the_reference_shapes():
     assert TL.LM_SHAPES == JL.LM_SHAPES
     assert TL.SHAPE_DIMS == JL.SHAPE_DIMS
-
-
-@pytest.mark.parametrize("jm", [j_arctic, j_moon], ids=lambda m: m.SMOKE.name)
-def test_moe_configs_raise(jm):
-    cfg = port_config(jm.SMOKE)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        TT.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    p = lm_params_from_numpy(numpy_weights(jm.SMOKE), "cpu")
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        TT.forward(cfg, p, toks)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        TT.decode_step(cfg, p, toks[:, :1],
-                       TT.init_kv_cache(cfg, 1, 4, device="cpu"), 0)
 
 
 def test_init_params_layout_and_default_device():

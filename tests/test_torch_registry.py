@@ -2,8 +2,8 @@
 CPU.
 
 ``repro_torch.configs``: ``list_archs()`` names the port's archs (DeepFM,
-the Laplacian solver, the four GNNs and the three dense LMs, nine of the
-reference's eleven),
+the Laplacian solver, the four GNNs, the three dense LMs and the two MoE
+LMs: all eleven of the reference's),
 each declares the reference's four shapes and family, and each smoke case runs on the CPU with finite outputs; the
 Laplacian solver's smoke case takes the reference's iteration count and
 its WDA within rtol 1e-2 (WDA
@@ -33,17 +33,19 @@ import repro_torch.configs as TC  # noqa: E402
 import repro_torch.data.synthetic as TS  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
 
-PORT_ARCHS = ["deepfm", "egnn", "equiformer-v2", "laplacian-solver",
-              "meshgraphnet", "pna", "qwen2-0.5b", "qwen2.5-3b",
-              "starcoder2-3b"]
-LM_ARCHS = {"qwen2-0.5b": "qwen2_0p5b", "qwen2.5-3b": "qwen2p5_3b",
+PORT_ARCHS = ["arctic-480b", "deepfm", "egnn", "equiformer-v2",
+              "laplacian-solver", "meshgraphnet", "moonshot-v1-16b-a3b", "pna",
+              "qwen2-0.5b", "qwen2.5-3b", "starcoder2-3b"]
+LM_ARCHS = {"arctic-480b": "arctic_480b",
+            "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+            "qwen2-0.5b": "qwen2_0p5b", "qwen2.5-3b": "qwen2p5_3b",
             "starcoder2-3b": "starcoder2_3b"}
 GNN_ARCHS = ["egnn", "equiformer-v2", "meshgraphnet", "pna"]
 
 
 def test_list_archs_names_the_port_archs():
     assert TC.list_archs() == PORT_ARCHS
-    assert set(PORT_ARCHS) <= set(JC.list_archs())
+    assert PORT_ARCHS == sorted(JC.list_archs())
 
 
 @pytest.mark.parametrize("arch_id", PORT_ARCHS)

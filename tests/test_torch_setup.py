@@ -3,8 +3,8 @@
 Covers ``hash32`` and Alg 1 selection, the threefry uniform draw against
 ``jax.random.uniform``, Alg 2 aggregation + renumbering given the same
 strengths (through the port's fused vote path and its staged path), the
-Schur-complement and contraction index arrays, and the algebraic-distance
-strengths.
+Schur-complement and contraction index arrays (and the select-and-build
+pass ``eliminate_low_degree``), and the algebraic-distance strengths.
 """
 
 import numpy as np
@@ -94,6 +94,33 @@ def test_select_eliminated_bit_exact(graph, ba_levels):
     want = jax.jit(jelim.select_eliminated)(jl)
     np.testing.assert_array_equal(_np(telim.select_eliminated(tl)),
                                   np.asarray(want))
+
+
+def test_eliminate_low_degree_matches_the_reference(ba_levels):
+    import repro.core as jcore
+    import repro_torch.core as tcore
+
+    assert tcore.__all__ == jcore.__all__
+    jl, tl = ba_levels
+    want = jcore.eliminate_low_degree(jl)
+    got = tcore.eliminate_low_degree(tl)
+    np.testing.assert_array_equal(_np(got.elim_mask), np.asarray(
+        want.elim_mask))
+    for name in ("c_index", "f_index", "f_vertices"):
+        np.testing.assert_array_equal(_np(getattr(got, name)),
+                                      np.asarray(getattr(want, name)), name)
+    assert got.coarse.n == want.coarse.n
+    assert (got.p_f.n_rows, got.p_f.n_cols) == (want.p_f.n_rows,
+                                                want.p_f.n_cols)
+    np.testing.assert_allclose(_np(got.inv_deg_f),
+                               np.asarray(want.inv_deg_f), rtol=1e-6)
+    # a complete graph: no vertex has degree <= 4, so nothing to eliminate
+    n = 7
+    r, c = np.nonzero(1 - np.eye(n))
+    v = np.ones(r.size, np.float32)
+    jk, tk = _levels(n, r.astype(np.int32), c.astype(np.int32), v)
+    assert jcore.eliminate_low_degree(jk) is None
+    assert tcore.eliminate_low_degree(tk) is None
 
 
 def test_schur_and_contract_integer_outputs(ba_levels):

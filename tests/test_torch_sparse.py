@@ -189,3 +189,73 @@ def test_select_width_and_split_hybrid_match():
     np.testing.assert_array_equal(
         _np(tmv.level_spmv(tlv, torch.from_numpy(x))),
         np.asarray(jcoo.spmv(ja, jnp.asarray(x))))
+
+
+# ---------------------------------------------------------------------------
+# the package's exports and the dense helpers (tests/test_sparse.py's cases)
+# ---------------------------------------------------------------------------
+
+def test_package_exports_the_reference_names():
+    import repro.sparse as jsparse
+    import repro_torch.sparse as tsparse
+
+    assert tsparse.__all__ == jsparse.__all__
+    assert all(hasattr(tsparse, n) for n in tsparse.__all__)
+
+
+def _random_dense(rng, n_rows, n_cols, density=0.3):
+    a = rng.random((n_rows, n_cols)) * (rng.random((n_rows, n_cols))
+                                        < density)
+    return a.astype(np.float32)
+
+
+@pytest.mark.parametrize("shape,cap", [((7, 5), 64), ((13, 9), 200),
+                                       ((2, 2), None), ((4, 6), 30)])
+def test_coo_from_dense_matches_the_reference(shape, cap):
+    a = _random_dense(np.random.default_rng(sum(shape)), *shape)
+    want = jcoo.coo_from_dense(a, capacity=cap)
+    got = tcoo.coo_from_dense(a, capacity=cap, device="cpu")
+    assert (got.n_rows, got.n_cols) == (want.n_rows, want.n_cols)
+    for name in ("row", "col", "val"):
+        np.testing.assert_array_equal(_np(getattr(got, name)),
+                                      np.asarray(getattr(want, name)), name)
+    np.testing.assert_array_equal(_np(got.to_dense()), a)
+    x = np.random.default_rng(1).random(shape[1]).astype(np.float32)
+    np.testing.assert_allclose(_np(tcoo.spmv(got, torch.from_numpy(x))),
+                               a @ x, rtol=RTOL)
+
+
+def test_coo_from_dense_padding_is_inert():
+    a = np.array([[1.0, 2.0], [0.0, 3.0]], np.float32)
+    small = tcoo.coo_from_dense(a, capacity=3, device="cpu")
+    big = tcoo.coo_from_dense(a, capacity=64, device="cpu")
+    x = torch.tensor([1.0, -1.0])
+    assert torch.equal(tcoo.spmv(small, x), tcoo.spmv(big, x))
+    assert torch.equal(tcoo.row_sums(small), tcoo.row_sums(big))
+    with pytest.raises(ValueError, match="capacity"):
+        tcoo.coo_from_dense(a, capacity=2, device="cpu")
+
+
+def test_extract_diag_and_degrees():
+    a = np.array([[2.0, 1.0, 0], [1.0, 0, 0], [0, 0, 5.0]], np.float32)
+    coo = tcoo.coo_from_dense(a, capacity=10, device="cpu")
+    np.testing.assert_array_equal(_np(tcoo.extract_diag(coo)), [2, 0, 5])
+    np.testing.assert_array_equal(_np(tcoo.degrees(coo)), [2, 1, 1])
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_extract_diag_matches_the_reference(seed):
+    """Duplicates on the diagonal add; padding is dropped."""
+    rng = np.random.default_rng(seed)
+    n = 40
+    r = np.concatenate([rng.integers(0, n, 200), np.arange(n),
+                        np.arange(0, n, 3)]).astype(np.int32)
+    c = np.concatenate([rng.integers(0, n, 200), np.arange(n),
+                        np.arange(0, n, 3)]).astype(np.int32)
+    v = rng.normal(size=r.size).astype(np.float32)
+    ja = jcoo.coo_from_arrays(r, c, v, n, n, capacity=r.size + 9)
+    ta = tcoo.coo_from_arrays(r, c, v, n, n, capacity=r.size + 9,
+                              device="cpu")
+    np.testing.assert_allclose(_np(tcoo.extract_diag(ta)),
+                               np.asarray(jcoo.extract_diag(ja)), rtol=RTOL,
+                               atol=ATOL)
