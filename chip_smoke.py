@@ -385,6 +385,31 @@ Phases, one line each (any failure exits non-zero):
              Every launch count must stay 0; each record gets
              ``moe_launches``.
 
+16. dryrun — the multi-chip dry-run (``repro_torch.launch.dryrun``): each
+             cell's step traced once as rank 0 of a fake process group on
+             fake CUDA tensors (the solver's rank program for real), each
+             job in a child process of its own (one default group a
+             process), all started together. (a) On the 16×16 world:
+             qwen2-0.5b train_4k, moonshot-v1-16b-a3b train_4k at FULL
+             widths and DRYRUN_MOE_LAYERS of its 48 layers (its full
+             depth's 4 microbatches), deepfm train_batch, meshgraphnet
+             minibatch_lg, laplacian-solver rmat_16; and qwen2-0.5b
+             train_4k on 2×16×16. A line each: per-rank argument and
+             temporary bytes, FLOPs, HBM bytes, collective bytes by kind,
+             bottleneck and roofline fraction; every field finite, every
+             cell with collectives; the kernels' shape-only launches sum
+             into the kernels JSON as ``dryrun_launches`` (DeepFM's and
+             MeshGraphNet's must be above 0, and no real launch may come
+             from a fake tensor). (b) On a 1×1 world on the card,
+             qwen2-0.5b at ``lm_common``'s card shape (CARD_BATCH ×
+             4,096 in CARD_MICROBATCHES, not donated, as phase ``lm``
+             runs it): the predicted peak (arguments + temporaries)
+             beside phase ``lm``'s measured peak, with their ratio, and
+             the roofline's bound at or below ``lm``'s measured step
+             time. (c) The solver's ``build_solve_step`` (rmat_16) on an
+             NCCL world of one and on a fake world of one: the same
+             collective calls and bytes.
+
 Then a ``[total]`` line with the script's seconds. The line before the
 last is the card's name and power limit, the one before it the kernels'
 JSON record; the last line is ``{"ok": true, "device": {...}}``.
@@ -453,6 +478,10 @@ LM_EQ_SEQS, LM_EQ_LEN, LM_EQ_TOL = 4, 64, 1e-4   # (e), of max |logits|
 LM_OTHER = ("qwen2p5_3b", "starcoder2_3b")       # (f), at LM_OTHER_LAYERS
 LM_OTHER_LAYERS = 2
 LM_LAUNCHER_BAR = 5.0                    # (g): the reference test's bar
+# the dryrun phase: moonshot's depth cut to fit the phase's time (the full
+# depth is PERF.md §4's CPU run); the phase's bound and its jobs' timeout
+DRYRUN_MOE_LAYERS = 12
+DRYRUN_BUDGET_S, DRYRUN_JOB_TIMEOUT_S = 90.0, 300.0
 # the moe phase: moonshot-v1-16b-a3b FULL at lm_common's MOE_CARD_* cuts
 # (PERF.md §4); (a)'s steps, the median of steps 2–4, the drop shares of
 # step 1 (0-based, as the median's)
@@ -3829,7 +3858,8 @@ def phase_lm(torch, np) -> dict:
     and decodes on the card; decode equals the forward in float32; the
     other two dense configs take a step; the launcher trains. Returns the
     launches of the phase by kernel (none of the port's kernels is on
-    this path)."""
+    this path) and (a)'s measured ``phase_peak_gib`` and median
+    ``step_ms``, which phase ``dryrun`` predicts."""
     import shutil
     import tempfile
 
@@ -3910,7 +3940,7 @@ def phase_lm(torch, np) -> dict:
           f"lm: a kernel of the port launched on the LM path: {launched}")
     say("lm", launches=json.dumps(launched),
         seconds=round(time.perf_counter() - t_phase, 1))
-    return launched
+    return launched, dict(phase_peak_gib=peak - live, step_ms=step_ms)
 
 
 @contextlib.contextmanager
@@ -4185,6 +4215,216 @@ def phase_moe(torch, np) -> dict:
     return launched
 
 
+# ----------------------------------------------------------------------
+# 16. dryrun
+# ----------------------------------------------------------------------
+
+def fake_launch_counts() -> dict:
+    """Every kernel wrapper's shape-only calls, by kernel name."""
+    counts = {m.rsplit(".", 1)[1]: getattr(importlib.import_module(
+        f"{m}.ops"), w).fake_launches for m, (w, _) in WRAPPERS.items()}
+    return dict(counts, **{name: fn.fake_launches
+                           for name, fn in _bag_backward().items()})
+
+
+def _finite_fields(rec, path="rec") -> list:
+    """The paths of the record's numbers that are not finite."""
+    import math
+
+    if isinstance(rec, dict):
+        return [p for k, v in rec.items()
+                for p in _finite_fields(v, f"{path}.{k}")]
+    if isinstance(rec, (int, float)) and not isinstance(rec, bool):
+        return [] if math.isfinite(rec) else [path]
+    return []
+
+
+def dryrun_child(device: str, job) -> dict:
+    """:func:`dryrun_job` in a child process of the phase's pool."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+
+    torch.set_num_threads(1)
+    return dryrun_job(device, job)
+
+
+def dryrun_job(device: str, job) -> dict:
+    """One job of the dryrun phase on ``device`` ("cuda"; "cpu" to
+    rehearse it), in a process with no default group: ``("cell", arch,
+    shape, multi_pod)``, ``("card",)`` (phase (b)) or ``("world",)``
+    (phase (c)). Returns its record(s) and the kernels' launches, real
+    and shape-only, of the job; leaves no default group."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import (get_arch, laplacian_solver, lm_common,
+                                     moonshot_v1_16b_a3b, qwen2_0p5b)
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch.dryrun import cell_record
+
+    cuda = torch.device(device)
+    t0 = time.perf_counter()
+    out = dict(job=list(job))
+    if job[0] == "cell":
+        _, arch, shape, multi_pod = job
+        mesh = lmesh.make_production_mesh(multi_pod=multi_pod,
+                                          device_type=device)
+        if arch == "moonshot-v1-16b-a3b":
+            full = moonshot_v1_16b_a3b.FULL
+            dims = lm_common.SHAPE_DIMS[shape]
+            n_mb = lm_common._auto_microbatches(
+                full, dims["global_batch"], dims["seq_len"],
+                lm_common.make_lm_plan(mesh).dp_size())
+            case = lm_common.make_lm_dryrun_case(
+                dataclasses.replace(full, n_layers=DRYRUN_MOE_LAYERS),
+                shape, mesh, n_microbatches=n_mb)
+            out["layers"] = DRYRUN_MOE_LAYERS
+        else:
+            case = get_arch(arch).make_dryrun_case(shape, mesh)
+        out["rec"] = cell_record(case, cuda, mesh.size())
+    elif job[0] == "card":
+        mesh = lmesh.make_test_mesh((1, 1), device_type=device)
+        case = lm_common.make_lm_dryrun_case(
+            qwen2_0p5b.FULL, "train_4k", mesh, batch=lm_common.CARD_BATCH,
+            n_microbatches=lm_common.CARD_MICROBATCHES, donate=False)
+        out["rec"] = cell_record(case, cuda, 1)
+    else:                               # (c): NCCL world of one, fake one
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from repro_torch.dist import init_world
+
+        stats = {}
+        for world in ("real", "fake"):
+            if world == "real":         # NCCL on the card
+                init_world(device)
+            else:
+                lmesh.start_fake_world(1)
+            mesh = DeviceMesh(device, torch.zeros((1, 1), dtype=torch.int64),
+                              mesh_dim_names=("data", "model"))
+            case = laplacian_solver.make_dryrun_case("rmat_16", mesh)
+            args = case.make_inputs(case.args)
+            case.process_mesh.reset_stats()
+            _, norms = case.fn(*args)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            stats[world] = dict(case.process_mesh.stats(), norms=len(norms),
+                                backend=case.process_mesh.backend)
+            dist.destroy_process_group()
+        out["stats"] = stats
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    out.update(seconds=round(time.perf_counter() - t0, 1),
+               launches=phase_launches(), fake_launches=fake_launch_counts())
+    return out
+
+
+DRYRUN_CELLS = (("qwen2-0.5b", "train_4k", False),
+                ("moonshot-v1-16b-a3b", "train_4k", False),
+                ("deepfm", "train_batch", False),
+                ("meshgraphnet", "minibatch_lg", False),
+                ("laplacian-solver", "rmat_16", False),
+                ("qwen2-0.5b", "train_4k", True))
+
+
+def phase_dryrun(torch, lm_measured, device: str = "cuda") -> dict:
+    """16. dryrun (see the module docstring): every job but (b) in a child
+    process of its own, all started together; (b), the longest trace, in
+    this process meanwhile (its imports are done). ``lm_measured``: phase
+    ``lm``'s ``phase_peak_gib`` and ``step_ms``. Returns the shape-only
+    launches of (a) by kernel."""
+    import functools
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    t0 = time.perf_counter()
+    jobs = [("cell",) + c for c in DRYRUN_CELLS] + [("world",)]
+    ctx = multiprocessing.get_context("spawn")
+    with ProcessPoolExecutor(len(jobs), mp_context=ctx) as pool:
+        pending = pool.map(functools.partial(dryrun_child, device), jobs,
+                           timeout=DRYRUN_JOB_TIMEOUT_S)
+        card = dryrun_job(device, ("card",))
+        results = list(pending) + [card]
+    fake = {}
+    for r in results:
+        # a model cell's only real launches: the GNN's plans, sorted on
+        # the real ids of the rank's share of the edges
+        real = {k: n for k, n in r["launches"].items()
+                if n and not (k == "bag_grad_plan"
+                              and r["job"][1:2] == ["meshgraphnet"])}
+        check(r["job"][0] == "world" or r["job"][1:2] == ["laplacian-solver"]
+              or not real,
+              f"dryrun: a kernel launched on fake tensors in {r['job']}: "
+              f"{real}")
+        if r["job"][0] != "cell":
+            continue
+        _, arch, shape, multi_pod = r["job"]
+        rec = r["rec"]
+        bad = _finite_fields(rec)
+        check(rec["status"] == "ok" and not bad,
+              f"dryrun: {arch}/{shape} record not finite at {bad}")
+        check(rec["per_rank"]["coll_bytes"] > 0,
+              f"dryrun: {arch}/{shape} made no collective")
+        for k, n in r["fake_launches"].items():
+            fake[k] = fake.get(k, 0) + n
+        m, roof = rec["memory"], rec["roofline"]
+        say("dryrun", cell=f"{arch}/{shape}",
+            mesh="2x16x16" if multi_pod else "16x16",
+            layers=r.get("layers"), comment=rec["comment"],
+            args_bytes=m["argument_bytes"], temp_bytes=m["temp_bytes"],
+            total_per_device_gib=round(m["total_per_device"] / 2 ** 30, 3),
+            flops_per_rank=rec["per_rank"]["flops"],
+            hbm_bytes_per_rank=rec["per_rank"]["hbm_bytes"],
+            coll_bytes_per_rank=rec["per_rank"]["coll_bytes"],
+            coll_bytes=json.dumps(rec["collectives"]["bytes_by_kind"]),
+            coll_calls=json.dumps(rec["collectives"]["counts"]),
+            kernels=json.dumps(rec["kernels"]),
+            bottleneck=roof["bottleneck"],
+            roofline_fraction=roof["roofline_fraction"],
+            compute_s=roof["compute_s"], memory_s=roof["memory_s"],
+            collective_s=roof["collective_s"], trace_s=rec["trace_s"],
+            job_s=r["seconds"])
+    check(fake.get("embedding_bag", 0) > 0
+          and fake.get("embedding_bag_backward", 0) > 0,
+          f"dryrun: the bag kernels' shape-only path did not run: {fake}")
+    rec = card["rec"]
+    pred = rec["memory"]["total_per_device"] / 2 ** 30
+    meas = lm_measured["phase_peak_gib"]
+    bound_ms = 1e3 * max(rec["roofline"][k] for k in
+                         ("compute_s", "memory_s", "collective_s"))
+    say("dryrun", check="card_1x1", cell="qwen2-0.5b/train_4k@card",
+        predicted_peak_gib=round(pred, 3), measured_peak_gib=round(meas, 3),
+        predicted_over_measured=round(pred / meas, 4),
+        args_gib=round(rec["memory"]["argument_bytes"] / 2 ** 30, 3),
+        temp_gib=round(rec["memory"]["temp_bytes"] / 2 ** 30, 3),
+        bound_ms=round(bound_ms, 1), bottleneck=rec["roofline"]["bottleneck"],
+        measured_step_ms=round(lm_measured["step_ms"], 1),
+        bound_over_step=round(bound_ms / lm_measured["step_ms"], 4),
+        flops=rec["per_rank"]["flops"], hbm_bytes=rec["per_rank"]["hbm_bytes"],
+        trace_s=rec["trace_s"], job_s=card["seconds"])
+    check(not _finite_fields(rec), "dryrun: the 1x1 record is not finite")
+    check(bound_ms <= lm_measured["step_ms"],
+          f"dryrun: the roofline's bound {bound_ms:.1f} ms is above the "
+          f"measured step, {lm_measured['step_ms']:.1f} ms: a wrong roof")
+    world = next(r for r in results if r["job"][0] == "world")["stats"]
+    keys = ("calls", "bytes", "norms")
+    say("dryrun", check="solver_world_of_one", real=json.dumps(world["real"]),
+        fake=json.dumps(world["fake"]))
+    check(world["real"]["backend"] == ("nccl" if device == "cuda" else "gloo")
+          and world["fake"]["backend"] == "fake"
+          and all(world["real"][k] == world["fake"][k] for k in keys)
+          and world["fake"]["calls"] > 0,
+          f"dryrun: the fake world of one counted {world['fake']}, the real "
+          f"world of one {world['real']}")
+    seconds = time.perf_counter() - t0
+    say("dryrun", dryrun_launches=json.dumps(fake),
+        seconds=round(seconds, 1))
+    check(seconds <= DRYRUN_BUDGET_S,
+          f"dryrun: the phase took {seconds:.1f} s, above "
+          f"{DRYRUN_BUDGET_S} s")
+    return fake
+
+
+
 def main() -> int:
     t_start = time.perf_counter()
     # the equiformer phase's step peaks at ≈ 73 GiB of the card's 79.2:
@@ -4265,12 +4505,16 @@ def main() -> int:
         rec["gnn_launches"] = gnn[rec["kernel"]]
     records += eqf["records"]
     del gnn, eqf
-    lm = phase_lm(torch, np)
+    lm, lm_measured = phase_lm(torch, np)
     for rec in records:                 # the lm phase's own (none)
         rec["lm_launches"] = lm[rec.get("kernel", rec["name"])]
     moe = phase_moe(torch, np)
     for rec in records:                 # the moe phase's own (none)
         rec["moe_launches"] = moe[rec.get("kernel", rec["name"])]
+    free_card(torch)
+    dryrun = phase_dryrun(torch, lm_measured)
+    for rec in records:                 # (a)'s shape-only launches
+        rec["dryrun_launches"] = dryrun[rec.get("kernel", rec["name"])]
     say("total", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

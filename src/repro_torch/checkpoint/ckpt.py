@@ -12,10 +12,12 @@ Trees are nested dicts, lists and tuples (``repro_torch.tree``); ``None``
 holds no leaf and anything else is a leaf (a tensor, a numpy array or a
 scalar). Key paths follow ``jax.tree_util.tree_flatten_with_path``: dict
 keys in sorted order, list and tuple entries by index. Leaves are saved as
-host arrays. ``restore_checkpoint`` places each leaf on a torch device:
-the one its ``shardings`` tree names, else ``device``, as the reference's
-``shardings=`` places each leaf with ``jax.device_put``; placement over a
-mesh waits for the port's ``models/sharding.py``.
+host arrays. ``restore_checkpoint`` places each leaf as its
+``shardings`` tree says (the reference's ``shardings=``, which places each
+leaf with ``jax.device_put``): on a torch device, or by a
+``models.sharding.NamedSharding`` onto a ``DeviceMesh`` as a DTensor whose
+local shard this rank cuts from the file (no collective); every other
+leaf goes to ``device``.
 
 bfloat16 leaves are written as the reference writes them (through
 ``ml_dtypes``, which the port does not need): the raw 2-byte values under
@@ -124,13 +126,27 @@ def load_checkpoint_flat(directory: str, step: int):
     return flat, manifest
 
 
+def _place(t: torch.Tensor, sharding, default):
+    """``t`` (a host tensor) where ``sharding`` puts it: a torch device,
+    or a ``NamedSharding`` (this rank's shard of ``t`` as a DTensor on the
+    mesh, ``models.sharding.distribute``)."""
+    if sharding is None:
+        return t.to(default)
+    if not hasattr(sharding, "placements"):
+        return t.to(torch.device(sharding))
+    from repro_torch.models.sharding import distribute
+
+    return distribute(t, sharding)
+
+
 def restore_checkpoint(directory: str, step: int, tree_like, device=None,
                        shardings=None):
     """Restore into the structure of ``tree_like``. ``shardings``, a tree
     shaped like ``tree_like`` (or a part of it) whose leaves are torch
-    devices, places each of its leaves there; every other leaf goes to
-    ``device`` (default: the CUDA card; ``device="cpu"`` for the host).
-    Returns ``(tree, manifest)``."""
+    devices or ``models.sharding.NamedSharding``s, places each of its
+    leaves there (a sharding as a DTensor of this rank's shard); every
+    other leaf goes to ``device`` (default: the CUDA card; ``device="cpu"``
+    for the host). Returns ``(tree, manifest)``."""
     path = os.path.join(directory, f"step_{step:08d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
@@ -142,11 +158,12 @@ def restore_checkpoint(directory: str, step: int, tree_like, device=None,
     def load(key):
         info = manifest["leaves"][key]
         arr = np.load(os.path.join(path, info["file"]))
-        dev = torch.device(flat_sh[key]) if key in flat_sh else default
         if info["dtype"] == _BF16:
-            t = torch.from_numpy(np.array(arr).view(np.int16))
-            return t.view(torch.bfloat16).to(dev)
-        return torch.as_tensor(arr, device=dev)
+            t = torch.from_numpy(np.array(arr).view(np.int16)).view(
+                torch.bfloat16)
+        else:
+            t = torch.as_tensor(arr)
+        return _place(t, flat_sh.get(key), default)
 
     with ThreadPoolExecutor(_WORKERS) as pool:
         leaves = list(pool.map(load, keys))

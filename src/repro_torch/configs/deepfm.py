@@ -13,14 +13,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.configs.registry import ArchSpec, register
+from repro_torch.configs.registry import (ArchSpec, DryrunCase, TensorSpec,
+                                          register)
 from repro_torch.device import resolve_device
-from repro_torch.models.recsys.deepfm import (DeepFMConfig, deepfm_loss,
-                                              default_vocabs,
+from repro_torch.models.recsys.deepfm import (DeepFMConfig, deepfm_forward,
+                                              deepfm_loss, default_vocabs,
                                               fm_retrieval_scores,
                                               init_deepfm)
+from repro_torch.models.sharding import NamedSharding, P, _dp_axes
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
-from repro_torch.tree import value_and_grad
+from repro_torch.tree import tree_map, value_and_grad
 
 FULL = DeepFMConfig(n_fields=39, embed_dim=10, mlp_sizes=(400, 400, 400),
                     vocab_per_field=default_vocabs(39), multi_hot=2)
@@ -63,19 +65,108 @@ def loss_and_grads(cfg: DeepFMConfig, params: dict, indices: torch.Tensor,
                           params)
 
 
-def make_train_step(cfg: DeepFMConfig, opt_cfg: AdamWConfig = AdamWConfig()):
+def make_train_step(cfg: DeepFMConfig, opt_cfg: AdamWConfig = AdamWConfig(),
+                    donate: bool = False):
     """The reference's train step (``repro.configs.deepfm``, the
     ``train_batch`` case): ``step(params, opt_state, indices, labels) ->
     (params, opt_state, {"loss", "grad_norm", "lr"})``, loss and gradients
-    then ``adamw_update``; functional, every tensor on the parameters'
-    device."""
+    then ``adamw_update``; functional (with ``donate``, AdamW writes into
+    the given trees), every tensor on the parameters' device."""
     def step(params, opt_state, indices, labels):
         loss, grads = loss_and_grads(cfg, params, indices, labels)
         params, opt_state, metrics = adamw_update(opt_cfg, params, grads,
-                                                  opt_state)
+                                                  opt_state, donate=donate)
         return params, opt_state, dict(loss=loss, **metrics)
 
     return step
+
+
+def param_shapes(cfg: DeepFMConfig) -> dict:
+    """``init_deepfm``'s tree as :class:`TensorSpec` leaves, traced on fake
+    tensors."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    with FakeTensorMode():
+        params = init_deepfm(cfg, torch.Generator(), "cpu")
+    return tree_map(lambda t: TensorSpec(tuple(t.shape), t.dtype), params)
+
+
+def _replicating(fn):
+    """``fn`` with the tensors it makes itself (field offsets, masks)
+    taken as replicated on the mesh of its DTensor arguments."""
+    def run(*args):
+        from torch.distributed.tensor.experimental import (
+            implicit_replication)
+
+        with implicit_replication():
+            return fn(*args)
+    return run
+
+
+def make_dryrun_case(shape_name, mesh, cfg: DeepFMConfig = FULL):
+    """The reference's DeepFM dry-run case on ``mesh``: the fused table and
+    first-order weights row-split over ``"model"``, the MLP replicated,
+    the batch over the DP axes; the train step donates its state."""
+    dims = SHAPE_DIMS[shape_name]
+    pshapes = param_shapes(cfg)
+    rep = NamedSharding(mesh, P())
+    table_sh = NamedSharding(mesh, P("model", None))   # row-sharded tables
+    params_sh = dict(table=table_sh, first_order=table_sh,
+                     mlp=tree_map(lambda _: rep, pshapes["mlp"]), bias=rep)
+    dp = _dp_axes(mesh)
+    B = dims["batch"]
+    F, H = cfg.n_fields, cfg.multi_hot
+    name = f"deepfm/{shape_name}"
+
+    if dims["kind"] == "train":
+        batch = (TensorSpec((B, F, H), torch.int32),
+                 TensorSpec((B,), torch.float32))
+        batch_sh = (NamedSharding(mesh, P(dp, None, None)),
+                    NamedSharding(mesh, P(dp)))
+        opt = dict(mu=pshapes, nu=pshapes,
+                   step=TensorSpec((), torch.int32))
+        return DryrunCase(
+            name=name,
+            fn=_replicating(make_train_step(cfg, AdamWConfig(),
+                                            donate=True)),
+            build_args=lambda: (pshapes, opt) + batch,
+            in_placements=(params_sh, dict(mu=params_sh, nu=params_sh,
+                                           step=rep)) + batch_sh,
+            out_placements=(params_sh, dict(mu=params_sh, nu=params_sh,
+                                            step=rep),
+                            dict(loss=rep, grad_norm=rep, lr=rep)),
+            model_flops=_train_flops(cfg, B),
+            comment="train_step: embedding-bag + FM + deep MLP + AdamW")
+
+    if dims["kind"] == "serve":
+        def serve(params, idx):
+            with torch.no_grad():
+                return deepfm_forward(cfg, params, idx)
+
+        return DryrunCase(
+            name=name, fn=_replicating(serve),
+            build_args=lambda: (pshapes, TensorSpec((B, F, H), torch.int32)),
+            in_placements=(params_sh, NamedSharding(mesh, P(dp, None, None))),
+            out_placements=NamedSharding(mesh, P(dp)),
+            model_flops=_train_flops(cfg, B) / 3.0,
+            comment="serve_step: forward scoring")
+
+    # 10⁶ candidates shard over 'model' (16 | 10⁶); the full axis product
+    # (512) does not divide it
+    n_cand = dims["n_candidates"]
+
+    def retrieve(params, u, cand):
+        with torch.no_grad():
+            return fm_retrieval_scores(cfg, params, u, cand)
+
+    return DryrunCase(
+        name=name, fn=_replicating(retrieve),
+        build_args=lambda: (pshapes, TensorSpec((1, F, H), torch.int32),
+                            TensorSpec((n_cand,), torch.int32)),
+        in_placements=(params_sh, rep, NamedSharding(mesh, P("model"))),
+        out_placements=NamedSharding(mesh, P("model")),
+        model_flops=2.0 * n_cand * cfg.embed_dim,
+        comment="retrieval: FM-decomposed candidate scoring (1M batched dot)")
 
 
 def make_smoke_case(device=None):
@@ -106,4 +197,5 @@ def make_smoke_case(device=None):
 
 register(ArchSpec(
     arch_id="deepfm", family="recsys", shapes=SHAPES,
+    make_dryrun_case=make_dryrun_case,
     make_smoke_case=make_smoke_case, describe=__doc__))

@@ -24,4 +24,4 @@ def flops(cfg, n_nodes, n_edges):
     return 3.0 * cfg.n_layers * per_layer
 
 
-register_gnn("egnn", make_model, needs_pos=True, describe=__doc__)
+register_gnn("egnn", make_model, flops, needs_pos=True, describe=__doc__)

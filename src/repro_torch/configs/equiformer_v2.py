@@ -3,7 +3,12 @@ equivariance=SO(2)-eSCN [arXiv:2306.12059; assigned pool]; torch port of
 ``repro.configs.equiformer_v2``.
 
 Big-graph shapes stream edges in chunks and recompute each layer on the
-backward pass (remat), as the reference's overrides say.
+backward pass (remat), as the reference's overrides say. The dry-run
+case (``gnn_common.make_gnn_dryrun_case``) is the family's: edges split
+over every mesh axis, node states replicated. (The reference's case
+also constrains the big graphs' [N, 49, C] irreps to N over the DP axes
+and C over ``"model"``; the port's rank program keeps them replicated,
+which its peak shows.)
 """
 
 import dataclasses
@@ -65,4 +70,5 @@ def flops_executed(cfg, n_nodes, n_edges):
                                     + n_nodes * per_node)
 
 
-register_gnn("equiformer-v2", make_model, needs_pos=True, describe=__doc__)
+register_gnn("equiformer-v2", make_model, flops, needs_pos=True,
+             describe=__doc__)

@@ -29,5 +29,5 @@ def flops(cfg, n_nodes, n_edges):
     return 3.0 * (cfg.n_layers * per_layer + enc)  # fwd+bwd ≈ 3× fwd
 
 
-register_gnn("meshgraphnet", make_model, needs_edge_feat=True,
+register_gnn("meshgraphnet", make_model, flops, needs_edge_feat=True,
              describe=__doc__)

@@ -25,4 +25,4 @@ def flops(cfg, n_nodes, n_edges):
     return 3.0 * cfg.n_layers * per_layer
 
 
-register_gnn("pna", make_model, describe=__doc__)
+register_gnn("pna", make_model, flops, describe=__doc__)

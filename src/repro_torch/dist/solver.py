@@ -410,7 +410,9 @@ class DistLaplacianSolver:
     * ``solve(b, n_iters, tol)`` -> ``(x, residual_norms)``
     * ``solve_block(B, n_iters, tol)`` -> ``(X, norms, iters)`` multi-RHS
     * ``build_init_step``/``build_chunk_step``: the init and chunk
-      programs ``solve_block`` runs, which read nothing back to the host
+      programs ``solve_block`` runs, which read nothing back to the host;
+      ``build_solve_block_step``/``build_solve_step``: both as one
+      fixed-length program (the dry-run's)
     * ``level_meta`` (per distributed level), ``coarse_h`` (the replicated
       tail ``Hierarchy``), ``arrays``, ``n_pad``, ``work_per_iteration``
       (WDA accounting, from the pre-split hierarchy).
@@ -565,6 +567,43 @@ class DistLaplacianSolver:
             return _pcg_block_chunk(self._operators(arrays, coarse_h), tol,
                                     length, carry, guard=guard, check=check,
                                     build=build)
+
+        return step
+
+    def build_solve_block_step(self, n_iters: int = 30, tol: float = 0.0,
+                               guard=None, check=None):
+        """``(arrays, coarse_h, B_pad [n_pad, k]) -> (X_pad, norms
+        [n_iters+1, k], iters)``: the init and one chunk of ``n_iters``
+        steps as one program that reads nothing back to the host, so that
+        a dry-run sees every collective of the solve phase. With ``guard``
+        a ``GuardConfig`` the in-step status lanes run and the return
+        grows the per-column int32 ``SCAN_*`` codes."""
+        init = self.build_init_step(guard=guard)
+        chunk = self.build_chunk_step(n_iters, tol=tol, guard=guard,
+                                      check=check)
+
+        def step(arrays, coarse_h, B_pad, build=None):
+            build = build or faults.TracedBuild()
+            carry = init(arrays, coarse_h, B_pad, build=build)
+            r0n = carry[-1]
+            carry, norms = chunk(arrays, coarse_h, carry, build=build)
+            norms = torch.cat([r0n[None, :], norms], dim=0)
+            if guard is None:
+                return carry[0], norms, carry[5]
+            return carry[0], norms, carry[5], carry[6]
+
+        return step
+
+    def build_solve_step(self, n_iters: int = 30, tol: float = 0.0):
+        """``(arrays, coarse_h, b_pad [n_pad]) -> (x_pad, residual_norms)``:
+        the single-RHS entry point (the dry-run's step), one column
+        through :meth:`build_solve_block_step`."""
+        block_step = self.build_solve_block_step(n_iters, tol=tol)
+
+        def step(arrays, coarse_h, b_pad, build=None):
+            x, norms, _ = block_step(arrays, coarse_h, b_pad[:, None],
+                                     build=build)
+            return x[:, 0], norms[:, 0]
 
         return step
 

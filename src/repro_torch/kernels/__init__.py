@@ -3,11 +3,24 @@
 Each wrapper runs its CUDA kernel on CUDA tensors and its plain version on
 CPU tensors, and only there; it counts its kernel launches in a plain int
 attribute, ``<wrapper>.launches``.
+
+On fake tensors (the dry-run's ``FakeTensorMode``, ``repro_torch.launch``)
+a wrapper takes a shape-only path instead, whatever their device: it
+returns an empty result of the kernel's shapes, computes nothing,
+launches nothing (never the plain version either) and counts the call in
+``<wrapper>.fake_launches``, not in ``launches``. Every launch, real or
+shape-only, reports the bytes the kernel must move (counted from its
+shapes as ``PERF.md`` counts its bound) to the dry-run's innermost
+counter, if one runs (:data:`COUNTERS`).
 """
 
 from __future__ import annotations
 
 import torch
+
+# the dry-run's running counters (``launch.cost.count``), innermost last
+COUNTERS: list = []
+_LIB = None
 
 
 def on_cuda(name: str, *tensors: torch.Tensor) -> bool:
@@ -20,6 +33,50 @@ def on_cuda(name: str, *tensors: torch.Tensor) -> bool:
         return False
     raise ValueError(f"{name}: tensors must all be on CUDA or all on the "
                      f"CPU, got {sorted(kinds)}")
+
+
+def is_fake(*tensors: torch.Tensor) -> bool:
+    """True when a tensor is fake (``FakeTensorMode``): the dry-run traces
+    its shapes only. (A ``meta`` tensor is not fake: the wrappers refuse
+    it, as they refuse every device but the card and the CPU.)"""
+    from torch._subclasses.fake_tensor import is_fake as fake
+
+    return any(fake(t) for t in tensors)
+
+
+def note(name: str, nbytes: int) -> None:
+    """Report one launch of kernel ``name`` and its bytes to the innermost
+    running dry-run counter, if any."""
+    if COUNTERS:
+        COUNTERS[-1].note_kernel(name, nbytes)
+
+
+def shape_only(wrapper, name: str, nbytes: int, out):
+    """A wrapper's shape-only path: ``out`` (its empty result), the call
+    counted in ``wrapper.fake_launches`` and noted with ``nbytes``."""
+    wrapper.fake_launches += 1
+    note(name, nbytes)
+    return out
+
+
+def lib():
+    """The kernel library, looked up once (built on first use)."""
+    global _LIB
+    if _LIB is None:
+        from repro_torch.kernels._build import library
+
+        _LIB = library()
+    return _LIB
+
+
+def launch(t: torch.Tensor, fn, *args) -> int:
+    """``fn(*args, stream)`` on ``t``'s stream; under ``t``'s device only
+    when that is not the current one (a launch runs on the current
+    device)."""
+    if t.device.index == torch.cuda.current_device():
+        return fn(*args, stream_of(t))
+    with torch.cuda.device(t.device):
+        return fn(*args, stream_of(t))
 
 
 def require(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:

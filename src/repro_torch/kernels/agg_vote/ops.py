@@ -13,8 +13,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import (ell_tile_plan, on_cuda, require,
-                                 require_aligned, stream_of)
+from repro_torch.kernels import (ell_tile_plan, is_fake, launch, lib, note,
+                                 on_cuda, require, require_aligned,
+                                 shape_only)
 from repro_torch.sparse.segment import take_fill
 
 _I32_MIN = torch.iinfo(torch.int32).min
@@ -44,12 +45,18 @@ def vote_reduce_ref(col, sq, state, *, levels: int, decided: int = 0):
 def vote_reduce(col, sq, state, *, levels: int, decided: int = 0):
     """(best_key, best_id) int32 per ELL row: the kernel on CUDA tensors,
     the plain version on CPU ones. Width 0 returns the identity without a
-    launch."""
+    launch; fake tensors take the shape-only path."""
+    n_rows, width = col.shape
+    nbytes = 8 * n_rows * width + 4 * state.shape[0] + 8 * n_rows
+    if is_fake(col, sq, state):
+        if width == 0 or n_rows == 0:
+            return _identity(n_rows, col.device)
+        return shape_only(vote_reduce, "agg_vote", nbytes,
+                          (col.new_empty(n_rows), col.new_empty(n_rows)))
     if not on_cuda("vote_reduce", col, sq, state):
         return vote_reduce_ref(col, sq, state, levels=levels, decided=decided)
-    from repro_torch.kernels._build import check, library
+    from repro_torch.kernels._build import check
 
-    n_rows, width = col.shape
     if width == 0 or n_rows == 0:
         return _identity(n_rows, col.device)
     require("vote col", col, torch.int32, (n_rows, width))
@@ -60,17 +67,14 @@ def vote_reduce(col, sq, state, *, levels: int, decided: int = 0):
     rows, stages, smem = ell_tile_plan(width)
     best_k = torch.empty(n_rows, dtype=torch.int32, device=col.device)
     best_i = torch.empty(n_rows, dtype=torch.int32, device=col.device)
-    lib = library()
-    with torch.cuda.device(col.device):
-        check(lib.repro_agg_vote_i32(col.data_ptr(), sq.data_ptr(),
-                                     state.data_ptr(), best_k.data_ptr(),
-                                     best_i.data_ptr(), n_rows, width,
-                                     state.shape[0], int(levels),
-                                     int(decided), rows, stages, smem,
-                                     stream_of(col)),
-              "vote_reduce")
+    check(launch(col, lib().repro_agg_vote_i32, col.data_ptr(), sq.data_ptr(),
+                 state.data_ptr(), best_k.data_ptr(), best_i.data_ptr(),
+                 n_rows, width, state.shape[0], int(levels), int(decided),
+                 rows, stages, smem), "vote_reduce")
     vote_reduce.launches += 1
+    note("agg_vote", nbytes)
     return best_k, best_i
 
 
 vote_reduce.launches = 0
+vote_reduce.fake_launches = 0

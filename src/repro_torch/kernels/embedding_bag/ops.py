@@ -39,9 +39,10 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels import (bag_tile_plan, on_cuda, require,
-                                 require_aligned, stream_of)
-from repro_torch.kernels._build import check, library
+from repro_torch.kernels import (bag_tile_plan, is_fake, launch, lib, note,
+                                 on_cuda, require, require_aligned,
+                                 shape_only)
+from repro_torch.kernels._build import check
 from repro_torch.sparse.segment import sorted_segment_sum, take_fill
 
 # sorted slots a warp of the backward kernel (kChunk in its source)
@@ -49,7 +50,6 @@ BAG_GRAD_CHUNK = 256
 # floats of a tile of output rows that one warp of the backward zeroes
 _BAG_GRAD_TILE_FLOATS = 4096
 _I32_MAX = torch.iinfo(torch.int32).max
-_LIB = None
 
 
 def _c_ints(name: str, **values: int) -> None:
@@ -60,24 +60,6 @@ def _c_ints(name: str, **values: int) -> None:
         if not 0 <= v <= _I32_MAX:
             raise ValueError(f"{name}: {key} = {v} does not fit the "
                              "kernel's int32 argument")
-
-
-def _lib():
-    """The kernel library, looked up once (built on first use)."""
-    global _LIB
-    if _LIB is None:
-        _LIB = library()
-    return _LIB
-
-
-def _launch(t: torch.Tensor, fn, *args) -> int:
-    """``fn(*args, stream)`` on ``t``'s stream; under ``t``'s device only
-    when that is not the current one (a launch runs on the current
-    device)."""
-    if t.device.index == torch.cuda.current_device():
-        return fn(*args, stream_of(t))
-    with torch.cuda.device(t.device):
-        return fn(*args, stream_of(t))
 
 
 def embedding_bag_ref(table: torch.Tensor,
@@ -94,11 +76,20 @@ def embedding_bag_kernel(table: torch.Tensor,
                          indices: torch.Tensor) -> torch.Tensor:
     """table [V, d] float32, indices [n_bags, hot] int32 -> [n_bags, d]:
     the kernel on CUDA tensors, the plain version on CPU ones. Builds no
-    autograd graph: :class:`BagSum` differentiates it."""
-    if not on_cuda("embedding_bag", table, indices):
-        return embedding_bag_ref(table, indices)
+    autograd graph: :class:`BagSum` differentiates it. Fake tensors take
+    the shape-only path (the distinct rows read counted as at most one a
+    slot)."""
     n_vocab, d = table.shape
     n_bags, hot = indices.shape
+    nbytes = 4 * n_bags * hot + 4 * n_bags * d + 4 * d * min(n_bags * hot,
+                                                             n_vocab)
+    if is_fake(table, indices):
+        if n_bags == 0 or hot == 0 or d == 0:
+            return table.new_zeros((n_bags, d))
+        return shape_only(embedding_bag_kernel, "embedding_bag", nbytes,
+                          table.new_empty((n_bags, d)))
+    if not on_cuda("embedding_bag", table, indices):
+        return embedding_bag_ref(table, indices)
     require("embedding_bag table", table, torch.float32, (n_vocab, d))
     require("embedding_bag indices", indices, torch.int32, (n_bags, hot))
     _c_ints("embedding_bag", hot=hot, d=d, n_vocab=n_vocab)
@@ -106,14 +97,16 @@ def embedding_bag_kernel(table: torch.Tensor,
     if n_bags == 0 or hot == 0 or d == 0:
         return out.zero_()
     bags, stages, smem = bag_tile_plan(hot, d)
-    check(_launch(table, _lib().repro_embedding_bag_f32, table.data_ptr(),
+    check(launch(table, lib().repro_embedding_bag_f32, table.data_ptr(),
                   indices.data_ptr(), out.data_ptr(), n_bags, hot, d,
                   n_vocab, bags, stages, smem), "embedding_bag")
     embedding_bag_kernel.launches += 1
+    note("embedding_bag", nbytes)
     return out
 
 
 embedding_bag_kernel.launches = 0
+embedding_bag_kernel.fake_launches = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,12 +150,17 @@ def bag_grad_plan(indices: torch.Tensor, n_vocab: int) -> BagGradPlan:
     bag_grad_plan.builds += 1
     n_bags, hot = indices.shape
     n_slots = n_bags * hot
+    if is_fake(indices) and n_slots:
+        return shape_only(bag_grad_plan, "bag_grad_plan", 12 * n_slots,
+                          BagGradPlan(indices.new_empty(n_slots),
+                                      indices.new_empty(n_slots), n_vocab,
+                                      hot))
     if not on_cuda("bag_grad_plan", indices) or n_slots == 0:
         return bag_grad_plan_ref(indices, n_vocab)
     require("bag_grad_plan indices", indices, torch.int32, (n_bags, hot))
     if n_slots > _I32_MAX:
         raise ValueError(f"bag_grad_plan: {n_slots} slots, more than int32")
-    fn = _lib().repro_bag_grad_plan_i32
+    fn = lib().repro_bag_grad_plan_i32
     temp_bytes = ctypes.c_longlong(0)       # the sort's scratch: asked first
     check(fn(None, n_slots, hot, n_vocab, None, None, None, None, None,
              ctypes.byref(temp_bytes), None), "bag_grad_plan")
@@ -171,16 +169,18 @@ def bag_grad_plan(indices: torch.Tensor, n_vocab: int) -> BagGradPlan:
         torch.empty(n_slots, dtype=torch.int32, device=dev) for _ in range(4))
     temp = torch.empty(max(temp_bytes.value, 1), dtype=torch.uint8,
                        device=dev)
-    check(_launch(indices, fn, indices.data_ptr(), n_slots, hot, n_vocab,
+    check(launch(indices, fn, indices.data_ptr(), n_slots, hot, n_vocab,
                   keys_in.data_ptr(), rows_in.data_ptr(),
                   sorted_ids.data_ptr(), rows.data_ptr(), temp.data_ptr(),
                   ctypes.byref(temp_bytes)), "bag_grad_plan")
     bag_grad_plan.launches += 1
+    note("bag_grad_plan", 12 * n_slots)
     return BagGradPlan(sorted_ids, rows, n_vocab, hot)
 
 
 bag_grad_plan.builds = 0
 bag_grad_plan.launches = 0
+bag_grad_plan.fake_launches = 0
 
 
 def _checked_plan(plan: BagGradPlan | None, indices: torch.Tensor,
@@ -243,7 +243,18 @@ def embedding_bag_backward(g_out: torch.Tensor, indices: torch.Tensor,
 
     ``_out`` (a contiguous float32 ``[n_vocab, d]`` on the same device)
     receives the result in place of a new tensor; it exists to check that
-    the kernel writes every row."""
+    the kernel writes every row. Fake tensors take the shape-only
+    path."""
+    if is_fake(g_out, indices):
+        n_bags, hot = indices.shape
+        d = g_out.shape[-1]
+        out = (g_out.new_empty((n_vocab, d)) if _out is None else _out)
+        if n_bags * hot == 0 or d == 0:
+            return out.zero_()
+        _checked_plan(plan, indices, n_vocab)   # as the kernel's path does
+        return shape_only(embedding_bag_backward, "embedding_bag_backward",
+                          4 * n_bags * hot + 4 * n_bags * d
+                          + 4 * n_vocab * d, out)
     if not on_cuda("embedding_bag_backward", g_out, indices):
         got = embedding_bag_backward_ref(g_out, indices, n_vocab, plan)
         return got if _out is None else _out.copy_(got)
@@ -274,16 +285,19 @@ def embedding_bag_backward(g_out: torch.Tensor, indices: torch.Tensor,
     chunk, tile_log2, scratch_bytes = bag_grad_layout(n_slots, n_vocab, d)
     scratch = torch.empty(scratch_bytes, dtype=torch.uint8,
                           device=g_out.device)
-    check(_launch(g_out, _lib().repro_embedding_bag_backward_f32,
+    check(launch(g_out, lib().repro_embedding_bag_backward_f32,
                   plan.sorted_ids.data_ptr(), plan.rows.data_ptr(),
                   g_out.data_ptr(), out.data_ptr(), scratch.data_ptr(),
                   scratch_bytes, n_slots, d, n_vocab, chunk, tile_log2),
           "embedding_bag_backward")
     embedding_bag_backward.launches += 1
+    note("embedding_bag_backward",
+         4 * n_slots + 4 * n_bags * d + 4 * n_vocab * d)
     return out
 
 
 embedding_bag_backward.launches = 0
+embedding_bag_backward.fake_launches = 0
 
 
 class BagSum(torch.autograd.Function):

@@ -13,8 +13,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import (ell_tile_plan, on_cuda, require,
-                                 require_aligned, stream_of)
+from repro_torch.kernels import (ell_tile_plan, is_fake, launch, lib, note,
+                                 on_cuda, require, require_aligned,
+                                 shape_only)
 from repro_torch.sparse.segment import take_fill
 
 
@@ -29,12 +30,15 @@ def jacobi_step_ref(col, val, x, b, deg, omega: float = 2.0 / 3.0):
 
 def jacobi_step(col, val, x, b, deg, omega: float = 2.0 / 3.0):
     """One fused sweep: the kernel on CUDA tensors, the plain version on
-    CPU ones."""
+    CPU ones, the shape-only path on fake ones."""
+    n, width = col.shape
+    nbytes = 8 * n * width + 4 * x.shape[0] + 12 * n
+    if is_fake(col, val, x, b, deg):
+        return shape_only(jacobi_step, "jacobi", nbytes, x.new_empty(n))
     if not on_cuda("jacobi_step", col, val, x, b, deg):
         return jacobi_step_ref(col, val, x, b, deg, omega)
-    from repro_torch.kernels._build import check, library
+    from repro_torch.kernels._build import check
 
-    n, width = col.shape
     require("jacobi col", col, torch.int32, (n, width))
     require("jacobi val", val, torch.float32, (n, width))
     for name, t in (("x", x), ("b", b), ("deg", deg)):
@@ -45,16 +49,13 @@ def jacobi_step(col, val, x, b, deg, omega: float = 2.0 / 3.0):
     out = torch.empty(n, dtype=torch.float32, device=x.device)
     if n == 0:
         return out
-    lib = library()
-    with torch.cuda.device(x.device):
-        check(lib.repro_jacobi_f32(col.data_ptr(), val.data_ptr(),
-                                   x.data_ptr(), b.data_ptr(),
-                                   deg.data_ptr(), out.data_ptr(), n, width,
-                                   float(omega), rows, stages, smem,
-                                   stream_of(x)),
-              "jacobi_step")
+    check(launch(x, lib().repro_jacobi_f32, col.data_ptr(), val.data_ptr(),
+                 x.data_ptr(), b.data_ptr(), deg.data_ptr(), out.data_ptr(),
+                 n, width, float(omega), rows, stages, smem), "jacobi_step")
     jacobi_step.launches += 1
+    note("jacobi", nbytes)
     return out
 
 
 jacobi_step.launches = 0
+jacobi_step.fake_launches = 0

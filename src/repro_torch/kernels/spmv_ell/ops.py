@@ -12,8 +12,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import (ell_tile_plan, on_cuda, require,
-                                 require_aligned, stream_of)
+from repro_torch.kernels import (ell_tile_plan, is_fake, launch, lib, note,
+                                 on_cuda, require, require_aligned,
+                                 shape_only)
 from repro_torch.sparse.segment import take_fill
 
 
@@ -26,12 +27,18 @@ def spmv_ell_ref(col: torch.Tensor, val: torch.Tensor,
 
 def spmv_ell(col: torch.Tensor, val: torch.Tensor,
              x: torch.Tensor) -> torch.Tensor:
-    """ELL SpMV: the kernel on CUDA tensors, the plain version on CPU ones."""
+    """ELL SpMV: the kernel on CUDA tensors, the plain version on CPU ones,
+    the shape-only path on fake ones."""
+    n_rows, width = col.shape
+    nbytes = 8 * n_rows * width + 4 * x.shape[0] + 4 * n_rows
+    if is_fake(col, val, x):
+        if width == 0 or n_rows == 0:
+            return x.new_zeros(n_rows)
+        return shape_only(spmv_ell, "spmv_ell", nbytes, x.new_empty(n_rows))
     if not on_cuda("spmv_ell", col, val, x):
         return spmv_ell_ref(col, val, x)
-    from repro_torch.kernels._build import check, library
+    from repro_torch.kernels._build import check
 
-    n_rows, width = col.shape
     require("spmv_ell col", col, torch.int32, (n_rows, width))
     require("spmv_ell val", val, torch.float32, (n_rows, width))
     require("spmv_ell x", x, torch.float32, (x.shape[0],))
@@ -41,15 +48,13 @@ def spmv_ell(col: torch.Tensor, val: torch.Tensor,
     y = torch.empty(n_rows, dtype=torch.float32, device=x.device)
     if width == 0 or n_rows == 0:
         return y.zero_()
-    lib = library()
-    with torch.cuda.device(x.device):
-        check(lib.repro_spmv_ell_f32(col.data_ptr(), val.data_ptr(),
-                                     x.data_ptr(), y.data_ptr(), n_rows,
-                                     width, x.shape[0], rows, stages, smem,
-                                     stream_of(x)),
-              "spmv_ell")
+    check(launch(x, lib().repro_spmv_ell_f32, col.data_ptr(), val.data_ptr(),
+                 x.data_ptr(), y.data_ptr(), n_rows, width, x.shape[0],
+                 rows, stages, smem), "spmv_ell")
     spmv_ell.launches += 1
+    note("spmv_ell", nbytes)
     return y
 
 
 spmv_ell.launches = 0
+spmv_ell.fake_launches = 0

@@ -15,10 +15,20 @@ step gives the same bits every time. The backward kernel reads a
 ``bag_grad_plan`` (the ids sorted once): :meth:`GraphBatch.with_plans`
 builds the senders' and the receivers' once per graph, and every layer
 and step then shares them.
+
+Edge-parallel (the dry-run's rank program, ``configs.gnn_common``): under
+:func:`edge_parallel` the edges are this rank's share and the node states
+are replicated, so each scatter-sum (and :func:`edge_max`) of edge
+messages is a partial that is all-reduced over the group (its backward the
+identity), and each gather of a node state that carries a gradient
+all-reduces that gradient on the way back (the forward the identity): the
+two conjugate collectives of tensor-parallel layers. Scatters over other
+ids (a graph's nodes) take :func:`edge_parallel` ``(None)``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Optional
@@ -101,6 +111,81 @@ def chunk_plans(g: GraphBatch, chunk: int) -> tuple:
                  for a, b in edge_chunks(g.n_edges, chunk))
 
 
+_EDGE_GROUP: list = [None]
+
+
+@contextlib.contextmanager
+def edge_parallel(group):
+    """Message passing over this rank's share of the edges for the block:
+    ``group`` is the process group the edges are split over (None: every
+    edge is here)."""
+    _EDGE_GROUP.append(group)
+    try:
+        yield
+    finally:
+        _EDGE_GROUP.pop()
+
+
+def _all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    from torch.distributed import _functional_collectives as funcol
+
+    return funcol.wait_tensor(funcol.all_reduce(t.contiguous(), op, group))
+
+
+class _ReduceFromEdges(torch.autograd.Function):
+    """The all-reduce of a partial over the edge split; the gradient of a
+    sum passes as it is, that of a max or min to the entries that were
+    the group's extreme."""
+
+    @staticmethod
+    def forward(ctx, t, op, group):
+        out = _all_reduce(t, op, group)
+        ctx.op = op
+        if op != "sum":
+            ctx.save_for_backward(t == out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.op == "sum":
+            return g, None, None
+        (hit,) = ctx.saved_tensors
+        return torch.where(hit, g, 0), None, None
+
+
+class _CopyToEdges(torch.autograd.Function):
+    """A replicated node state read by this rank's edges: the identity,
+    whose gradient (a partial over the edge split) is all-reduced."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g, "sum", ctx.group), None
+
+
+def edge_max(data: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    """``sparse.segment.segment_max`` of edge data over ``n`` nodes, all
+    the group's edges under :func:`edge_parallel`."""
+    out = segment_max(data, ids, n)
+    group = _EDGE_GROUP[-1]
+    return out if group is None else _ReduceFromEdges.apply(out, "max",
+                                                            group)
+
+
+def edge_min(data: torch.Tensor, ids: torch.Tensor, n: int) -> torch.Tensor:
+    """:func:`edge_max` for ``segment_min``."""
+    from repro_torch.sparse.segment import segment_min
+
+    out = segment_min(data, ids, n)
+    group = _EDGE_GROUP[-1]
+    return out if group is None else _ReduceFromEdges.apply(out, "min",
+                                                            group)
+
+
 def gather_rows(x: torch.Tensor, idx: torch.Tensor,
                 plan: Optional[BagGradPlan] = None) -> torch.Tensor:
     """``x[idx]`` along dim 0 for ``x`` [n, d] and ``idx`` [E] int32, rows
@@ -112,6 +197,8 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor,
     bags = idx.reshape(-1, 1)
     x = x.contiguous()
     if x.requires_grad and torch.is_grad_enabled():
+        if _EDGE_GROUP[-1] is not None:
+            x = _CopyToEdges.apply(x, _EDGE_GROUP[-1])
         return BagSum.apply(x, bags, plan)
     return embedding_bag_kernel(x, bags)
 
@@ -127,8 +214,12 @@ def scatter_rows(msgs: torch.Tensor, idx: torch.Tensor, n: int,
 
     bags = idx.reshape(-1, 1)
     if msgs.requires_grad and torch.is_grad_enabled():
-        return ScatterSum.apply(msgs, bags, n, plan)
-    return embedding_bag_backward(msgs.contiguous(), bags, n, plan)
+        out = ScatterSum.apply(msgs, bags, n, plan)
+    else:
+        out = embedding_bag_backward(msgs.contiguous(), bags, n, plan)
+    group = _EDGE_GROUP[-1]
+    return out if group is None else _ReduceFromEdges.apply(out, "sum",
+                                                            group)
 
 
 def gather_src(g: GraphBatch, x: torch.Tensor) -> torch.Tensor:
@@ -160,7 +251,7 @@ def segment_mean_max(g: GraphBatch, msgs: torch.Tensor):
     cnt = in_degrees(g, msgs.dtype)
     mean = s / torch.clamp(cnt, min=1)
     neg = torch.finfo(msgs.dtype).min
-    mx = segment_max(torch.where(valid, msgs, neg), g.receivers, g.n_nodes)
+    mx = edge_max(torch.where(valid, msgs, neg), g.receivers, g.n_nodes)
     mx = torch.where(cnt > 0, mx, 0)
     return mean, mx, cnt
 

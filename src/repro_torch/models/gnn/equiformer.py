@@ -176,8 +176,12 @@ def edge_rotation(cfg: EquiformerConfig, dirs: torch.Tensor) -> torch.Tensor:
 @lru_cache(maxsize=None)
 def _rot_index(l_max: int, m_max: int, device: torch.device) -> torch.Tensor:
     """``_layout(l_max, m_max).rot_index`` as a tensor on ``device``, made
-    once per device."""
-    return torch.tensor(_layout(l_max, m_max).rot_index, device=device)
+    once per device (a real tensor, also where a dry-run's fake mode runs
+    the first call)."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+    with unset_fake_temporarily():
+        return torch.tensor(_layout(l_max, m_max).rot_index, device=device)
 
 
 class _Rotate(torch.autograd.Function):

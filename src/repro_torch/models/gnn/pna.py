@@ -14,10 +14,10 @@ import math
 
 import torch
 
-from repro_torch.models.gnn.common import (GraphBatch, gather_dst, gather_src,
+from repro_torch.models.gnn.common import (GraphBatch, edge_max, edge_min,
+                                           gather_dst, gather_src,
                                            in_degrees, init_mlp, mlp_apply,
                                            scatter_sum)
-from repro_torch.sparse.segment import segment_max, segment_min
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,8 +52,8 @@ def _aggregate(g: GraphBatch, msgs):
     cnt = in_degrees(g, msgs.dtype)
     mean = s / torch.clamp(cnt, min=1)
     big = torch.finfo(msgs.dtype).max
-    mx = segment_max(torch.where(valid, msgs, -big), g.receivers, n)
-    mn = segment_min(torch.where(valid, msgs, big), g.receivers, n)
+    mx = edge_max(torch.where(valid, msgs, -big), g.receivers, n)
+    mn = edge_min(torch.where(valid, msgs, big), g.receivers, n)
     mx = torch.where(cnt > 0, mx, 0)
     mn = torch.where(cnt > 0, mn, 0)
     sq = scatter_sum(g, m0 * m0)

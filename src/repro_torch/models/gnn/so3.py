@@ -112,9 +112,12 @@ def _sample_inverses(l_max: int, device=None, seed: int = 7):
 
 @lru_cache(maxsize=None)
 def _sample_inverses_on(l_max: int, device: torch.device, seed: int):
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+
     X, invs = _sample_inverses_np(l_max, seed)
-    return (torch.tensor(X, device=device),
-            [torch.tensor(i, device=device) for i in invs])
+    with unset_fake_temporarily():   # a cached constant is real, always
+        return (torch.tensor(X, device=device),
+                [torch.tensor(i, device=device) for i in invs])
 
 
 def frame_from_direction(d: torch.Tensor) -> torch.Tensor:

@@ -107,8 +107,10 @@ def deepfm_forward(cfg: DeepFMConfig, params: dict,
     flat_ids = _flat_ids(cfg, indices)
     table, first_order = params["table"], params["first_order"]
     plan = None
-    if torch.is_grad_enabled() and (table.requires_grad
-                                    or first_order.requires_grad):
+    # (a DTensor table on a mesh sums its own rows: each bag sum builds
+    # the plan of its rank's ids)
+    if torch.is_grad_enabled() and not hasattr(table, "device_mesh") and (
+            table.requires_grad or first_order.requires_grad):
         plan = bag_grad_plan(flat_ids.reshape(-1, flat_ids.shape[-1]),
                              table.shape[0])
     v = embedding_bag(table, flat_ids, plan=plan)            # [B, F, d]

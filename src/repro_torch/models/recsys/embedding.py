@@ -8,6 +8,12 @@ backward kernel (over a ``bag_grad_plan`` that callers summing several
 tables over the same ids build once and pass in). Weighted bags keep the reference's composition (gather,
 scale, masked sum) and its autograd, as the JAX package has no kernel for
 them.
+
+On a mesh (``table`` a DTensor, as the dry-run places it: rows split over
+``"model"``, the batch over the DP axes) the unweighted bag sum runs under
+``local_map``: each rank sums its own rows, ids outside them counting 0
+(the kernel's rule for ids out of range), and the result is a partial sum
+over the rank's row split, which DTensor all-reduces where it is used.
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor,
 
     if mode not in ("sum", "mean"):
         raise ValueError(f"embedding_bag: unknown mode {mode!r}")
+    if _is_dtensor(table) and weights is None and mode == "sum":
+        return _embedding_bag_mesh(table, indices)
     V, d = table.shape
     valid = None if weights is None and mode == "sum" else \
         (indices >= 0) & (indices < V)
@@ -65,3 +73,36 @@ def hashed_lookup(table: torch.Tensor, raw_ids: torch.Tensor,
         out = out + table.index_select(0, h.reshape(-1)).reshape(
             *h.shape, *table.shape[1:])
     return out
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
+def _embedding_bag_mesh(table, indices):
+    """The bag sum of a DTensor ``table`` whose rows may be split over some
+    mesh dims, for DTensor ``indices`` (see the module docstring)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.models.sharding import local_shape_offset
+
+    mesh = table.device_mesh
+    tpl, ipl = table.placements, indices.placements
+    rows_split = [isinstance(p, Shard) and p.dim == 0 for p in tpl]
+    out_pl = [Partial() if split else p for split, p in zip(rows_split, ipl)]
+    grad_pl = [p if split else (Partial() if isinstance(q, Shard)
+                                else Replicate())
+               for split, p, q in zip(rows_split, tpl, ipl)]
+    v0 = local_shape_offset(table.shape, mesh, tpl)[1][0]
+
+    def local(tl, il):
+        ids = torch.where((il >= v0) & (il < v0 + tl.shape[0]), il - v0, -1)
+        return embedding_bag(tl, ids.to(il.dtype))
+
+    return local_map(local, out_placements=out_pl,
+                     in_placements=(list(tpl), list(ipl)),
+                     in_grad_placements=(grad_pl, list(ipl)),
+                     device_mesh=mesh)(table, indices)

@@ -42,6 +42,25 @@ float sums are over a token's k entries, in entry order. So the forward
 and backward of ``moe_ffn`` hold no float atomic (no ``index_add_``,
 ``scatter_add_`` or accumulating ``index_put_``), and a repeat gives the
 same bits.
+
+On a mesh (a plan with a ``DeviceMesh``, ``models.sharding.make_lm_plan``)
+the parameters and tokens are DTensors and the same code runs as one
+rank's program, DTensor placing each product and its collectives. Where
+the rank must see local shards, a block runs under
+``torch.distributed.tensor.experimental.local_map``: RoPE (its tables and
+positions are made locally, from the local shapes), the attention on the
+rank's heads, the MoE dispatch and combine on the rank's token shard
+(each DP rank is one of the reference's ``moe_token_shards``; the experts
+between them are DTensor products over the expert-sharded weights), and a
+vocab-parallel cross entropy (a local max and log-sum-exp and the gold
+logit of the local vocabulary slice, each then all-reduced over
+``"model"``). The attention runs head-sharded over ``"model"`` only where
+both the heads and the KV heads divide its size; otherwise its heads are
+replicated over ``"model"`` (Q, K and V all-gathered, the attention done
+on every model rank), as the reference's decode cache falls back from
+KV heads to ``d_head`` to replicated (``lm_common``'s ``kv_spec``); the
+gathers show in the dry-run's collective bytes. With no mesh
+(``null_plan()``) none of this runs: every single-card path is as it was.
 """
 
 from __future__ import annotations
@@ -176,6 +195,90 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator,
             p["shared_up"] = s(L, d, m.n_shared * m.d_ff_expert)
             p["shared_down"] = s(L, m.n_shared * m.d_ff_expert, d)
     return p
+
+
+def param_specs(cfg: TransformerConfig, plan: ShardingPlan) -> dict:
+    """The spec tree matching ``init_params``' structure (the reference's
+    ``param_specs``)."""
+    sp = dict(
+        embed=plan.spec("embed"),
+        final_norm=plan.spec("norm"),
+        lm_head=plan.spec("lm_head"),
+        attn_norm=plan.spec("norm"),
+        ffn_norm=plan.spec("norm"),
+        wq=plan.spec("wq"), wk=plan.spec("wkv"), wv=plan.spec("wkv"),
+        wo=plan.spec("wo"),
+    )
+    if cfg.qkv_bias:
+        sp["bq"] = plan.spec("bias_model")
+        sp["bk"] = plan.spec("bias_model")
+        sp["bv"] = plan.spec("bias_model")
+    if cfg.moe is None or cfg.moe.dense_residual:
+        sp["w_gate"] = plan.spec("w_in")
+        sp["w_up"] = plan.spec("w_in")
+        sp["w_down"] = plan.spec("w_out")
+    if cfg.moe is not None:
+        sp["router"] = plan.spec("router")
+        sp["moe_gate"] = plan.spec("moe_w_in")
+        sp["moe_up"] = plan.spec("moe_w_in")
+        sp["moe_down"] = plan.spec("moe_w_out")
+        if cfg.moe.n_shared:
+            sp["shared_gate"] = plan.spec("w_in")
+            sp["shared_up"] = plan.spec("w_in")
+            sp["shared_down"] = plan.spec("w_out")
+    return sp
+
+
+# ---------------------------------------------------------------------------
+# placements on a mesh
+# ---------------------------------------------------------------------------
+
+def _place(plan: ShardingPlan, batch=0, model=None, dp=None) -> list:
+    """Placements on the plan's mesh of a tensor whose dim ``batch`` is
+    split over the DP axes (None: not split) and whose dim ``model`` over
+    ``"model"`` (None: replicated there). ``dp`` overrides the DP axes'
+    placement (``Partial()`` for a partial sum over the batch)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    out = []
+    for name in plan.mesh.mesh_dim_names:
+        if name == "model":
+            out.append(Replicate() if model is None else Shard(model))
+        elif dp is not None:
+            out.append(dp)
+        else:
+            out.append(Replicate() if batch is None else Shard(batch))
+    return out          # a list: local_map reads a tuple as several outputs
+
+
+def _local_map(plan, fn, out_placements, in_placements,
+               in_grad_placements=None):
+    from torch.distributed.tensor.experimental import local_map
+
+    # inputs placed otherwise (FSDP's weights) are redistributed first
+    return local_map(fn, out_placements=out_placements,
+                     in_placements=in_placements,
+                     in_grad_placements=in_grad_placements,
+                     device_mesh=plan.mesh, redistribute_inputs=True)
+
+
+def heads_sharded(cfg: TransformerConfig, plan: ShardingPlan) -> bool:
+    """True where the attention runs on each rank's own heads: a mesh
+    whose ``"model"`` size divides both the heads and the KV heads."""
+    tp = plan.axis_size("model") if plan.mesh is not None else 1
+    return (plan.mesh is not None and cfg.n_heads % tp == 0
+            and cfg.n_kv_heads % tp == 0)
+
+
+def _heads(plan, t, n: int, dh: int, sharded: bool):
+    """``[B, S, n·dh]`` -> ``[B, S, n, dh]``; on a mesh first placed with
+    its heads split over ``"model"`` or, not ``sharded``, replicated
+    there (an all-gather of the projection's columns)."""
+    B, S = t.shape[:2]
+    if plan.mesh is not None:
+        t = t.redistribute(plan.mesh, _place(plan, 0, 2 if sharded
+                                             else None))
+    return t.reshape(B, S, n, dh)
 
 
 # ---------------------------------------------------------------------------
@@ -420,7 +523,10 @@ def moe_ffn(x, lw, m: MoEConfig, plan: ShardingPlan):
     that each expert's three products are one batched product over E.
     The combine scales each kept entry's expert output by its gate value
     in the activation dtype and sums a token's k entries in entry order;
-    the shared experts (``n_shared``) are added after it."""
+    the shared experts (``n_shared``) are added after it. On a mesh see
+    :func:`_moe_ffn_mesh`."""
+    if plan.mesh is not None:
+        return _moe_ffn_mesh(x, lw, m, plan)
     B, S, d = x.shape
     T = B * S
     E, k = m.n_experts, m.top_k
@@ -455,9 +561,109 @@ def moe_ffn(x, lw, m: MoEConfig, plan: ShardingPlan):
     return out.reshape(B, S, d)
 
 
+def _moe_dispatch_local(x, router, m: MoEConfig):
+    """One token shard's routing and dispatch: ``x`` [B, S, d] -> (its
+    ``[E, cap, d]`` queues, ``slot``/``keep`` [T, k], ``gate`` [T, k])."""
+    B, S, d = x.shape
+    T, E, k = B * S, m.n_experts, m.top_k
+    r = moe_route(x.reshape(1, T, d), router, m)
+    n_slots = E * r.cap
+    slot = torch.where(r.keep, r.idx * r.cap + r.pos, n_slots).reshape(T, k)
+    keep = r.keep.reshape(T, k)
+    buf = _Dispatch.apply(x.reshape(T, d), slot, keep, n_slots)
+    return buf.view(E, r.cap, d), slot, keep, r.gate.reshape(T, k)
+
+
+def _moe_combine_local(out_buf, slot, keep, gate, dtype):
+    """One token shard's combine: ``[T, d]`` from its ``[E, cap, d]``
+    expert outputs, as :func:`moe_ffn` sums them."""
+    T, k = slot.shape
+    rows = _Combine.apply(out_buf.reshape(-1, out_buf.shape[-1]), slot, keep)
+    terms = (rows * gate.reshape(T, k, 1).to(dtype)).unbind(1)
+    out = terms[0]
+    for t in terms[1:]:
+        out = out + t
+    return out
+
+
+def _moe_ffn_mesh(x, lw, m: MoEConfig, plan: ShardingPlan):
+    """``moe_ffn`` on a mesh: each DP rank's tokens are one token shard
+    (``plan.moe_token_shards`` is the DP size), routed and dispatched under
+    ``local_map`` into its queues, which form the ``[E, shards·cap, d]``
+    buffer split over the DP axes. The expert products are DTensor
+    products over the weights' expert split (``"model"``); the outputs are
+    all-gathered over ``"model"`` and combined under ``local_map``."""
+    B, S, d = x.shape
+    tok = _place(plan, 0)                         # [B, S, d] and [T, k]
+    queues = _place(plan, 1)                      # [E, shards·cap, d]
+    rep = _place(plan, None)
+    router_grad = _place(plan, None, dp=_partial())
+    buf, slot, keep, gate = _local_map(
+        plan, lambda xl, rl: _moe_dispatch_local(xl, rl, m),
+        (queues, tok, tok, tok), (tok, rep), (tok, router_grad))(
+            x, lw["router"])
+    h = F.silu(torch.bmm(buf, lw["moe_gate"])) * torch.bmm(buf, lw["moe_up"])
+    out_buf = torch.bmm(h, lw["moe_down"]).redistribute(plan.mesh, queues)
+    out = _local_map(
+        plan, lambda ob, sl, kp, gv: _moe_combine_local(ob, sl, kp, gv,
+                                                        x.dtype),
+        tok, (queues, tok, tok, tok))(out_buf, slot, keep, gate)
+    if m.n_shared:
+        xf = x.reshape(B * S, d)
+        shared = F.silu(torch.matmul(xf, lw["shared_gate"])) * torch.matmul(
+            xf, lw["shared_up"])
+        out = out + torch.matmul(shared, lw["shared_down"])
+    return out.reshape(B, S, d)
+
+
+def _partial():
+    from torch.distributed.tensor import Partial
+
+    return Partial()
+
+
 # ---------------------------------------------------------------------------
 # forward passes
 # ---------------------------------------------------------------------------
+
+def _rope_qk(cfg, plan, q, k, positions, start: int, sharded: bool):
+    """RoPE on q and k; on a mesh under ``local_map``, with the positions
+    (``start + arange(S)``, the rank's batch rows) made from the local
+    shapes."""
+    if plan.mesh is None:
+        return (rope(q, positions, cfg.rope_theta),
+                rope(k, positions, cfg.rope_theta))
+
+    def local(ql, kl):
+        B, S = ql.shape[:2]
+        pos = (start + torch.arange(S, device=ql.device))[None].expand(B, S)
+        return rope(ql, pos, cfg.rope_theta), rope(kl, pos, cfg.rope_theta)
+
+    pl = _place(plan, 0, 2 if sharded else None)
+    return _local_map(plan, local, (pl, pl), (pl, pl))(q, k)
+
+
+def _attention(cfg, plan, q, k, v, causal_offset: int, sharded: bool):
+    """``gqa_attention`` with its heads flattened, ``[B, S, H·dh]``; on a
+    mesh under ``local_map`` on the rank's heads (all of them where not
+    ``sharded``), K and V placed to match first. The flattening is local
+    too: DTensor cannot split a dim of heads that ``"model"`` does not
+    divide, which the backward of a flattening outside would ask."""
+    B, S, H, dh = q.shape
+    if plan.mesh is None:
+        att = gqa_attention(q, k, v, causal_offset=causal_offset,
+                            q_chunk=cfg.q_chunk)
+        return plan.shard(att, "act_heads").reshape(B, S, H * dh)
+    pl = _place(plan, 0, 2 if sharded else None)
+    k, v = (t.redistribute(plan.mesh, pl) for t in (k, v))
+
+    def local(ql, kl, vl):
+        att = gqa_attention(ql, kl, vl, causal_offset=causal_offset,
+                            q_chunk=cfg.q_chunk)
+        return att.reshape(*att.shape[:2], -1)
+
+    return _local_map(plan, local, pl, (pl, pl, pl))(q, k, v)
+
 
 def _layer(cfg: TransformerConfig, plan: ShardingPlan, x, lw, positions,
            kv_cache=None, cache_len=None):
@@ -466,6 +672,7 @@ def _layer(cfg: TransformerConfig, plan: ShardingPlan, x, lw, positions,
     call's k/v were written at ``cache_len`` in place."""
     B, S, d = x.shape
     H, Hkv, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    sharded = heads_sharded(cfg, plan)
 
     h = rms_norm(x, lw["attn_norm"], cfg.norm_eps)
     q = torch.matmul(h, lw["wq"])
@@ -473,11 +680,13 @@ def _layer(cfg: TransformerConfig, plan: ShardingPlan, x, lw, positions,
     v = torch.matmul(h, lw["wv"])
     if cfg.qkv_bias:
         q, k, v = q + lw["bq"], k + lw["bk"], v + lw["bv"]
-    q = plan.shard(q.reshape(B, S, H, dh), "act_heads")
-    k = k.reshape(B, S, Hkv, dh)
-    v = v.reshape(B, S, Hkv, dh)
-    q = rope(q, positions, cfg.rope_theta)
-    k = rope(k, positions, cfg.rope_theta)
+    q = _heads(plan, q, H, dh, sharded)
+    if sharded or plan.mesh is None:
+        q = plan.shard(q, "act_heads")
+    k = _heads(plan, k, Hkv, dh, sharded)
+    v = _heads(plan, v, Hkv, dh, sharded)
+    q, k = _rope_qk(cfg, plan, q, k, positions,
+                    0 if cache_len is None else cache_len, sharded)
 
     if kv_cache is not None:
         ck, cv = kv_cache
@@ -485,17 +694,18 @@ def _layer(cfg: TransformerConfig, plan: ShardingPlan, x, lw, positions,
             raise ValueError(f"decode: {S} new token(s) at cache_len "
                              f"{cache_len} do not fit a cache of "
                              f"{ck.shape[1]} slots")
+        if plan.mesh is not None:      # the cache keeps its own placement
+            k, v = (t.to(ck.dtype).redistribute(plan.mesh, ck.placements)
+                    for t in (k, v))
         ck[:, cache_len:cache_len + S] = k.to(ck.dtype)
         cv[:, cache_len:cache_len + S] = v.to(cv.dtype)
-        att = gqa_attention(q, ck, cv, causal_offset=cache_len,
-                            q_chunk=cfg.q_chunk)
+        att = _attention(cfg, plan, q, ck, cv, cache_len, sharded)
         new_kv = (ck, cv)
     else:
-        att = gqa_attention(q, k, v, causal_offset=0, q_chunk=cfg.q_chunk)
+        att = _attention(cfg, plan, q, k, v, 0, sharded)
         new_kv = (k, v)
 
-    att = plan.shard(att, "act_heads")
-    x = x + torch.matmul(att.reshape(B, S, H * dh), lw["wo"])
+    x = x + torch.matmul(att, lw["wo"])
     x = plan.shard(x, "act")
 
     h = rms_norm(x, lw["ffn_norm"], cfg.norm_eps)
@@ -546,21 +756,91 @@ def forward(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     return plan.shard(logits, "logits")
 
 
-def cross_entropy(logits: torch.Tensor, targets: torch.Tensor):
+def cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
+                  plan: ShardingPlan = None):
     """Mean of ``logsumexp(logits) - logits[target]`` in float32. The gold
     logit is taken before its cast to float32 (the same value; its
     gradient is scattered in the activation dtype, as the reference's
-    cast's is)."""
+    cast's is). On a mesh whose ``"model"`` axis splits the vocabulary,
+    vocab-parallel (:class:`_VocabParallelCE`)."""
+    plan = plan or null_plan()
+    if plan.mesh is not None:
+        return _cross_entropy_mesh(logits, targets, plan)
     logz = torch.logsumexp(logits.float(), dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     return torch.mean(logz - gold.float())
+
+
+def _token_loss(logits, targets):
+    logz = torch.logsumexp(logits.float(), dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return logz - gold.float()
+
+
+def _all_reduce(t, op: str, group):
+    from torch.distributed import _functional_collectives as funcol
+
+    return funcol.wait_tensor(funcol.all_reduce(t, op, group))
+
+
+class _VocabParallelCE(torch.autograd.Function):
+    """Each token's ``logsumexp - gold`` from this rank's vocabulary slice
+    ``logits`` [..., V/tp] (its first id ``v0``): a local max and sum of
+    exponentials and the gold logit where the target falls in the slice,
+    each all-reduced over ``group``. The backward is local: ``softmax -
+    onehot`` on the slice, in the logits' dtype."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, v0: int, group):
+        lf = logits.float()
+        m = _all_reduce(lf.amax(dim=-1), "max", group)
+        s = _all_reduce(torch.exp(lf - m[..., None]).sum(dim=-1), "sum",
+                        group)
+        logz = torch.log(s) + m
+        t = targets.long() - v0
+        inr = (t >= 0) & (t < logits.shape[-1])
+        tc = torch.where(inr, t, 0)
+        gold = torch.where(inr, torch.gather(logits, -1, tc[..., None])[
+            ..., 0].float(), 0.0)
+        gold = _all_reduce(gold, "sum", group)
+        ctx.save_for_backward(logits, logz, tc, inr)
+        return logz - gold
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        logits, logz, tc, inr = ctx.saved_tensors
+        g = torch.exp(logits.float() - logz[..., None]) * grad[..., None]
+        g.scatter_add_(-1, tc[..., None],
+                       torch.where(inr, -grad, 0.0)[..., None])
+        return g.to(logits.dtype), None, None, None
+
+
+def _cross_entropy_mesh(logits, targets, plan):
+    mesh = plan.mesh
+    tp = plan.axis_size("model")
+    tok = _place(plan, 0)
+    if tp == 1:                        # nothing split: the plain loss
+        loss = _local_map(plan, _token_loss, tok,
+                          (_place(plan, 0, 2), tok))(logits, targets)
+    else:
+        dim = mesh.mesh_dim_names.index("model")
+        step = -(-logits.shape[-1] // tp)          # chunk of a rank
+        v0 = mesh.get_local_rank("model") * step
+
+        def local(ll, tl):
+            return _VocabParallelCE.apply(ll, tl, v0, (mesh, dim))
+
+        loss = _local_map(plan, local, tok, (_place(plan, 0, 2), tok))(
+            logits, targets)
+    return torch.mean(loss)
 
 
 def lm_loss(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
             plan: ShardingPlan = None) -> torch.Tensor:
     """Next-token cross entropy (the train_step objective)."""
     logits = forward(cfg, params, tokens[:, :-1], plan)
-    return cross_entropy(logits, tokens[:, 1:])
+    return cross_entropy(logits, tokens[:, 1:], plan)
 
 
 def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,

@@ -61,15 +61,15 @@ def _dq8(s: dict) -> torch.Tensor:
 
 
 def _moment_zeros(p: torch.Tensor, dtype: str):
+    # zeros_like / new_zeros: a DTensor parameter's moments are DTensors
+    # placed as it is (its scale replicated)
     if dtype == "int8":
-        return dict(q=torch.zeros(p.shape, dtype=torch.int8, device=p.device),
-                    scale=torch.zeros((), dtype=torch.float32,
-                                      device=p.device))
+        return dict(q=torch.zeros_like(p, dtype=torch.int8),
+                    scale=p.new_zeros((), dtype=torch.float32))
     if dtype not in ("f32", "bf16"):
         raise ValueError(f"unknown moments_dtype {dtype!r}")
-    return torch.zeros(p.shape, device=p.device,
-                       dtype=torch.bfloat16 if dtype == "bf16"
-                       else torch.float32)
+    return torch.zeros_like(p, dtype=torch.bfloat16 if dtype == "bf16"
+                            else torch.float32)
 
 
 def _moment_load(m) -> torch.Tensor:
@@ -89,10 +89,11 @@ def adamw_init(params, cfg: AdamWConfig | None = None) -> dict:
     parameters' devices."""
     dtype = cfg.moments_dtype if cfg is not None else "f32"
     first = leaves(params)
-    device = first[0].device if first else None
+    step = (first[0].new_zeros((), dtype=torch.int32) if first
+            else torch.zeros((), dtype=torch.int32))
     return dict(mu=tree_map(lambda p: _moment_zeros(p, dtype), params),
                 nu=tree_map(lambda p: _moment_zeros(p, dtype), params),
-                step=torch.zeros((), dtype=torch.int32, device=device))
+                step=step)
 
 
 def global_norm(tree) -> torch.Tensor:

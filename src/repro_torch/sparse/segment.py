@@ -174,15 +174,16 @@ def segment_softmax(logits: torch.Tensor, seg_ids: torch.Tensor,
     rows (built where needed when None): deterministic, no float atomics.
     The maximum carries no gradient: the softmax does not change with it.
     """
-    from repro_torch.models.gnn.common import gather_rows, scatter_rows
+    from repro_torch.models.gnn.common import (edge_max, gather_rows,
+                                               scatter_rows)
 
     lg = logits[:, None] if logits.dim() == 1 else logits
     ok = (seg_ids >= 0) & (seg_ids < num_segments)
     if valid is not None:
         ok = ok & valid
     ok = ok[:, None]
-    m = segment_max(torch.where(ok, lg, -torch.inf).detach(), seg_ids,
-                    num_segments)
+    m = edge_max(torch.where(ok, lg, -torch.inf).detach(), seg_ids,
+                 num_segments)
     m = torch.where(torch.isfinite(m), m, 0)
     z = torch.exp(torch.where(ok, lg - gather_rows(m, seg_ids), -torch.inf))
     denom = scatter_rows(z, seg_ids, num_segments, plan)

@@ -15,7 +15,9 @@ bitwise equal from one call to the next, DeepFM logits rtol / atol 1e-5
 (the card's matrix products sum in another order). The LM family, which
 runs no kernel of the port: the bf16 attention and its gradients bitwise
 the plain form of the reference's block; ``moe_ffn`` bitwise on a repeat
-and its routing equal to the CPU's.
+and its routing equal to the CPU's. The dry-run's shape-only path: a real
+CUDA tensor launches each wrapper's kernel, a fake CUDA tensor never
+does.
 """
 
 import numpy as np
@@ -164,6 +166,55 @@ def test_cuda_launch_counts_and_width_zero():
     spmv_ell(torch.zeros((5, 1), dtype=torch.int32, device="cuda"),
              torch.ones((5, 1), device="cuda"), x)
     assert spmv_ell.launches == n0 + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["spmv_ell", "jacobi", "agg_vote",
+                                     "embedding_bag", "bag_backward",
+                                     "bag_grad_plan"])
+def test_cuda_real_tensor_launches_fake_tensor_never(wrapper):
+    """Each wrapper on real CUDA tensors launches its kernel (``launches``
+    rises by one); on fake CUDA tensors (the dry-run's ``FakeTensorMode``)
+    it takes the shape-only path (``fake_launches`` rises, ``launches``
+    does not)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch import cost
+
+    n, w, V, d = 4096, 8, 1000, 16
+    i32 = torch.int32
+    calls = {
+        "spmv_ell": (spmv_ell, lambda z, e: spmv_ell(
+            z((n, w), dtype=i32), e((n, w)), e(n))),
+        "jacobi": (jacobi_step, lambda z, e: jacobi_step(
+            z((n, w), dtype=i32), e((n, w)), e(n), e(n), e(n))),
+        "agg_vote": (vote_reduce, lambda z, e: vote_reduce(
+            z((n, w), dtype=i32), z((n, w), dtype=i32), z(n, dtype=i32),
+            levels=3)),
+        "embedding_bag": (embedding_bag_kernel, lambda z, e:
+                          embedding_bag_kernel(e((V, d)),
+                                               z((n, 2), dtype=i32))),
+        "bag_backward": (embedding_bag_backward, lambda z, e:
+                         embedding_bag_backward(e((n, d)),
+                                                z((n, 2), dtype=i32), V)),
+        "bag_grad_plan": (bag_grad_plan, lambda z, e: bag_grad_plan(
+            z((n, 2), dtype=i32), V)),
+    }
+    fn, call = calls[wrapper]
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros(*shape, dtype=dtype, device="cuda")
+
+    def randn(*shape):
+        return torch.randn(*shape, device="cuda")
+
+    before, fakes = fn.launches, fn.fake_launches
+    call(zeros, randn)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1 and fn.fake_launches == fakes
+    with cost.fake_mode():
+        call(zeros, randn)
+    assert fn.launches == before + 1 and fn.fake_launches == fakes + 1
 
 
 @pytest.mark.cuda

@@ -190,3 +190,71 @@ def compress_body(rank, world_size, seed):
                          residual=residual.numpy(),
                          calls=mesh.stats()["calls"])
     return out
+
+
+# ----------------------------------------------------------------------
+# The dry-run's 2×2 world (tests/test_torch_dryrun.py)
+# ----------------------------------------------------------------------
+
+BA500 = (500, 3, 0)             # n, m, seed: tests/test_configs_smoke.py
+SOLVE_ITERS = 6
+
+
+def lm_smoke_inputs():
+    """qwen2-0.5b's SMOKE config, its weights (seed 0) and tokens [4, 17]
+    (seed 1): 7 heads, which do not divide a "model" axis of 2."""
+    from repro_torch.configs.qwen2_0p5b import SMOKE
+    from repro_torch.models.transformer import init_params
+
+    params = init_params(SMOKE, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, SMOKE.vocab, (4, 17),
+                         generator=torch.Generator().manual_seed(1),
+                         dtype=torch.int32)
+    return SMOKE, params, toks
+
+
+def lm_step_loss(mesh):
+    """The SMOKE train step's loss: under ``make_lm_plan(mesh)`` with every
+    input this rank's shard (a DeviceMesh), or with the null plan (None)."""
+    from repro_torch.configs.lm_common import lm_train_step
+    from repro_torch.models.sharding import (NamedSharding, distribute,
+                                             make_lm_plan, null_plan)
+    from repro_torch.models.transformer import param_specs
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.tree import tree_map
+
+    cfg, params, toks = lm_smoke_inputs()
+    plan = null_plan() if mesh is None else make_lm_plan(mesh)
+    if mesh is not None:
+        params = tree_map(lambda t, sp: distribute(t, NamedSharding(mesh, sp)),
+                          params, param_specs(cfg, plan))
+        toks = distribute(toks, plan.named("tokens"))
+    step = lm_train_step(cfg, plan, AdamWConfig())
+    _, _, metrics = step(params, adamw_init(params), toks)
+    loss = metrics["loss"]
+    return float(loss.full_tensor() if mesh is not None else loss)
+
+
+def solve_case_stats(mesh) -> dict:
+    """This rank's collective calls and bytes for ``build_solve_step`` on
+    BA 500 over ``mesh`` (a DeviceMesh of the default group)."""
+    from repro_torch.configs.laplacian_solver import solve_case
+    from repro_torch.core.hierarchy import SetupConfig
+
+    case = solve_case("ba500", ba(*BA500), mesh, SetupConfig(coarsest_size=32),
+                      dist_nnz_threshold=64, max_dist_levels=2,
+                      n_iters=SOLVE_ITERS)
+    args = case.make_inputs(case.args)
+    case.process_mesh.reset_stats()
+    x, norms = case.fn(*args)
+    return case.process_mesh.stats() | dict(norms=len(norms))
+
+
+def dryrun_rank_body(rank, world_size):
+    """A 2×2 gloo world: the SMOKE LM step's loss under the LM plan, and
+    the solver's collectives of ``build_solve_step``."""
+    from torch.distributed.device_mesh import DeviceMesh
+
+    mesh = DeviceMesh("cpu", torch.arange(world_size).reshape(2, 2),
+                      mesh_dim_names=("data", "model"))
+    return dict(loss=lm_step_loss(mesh), solve=solve_case_stats(mesh))
