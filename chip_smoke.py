@@ -290,8 +290,14 @@ Phases, one line each (any failure exits non-zero):
              yardstick) and ``gnn_scatter_d{…}`` (``embedding_bag_backward``
              over the receivers' plan: within 1e-6 of each row's sum of |m|,
              bitwise on a repeat, every row written; ``zeros(N,
-             d).index_add_``) records; every record gets ``gnn_launches``,
-             the launches of (a).
+             d).index_add_``) records, each with the ``path`` that ran
+             (``kernels.bag_path``: ``wide`` at 128 and 75, ``narrow`` at
+             3); then ``gnn_scatter_acc_d128``, the scatter's accumulate
+             form into a seeded running sum: bitwise ``add_`` of the
+             scatter, its bound counting the rows the receivers touch
+             (read and written, counted on the card),
+             ``acc.index_add_``; every record gets ``gnn_launches``, the
+             launches of (a).
 13. equiformer — Equiformer-v2 (``repro_torch.configs.equiformer_v2``)
              training at ``FULL`` widths (C = 128, l_max = 6, m_max = 2,
              8 heads, 602 features in, 47 out) on the gnn phase's
@@ -309,7 +315,9 @@ Phases, one line each (any failure exits non-zero):
              (above what was live at its start) ≤ EQF_PEAK_LIMIT_GIB;
              step ms (CUDA events, median of steps 3–7), nodes/s, model
              TFLOP/s by the config's ``flops`` and by ``flops_executed``,
-             bag launches a step. (b) The trained forward with the
+             bag launches a step and the backward's by path; a chunk's
+             scatter must have added into its running sum (the
+             accumulate form) in (a). (b) The trained forward with the
              kernels, twice (bitwise), against the plain versions (within
              1e-5 of max |out|). (c) ``molecule`` at 12 layers: the loss
              and gradients with remat on and off, bitwise. (d) 10 steps of
@@ -321,8 +329,12 @@ Phases, one line each (any failure exits non-zero):
              ``eqf_scatter_d6272`` (``embedding_bag_backward`` over the
              chunk's receivers' plan: within 1e-6 of each row's Σ|m|,
              bitwise on a repeat, every row written; ``zeros(N,
-             d).index_add_``); every record gets ``equiformer_launches``,
-             the launches of the plans' build and (a).
+             d).index_add_``), both on the wide path, and
+             ``eqf_scatter_acc_d6272`` (its accumulate form, as
+             ``gnn_scatter_acc_d128``, with ``accumulate_launches``, the
+             form's launches in (a)); every record gets
+             ``equiformer_launches``, the launches of the plans' build and
+             (a).
 14. lm     — the dense LM family (``repro_torch.models.transformer``,
              ``configs.lm_common``), after freeing what the equiformer
              phase held; bfloat16 products accumulate in float32. (a)
@@ -687,12 +699,14 @@ def registry_line(ledger: dict) -> str:
 
 
 def kernel_record(torch, name, launches, err, kernel, plain, bytes_moved,
-                  ops, library=None, label=None, replaces=None) -> dict:
+                  ops, library=None, label=None, replaces=None,
+                  path=None) -> dict:
     """One kernel's entry of the ``kernels`` JSON line, printed as it is
     made: ``kernel``, ``plain`` and ``library`` are calls to time. A
     ``label`` names a record of kernel ``name`` at another path's shapes
     (the record then says ``kernel``: ``name``), ``replaces`` what it
-    stands in for there."""
+    stands in for there; ``path`` the kernel's path that ran (the bag
+    kernels': :func:`path_of`)."""
     b_ms, b_by = bound(bytes_moved, ops)
     k_ms, (d_ms, windows) = (time_ms(torch, kernel),
                              device_ms(torch, kernel, name))
@@ -701,14 +715,28 @@ def kernel_record(torch, name, launches, err, kernel, plain, bytes_moved,
     say("kernels", name=label or name, max_abs_err=err, kernel_ms=k_ms,
         device_ms=d_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
         of_bound=round(b_ms / d_ms, 4), library_ms=library_ms,
-        bytes=int(bytes_moved), profiler_windows=windows)
+        bytes=int(bytes_moved), profiler_windows=windows,
+        **({} if path is None else dict(path=path)))
     rec = dict(name=label or name, route="cuda",
                source=f"src/repro_torch/csrc/{name}.cu",
                replaces=replaces or REPLACES[name], launches=launches,
                max_abs_err=err, ms=d_ms, kernel_ms=k_ms, device_ms=d_ms,
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                library_ms=library_ms)
+    if path is not None:
+        rec["path"] = path
     return rec if label is None else dict(rec, kernel=name)
+
+
+def path_of(wrapper, call):
+    """``call()`` (one launch of the bag kernel ``wrapper``) and the path
+    that launch ran (``kernels.bag_path``; ``"wide_accumulate"`` for the
+    backward's accumulate form): the one of ``wrapper.paths`` that rose."""
+    before = dict(wrapper.paths)
+    out = call()
+    ran = [k for k, v in wrapper.paths.items() if v != before[k]]
+    check(len(ran) == 1, f"one launch ran the paths {ran}")
+    return out, ran[0]
 
 
 def graph(n: int, seed: int):
@@ -2593,8 +2621,11 @@ def phase_kernels_deepfm(torch, model, flat, launches):
     n_bags, hot = flat.shape
     before = embedding_bag_kernel.launches
     err = 0.0
+    paths = {}
     for name, t in (("table", table), ("first_order", w1)):
-        got, want = embedding_bag_kernel(t, flat), embedding_bag_ref(t, flat)
+        got, paths[name] = path_of(embedding_bag_kernel,
+                                   lambda: embedding_bag_kernel(t, flat))
+        want = embedding_bag_ref(t, flat)
         torch.cuda.synchronize()
         err = max(err, float((got - want).abs().max()))
         check(torch.equal(got, want), f"embedding_bag on the {name} is not "
@@ -2644,7 +2675,10 @@ def phase_kernels_deepfm(torch, model, flat, launches):
         4 * n_bags * hot + 4 * n_bags * d + 4 * d * distinct,
         n_bags * hot * d,
         library=lambda: F.embedding_bag(mapped, padded, mode="sum",
-                                        padding_idx=n_vocab))
+                                        padding_idx=n_vocab),
+        path=paths["table"])
+    check(set(paths.values()) == {"narrow"}, f"DeepFM's bags (d = {d} and "
+          f"1) ran the paths {paths}, expected the narrow one")
     say("kernels", name="embedding_bag", bags=n_bags, hot=hot, d=d,
         vocab=n_vocab, distinct_valid_ids=distinct)
     # the d = 1 first-order launch of every forward, at the same ids
@@ -2853,7 +2887,11 @@ def phase_kernels_train(torch, train) -> list:
     err, rec = 0.0, None
     for d in (10, 1):
         g = torch.randn((n_bags, d), generator=gen, device=dev) / n_bags
-        got = embedding_bag_backward(g, flat, n_vocab, plan)
+        got, path = path_of(embedding_bag_backward,
+                            lambda: embedding_bag_backward(g, flat, n_vocab,
+                                                           plan))
+        check(path == "narrow", f"DeepFM's backward at d = {d} ran the "
+              f"{path} path, expected the narrow one")
         want = embedding_bag_backward_ref(g, flat, n_vocab, plan)
         scale = embedding_bag_backward_ref(g.abs(), flat, n_vocab, plan)
         torch.cuda.synchronize()
@@ -2889,7 +2927,8 @@ def phase_kernels_train(torch, train) -> list:
             lambda: embedding_bag_backward_ref(g, flat, n_vocab, plan),
             4 * n_bags * hot + 4 * n_bags * d + 4 * n_vocab * d,
             n_valid * d, library=lambda: torch.zeros(
-                (n_vocab, d), device=dev).index_add_(0, ids, rows))
+                (n_vocab, d), device=dev).index_add_(0, ids, rows),
+            path=path)
         plan_ms = plan_rec["kernel_ms"]
         plan_kernel_ms = time_ms(
             torch, lambda: embedding_bag_backward(g, flat, n_vocab))
@@ -2904,7 +2943,8 @@ def phase_kernels_train(torch, train) -> list:
         else:
             rec["d1"] = {k: r[k] for k in (
                 "max_abs_err", "device_ms", "kernel_ms", "plan_ms",
-                "plan_kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+                "plan_kernel_ms", "plain_ms", "library_ms", "bound_ms",
+                "path")}
         del rows
     check(embedding_bag_backward.launches > before[0]
           and bag_grad_plan.launches > before[1], "embedding_bag_backward "
@@ -3241,7 +3281,10 @@ def phase_kernels_gnn(torch, np, g, launched) -> list:
     (``embedding_bag_backward`` over the receivers' plan) at the
     minibatch_lg graph and each width of GNN_WIDTHS, against their plain
     versions, with ``index_select`` and ``zeros(N, d).index_add_`` as the
-    library yardsticks."""
+    library yardsticks, each record with the path that ran (the one
+    ``kernels.bag_path`` names); then the scatter's accumulate form at
+    d = GNN_WIDTHS[0] (:func:`accumulate_record`)."""
+    from repro_torch.kernels import bag_path
     from repro_torch.kernels.embedding_bag import (embedding_bag_backward,
                                                    embedding_bag_backward_ref,
                                                    embedding_bag_kernel,
@@ -3257,7 +3300,9 @@ def phase_kernels_gnn(torch, np, g, launched) -> list:
     for d in GNN_WIDTHS:
         x = torch.randn((N, d), generator=gen, device="cuda")
         m = torch.randn((E, d), generator=gen, device="cuda")
-        got, want = embedding_bag_kernel(x, S), embedding_bag_ref(x, S)
+        got, g_path = path_of(embedding_bag_kernel,
+                              lambda: embedding_bag_kernel(x, S))
+        want = embedding_bag_ref(x, S)
         check(torch.equal(got, want) and torch.equal(
             embedding_bag_kernel(x, S), got),
             f"gnn gather at d = {d} is not bitwise its plain version, or "
@@ -3268,8 +3313,9 @@ def phase_kernels_gnn(torch, np, g, launched) -> list:
             lambda: embedding_bag_ref(x, S), 4 * E + 8 * E * d, 0,
             library=lambda: x.index_select(0, s_long),
             label=f"gnn_gather_d{d}",
-            replaces="src/repro/models/gnn/common.py:50"))
-        got = embedding_bag_backward(m, R, N, plan)
+            replaces="src/repro/models/gnn/common.py:50", path=g_path))
+        got, s_path = path_of(embedding_bag_backward,
+                              lambda: embedding_bag_backward(m, R, N, plan))
         want = embedding_bag_backward_ref(m, R, N, plan)
         scale = embedding_bag_backward_ref(m.abs(), R, N, plan)
         nan = torch.full((N, d), float("nan"), device="cuda")
@@ -3281,6 +3327,9 @@ def phase_kernels_gnn(torch, np, g, launched) -> list:
               f"gnn scatter at d = {d}: not within 1e-6 of each row's sum of "
               "|m| of its plain version, not bitwise on a repeat, or a row "
               "left unwritten")
+        check(g_path == s_path == bag_path(d), f"gnn at d = {d}: the gather "
+              f"ran the {g_path} path and the scatter the {s_path} path, "
+              f"expected {bag_path(d)}")
         err = float((got - want).abs().max())
         del got, want, scale, nan
         records.append(kernel_record(
@@ -3292,13 +3341,61 @@ def phase_kernels_gnn(torch, np, g, launched) -> list:
             library=lambda: torch.zeros((N, d), device="cuda").index_add_(
                 0, r_long, m),
             label=f"gnn_scatter_d{d}",
-            replaces="src/repro/models/gnn/common.py:58"))
+            replaces="src/repro/models/gnn/common.py:58", path=s_path))
+        if d == GNN_WIDTHS[0]:
+            records.append(accumulate_record(
+                torch, m, R, N, plan, launched["embedding_bag_backward"],
+                f"gnn_scatter_acc_d{d}",
+                "src/repro/models/gnn/common.py:58"))
     check(embedding_bag_kernel.launches > before[0]
           and embedding_bag_backward.launches > before[1],
           "gnn: the gather or scatter was not launched in the comparison")
     for rec in records:
         rec["gnn_launches"] = rec["launches"]
     return records
+
+
+def accumulate_record(torch, m, R, n, plan, launches, label, replaces):
+    """The bag backward's accumulate form: the messages ``m`` [E, d] at
+    the ids ``R`` [E, 1] (every one in ``[0, n)``) over ``plan`` added into
+    a seeded running sum ``acc`` [n, d]: bitwise ``acc.add_`` of the
+    scatter, and against its plain version (``acc + the plain sums``).
+    Its bound counts the ids and the plan's rows, the messages, and the
+    rows the ids touch read and written, counted on the card;
+    ``acc.index_add_`` is its yardstick. The record's
+    ``touched_rows`` is that count."""
+    from repro_torch.kernels.embedding_bag import (embedding_bag_backward,
+                                                   embedding_bag_backward_ref)
+
+    E, d = m.shape
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    acc0 = torch.randn((n, d), generator=gen, device="cuda")
+    got, path = path_of(embedding_bag_backward,
+                        lambda: embedding_bag_backward(m, R, n, plan,
+                                                       acc=acc0.clone()))
+    want = acc0.clone().add_(embedding_bag_backward(m, R, n, plan))
+    torch.cuda.synchronize()
+    check(path == "wide_accumulate" and torch.equal(got, want),
+          f"{label}: the accumulate form ({path}) is not bitwise the "
+          "scatter added with add_")
+    del want
+    plain = embedding_bag_backward_ref(m, R, n, plan, acc=acc0.clone())
+    err = float((got - plain).abs().max())
+    del got, plain
+    ids = plan.sorted_ids
+    touched = int(torch.unique_consecutive(ids[ids < n]).numel())
+    r_long = R[:, 0].long()
+    acc = acc0
+    rec = kernel_record(
+        torch, "embedding_bag_backward", launches, err,
+        lambda: embedding_bag_backward(m, R, n, plan, acc=acc),
+        lambda: embedding_bag_backward_ref(m, R, n, plan, acc=acc),
+        8 * E + 4 * E * d + 8 * touched * d, E * d,
+        library=lambda: acc.index_add_(0, r_long, m), label=label,
+        replaces=replaces, path=path)
+    say("kernels", name=label, touched_rows=touched, edges=E, rows=n, d=d)
+    rec["touched_rows"] = touched
+    return rec
 
 
 def eqf_probe(torch, np, g, labels, cfg, opt_cfg) -> dict:
@@ -3391,7 +3488,8 @@ def phase_equiformer(torch, np, graph) -> dict:
     plans' build and (a)) by kernel and its kernel records."""
     from repro_torch.configs import equiformer_v2
     from repro_torch.configs.gnn_common import SHAPE_DIMS
-    from repro_torch.kernels.embedding_bag import bag_grad_plan
+    from repro_torch.kernels.embedding_bag import (bag_grad_plan,
+                                                   embedding_bag_backward)
     from repro_torch.optim.adamw import AdamWConfig
     from repro_torch.tree import leaves
 
@@ -3429,11 +3527,13 @@ def phase_equiformer(torch, np, graph) -> dict:
            for n, v in probe.pop("peaks_gib").items()},
         **{k: round(v, 3) for k, v in probe.items()})
     zero_launches()
+    paths0 = dict(embedding_bag_backward.paths)
     t_a = time.perf_counter()
     run = gnn_train(torch, np, "equiformer_v2", g, labels, opt_cfg, cfg,
                     steps=EQF_STEPS)                              # (a)
     t_a = time.perf_counter() - t_a
     after = phase_launches()
+    adds = {k: v - paths0[k] for k, v in embedding_bag_backward.paths.items()}
     launched = {k: launched[k] + after[k] for k in launched}
     losses, timed = run["losses"], run["step_ms"][EQF_TIMED_FROM:]
     step_ms = float(np.median(timed))
@@ -3453,7 +3553,9 @@ def phase_equiformer(torch, np, graph) -> dict:
         phase_peak_gib=round(run["peak_gib"] - live_gib, 3),
         bag_launches_per_step=after["embedding_bag"] / EQF_STEPS,
         bag_backward_launches_per_step=after["embedding_bag_backward"]
-        / EQF_STEPS, plan_builds=plans, train_s=round(t_a, 1))
+        / EQF_STEPS, bag_backward_paths_per_step=json.dumps(
+            {k: v / EQF_STEPS for k, v in adds.items()}),
+        plan_builds=plans, train_s=round(t_a, 1))
     say("equiformer", loss_first3_mean=first, loss_last3_mean=last,
         losses=json.dumps([round(x, 5) for x in losses]))
     check(all(np.isfinite(losses)), "equiformer: a loss is not finite")
@@ -3463,6 +3565,8 @@ def phase_equiformer(torch, np, graph) -> dict:
           and after["bag_grad_plan"] == 0,
           f"equiformer: the gather and scatter kernels did not launch, or "
           f"a step built a plan: {after}")
+    check(adds["wide_accumulate"] > 0, f"equiformer: no chunk scatter added "
+          f"into its running sum (the accumulate form): {adds}")
     check(run["peak_gib"] - live_gib <= EQF_PEAK_LIMIT_GIB,
           f"equiformer: peak {run['peak_gib']} GiB with {live_gib} GiB live "
           f"at the phase's start, above the plan's {EQF_PEAK_LIMIT_GIB}")
@@ -3474,19 +3578,22 @@ def phase_equiformer(torch, np, graph) -> dict:
     mol = eqf_molecule(torch, np, opt_cfg)                        # (c), (d)
     say("equiformer", shape="molecule",
         losses=json.dumps([round(x, 5) for x in mol.pop("losses")]), **mol)
-    records = phase_kernels_eqf(torch, g, launched)               # (e)
+    records = phase_kernels_eqf(torch, g, launched,
+                                adds["wide_accumulate"])          # (e)
     say("equiformer", seconds=round(time.perf_counter() - t_phase, 1),
         train_seconds=round(t_a, 1))
     return dict(launched, records=records)
 
 
-def phase_kernels_eqf(torch, g, launched) -> list:
+def phase_kernels_eqf(torch, g, launched, adds) -> list:
     """(e) The gather (``embedding_bag``, bags of one id) of a chunk's
     65,536 senders' rows of (l_max+1)²·C = 6,272 floats from the 169,984
     nodes, and the scatter (``embedding_bag_backward``) of the chunk's
     messages over its receivers' plan, against their plain versions, with
     ``index_select`` and ``zeros(N, d).index_add_`` as the library
-    yardsticks."""
+    yardsticks, each with the path that ran (the wide one); then the
+    scatter's accumulate form (:func:`accumulate_record`), the form (a)
+    ran ``adds`` times, into a running sum as (a)'s chunks do."""
     from repro_torch.kernels.embedding_bag import (embedding_bag_backward,
                                                    embedding_bag_backward_ref,
                                                    embedding_bag_kernel,
@@ -3502,11 +3609,13 @@ def phase_kernels_eqf(torch, g, launched) -> list:
     gen = torch.Generator(device="cuda").manual_seed(7)
     x = torch.randn((N, d), generator=gen, device="cuda")
     m = torch.randn((Ec, d), generator=gen, device="cuda")
-    got, want = embedding_bag_kernel(x, S), embedding_bag_ref(x, S)
+    got, g_path = path_of(embedding_bag_kernel,
+                          lambda: embedding_bag_kernel(x, S))
+    want = embedding_bag_ref(x, S)
     check(torch.equal(got, want) and torch.equal(embedding_bag_kernel(x, S),
-                                                 got),
-          f"equiformer gather at d = {d} is not bitwise its plain version, "
-          "or not bitwise on a repeat")
+                                                 got) and g_path == "wide",
+          f"equiformer gather at d = {d} ({g_path} path) is not bitwise its "
+          "plain version, or not bitwise on a repeat")
     del got, want
     records = [kernel_record(
         torch, "embedding_bag", launched["embedding_bag"], 0.0,
@@ -3514,9 +3623,10 @@ def phase_kernels_eqf(torch, g, launched) -> list:
         4 * Ec + 8 * Ec * d, 0,
         library=lambda: x.index_select(0, s_long),
         label=f"eqf_gather_d{d}",
-        replaces="src/repro/models/gnn/equiformer.py:150")]
+        replaces="src/repro/models/gnn/equiformer.py:150", path=g_path)]
     del x
-    got = embedding_bag_backward(m, R, N, plan)
+    got, s_path = path_of(embedding_bag_backward,
+                          lambda: embedding_bag_backward(m, R, N, plan))
     want = embedding_bag_backward_ref(m, R, N, plan)
     scale = embedding_bag_backward_ref(m.abs(), R, N, plan)
     ok = bool(((got - want).abs() <= 1e-6 * scale).all())
@@ -3525,10 +3635,10 @@ def phase_kernels_eqf(torch, g, launched) -> list:
     nan = torch.full((N, d), float("nan"), device="cuda")
     embedding_bag_backward(m, R, N, plan, _out=nan)
     check(ok and torch.equal(embedding_bag_backward(m, R, N, plan), got)
-          and torch.equal(nan, got),
-          f"equiformer scatter at d = {d}: not within 1e-6 of each row's sum "
-          "of |m| of its plain version, not bitwise on a repeat, or a row "
-          "left unwritten")
+          and torch.equal(nan, got) and s_path == "wide",
+          f"equiformer scatter at d = {d} ({s_path} path): not within 1e-6 "
+          "of each row's sum of |m| of its plain version, not bitwise on a "
+          "repeat, or a row left unwritten")
     del got, nan
     records.append(kernel_record(
         torch, "embedding_bag_backward", launched["embedding_bag_backward"],
@@ -3538,7 +3648,12 @@ def phase_kernels_eqf(torch, g, launched) -> list:
         library=lambda: torch.zeros((N, d), device="cuda").index_add_(
             0, r_long, m),
         label=f"eqf_scatter_d{d}",
-        replaces="src/repro/models/gnn/equiformer.py:158"))
+        replaces="src/repro/models/gnn/equiformer.py:158", path=s_path))
+    records.append(dict(accumulate_record(
+        torch, m, R, N, plan, launched["embedding_bag_backward"],
+        f"eqf_scatter_acc_d{d}",
+        "src/repro/models/gnn/equiformer.py:249"),
+        accumulate_launches=adds))
     for rec in records:
         rec["equiformer_launches"] = rec["launches"]
     return records

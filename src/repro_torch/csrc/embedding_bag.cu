@@ -50,11 +50,25 @@
 // The tile plan (R bags a tile, S stages, the dynamic shared memory) is
 // computed once, in Python (repro_torch.kernels.bag_tile_plan), and passed
 // in; the launcher checks it against the same bags-a-thread rule.
+//
+// Wide rows (d >= 32 floats; the rule is repro_torch.kernels.bag_path):
+// the GNNs' message passing gathers rows of 75 to 6,272 floats with bags of
+// one id. There a thread a bag walks its row alone (65,536 threads at
+// Equiformer-v2's 65,536 × 6,272 chunk, each warp instruction touching 32
+// rows 25 KB apart), and the tile plan of a 6,272-float row has no stages.
+// So these rows take another kernel, bag_rows_gather: a row is split over
+// a warp's lanes (row_slabs.cuh: lane j takes columns j·VEC, (j + 32)·VEC,
+// ..., 16-byte loads where d % 4 == 0 and the table and output allow), a
+// row wider than a slab over several warps, one warp a (G bags, slab)
+// item. Each lane issues the loads of its G bags' U vectors before it adds
+// any; the sums are stored with streaming stores. The sum is the same as
+// above, from 0, h in order, so both paths give the same bits.
 
 #include <climits>
 #include <cstdint>
 
 #include "bulk_copy.cuh"
+#include "row_slabs.cuh"
 
 namespace {
 
@@ -313,7 +327,131 @@ int launch_chunk(const float* table, const int* idx, float* out,
                       bags_per_tile, stages, smem_bytes, stream);
 }
 
+// Bags a warp item of the wide path: G·U loads in flight a lane.
+__host__ __device__ constexpr int rows_bags_per_warp(int u) {
+  return u == 1 ? 4 : u <= 3 ? 2 : 1;
+}
+
+constexpr int kRowThreads = 256;
+
+// One warp an item: G consecutive bags × one slab of their rows.
+template <int VEC, int U>
+__global__ void __launch_bounds__(kRowThreads)
+bag_rows_gather(const float* __restrict__ table, const int* __restrict__ idx,
+                float* __restrict__ out, long long n_bags, int hot, int d,
+                int n_vocab, long long n_slabs, long long n_items) {
+  constexpr int G = rows_bags_per_warp(U);
+  const long long w =
+      (static_cast<long long>(blockIdx.x) * kRowThreads + threadIdx.x) /
+      kWarp;
+  if (w >= n_items) return;
+  const int lane = threadIdx.x % kWarp;
+  const long long group = w / n_slabs;
+  const int slab = static_cast<int>(w - group * n_slabs);
+  const long long bag0 = group * G;
+  const int c0 = slab * kWarp * U * VEC + lane * VEC;
+  float acc[G][U][VEC];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+#pragma unroll
+    for (int u = 0; u < U; ++u) slabs::zero<VEC>(acc[g][u]);
+  }
+  for (int h = 0; h < hot; ++h) {
+    float v[G][U][VEC];
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const long long bag = bag0 + g;
+      const int id = bag < n_bags ? __ldg(idx + bag * hot + h) : -1;
+      const bool ok =
+          static_cast<unsigned>(id) < static_cast<unsigned>(n_vocab);
+      const float* row = table + static_cast<long long>(ok ? id : 0) * d;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int c = c0 + u * kWarp * VEC;
+        if (ok && c < d) {
+          slabs::load_ro<VEC>(row + c, v[g][u]);
+        } else {
+          slabs::zero<VEC>(v[g][u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          acc[g][u][e] = __fadd_rn(acc[g][u][e], v[g][u][e]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const long long bag = bag0 + g;
+    if (bag >= n_bags) break;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int c = c0 + u * kWarp * VEC;
+      if (c < d) slabs::store_stream<VEC>(out + bag * d + c, acc[g][u]);
+    }
+  }
+}
+
+template <int VEC, int U>
+int launch_rows(const float* table, const int* idx, float* out,
+                long long n_bags, int hot, int d, int n_vocab,
+                cudaStream_t stream) {
+  constexpr int G = rows_bags_per_warp(U);
+  const long long n_slabs = slabs::n_slabs(d / VEC, U);
+  const long long n_items = (n_bags + G - 1) / G * n_slabs;
+  const long long blocks = (n_items + kRowThreads / kWarp - 1) /
+                           (kRowThreads / kWarp);
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  bag_rows_gather<VEC, U><<<static_cast<unsigned>(blocks), kRowThreads, 0,
+                            stream>>>(table, idx, out, n_bags, hot, d,
+                                      n_vocab, n_slabs, n_items);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int VEC>
+int launch_rows_vec(const float* table, const int* idx, float* out,
+                    long long n_bags, int hot, int d, int n_vocab,
+                    cudaStream_t stream) {
+  switch (slabs::loads_per_lane(d / VEC)) {
+    case 1:
+      return launch_rows<VEC, 1>(table, idx, out, n_bags, hot, d, n_vocab,
+                                 stream);
+    case 2:
+      return launch_rows<VEC, 2>(table, idx, out, n_bags, hot, d, n_vocab,
+                                 stream);
+    case 3:
+      return launch_rows<VEC, 3>(table, idx, out, n_bags, hot, d, n_vocab,
+                                 stream);
+    default:
+      return launch_rows<VEC, 4>(table, idx, out, n_bags, hot, d, n_vocab,
+                                 stream);
+  }
+}
+
 }  // namespace
+
+// The wide-row path (any d >= 1 works; the wrapper sends d >= 32 here).
+extern "C" int repro_embedding_bag_rows_f32(const void* table,
+                                            const void* idx, void* out,
+                                            long long n_bags, int hot, int d,
+                                            int n_vocab, void* stream) {
+  if (n_bags <= 0 || hot <= 0 || d <= 0) return 0;
+  const float* t = static_cast<const float*>(table);
+  const int* i = static_cast<const int*>(idx);
+  float* o = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec4 = d % 4 == 0 &&
+                    ((reinterpret_cast<uintptr_t>(table) |
+                      reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  return vec4 ? launch_rows_vec<4>(t, i, o, n_bags, hot, d, n_vocab, s)
+              : launch_rows_vec<1>(t, i, o, n_bags, hot, d, n_vocab, s);
+}
 
 extern "C" int repro_embedding_bag_f32(const void* table, const void* idx,
                                        void* out, long long n_bags, int hot,

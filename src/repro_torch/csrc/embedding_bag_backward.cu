@@ -67,11 +67,45 @@
 // The order of every sum depends on the ids and kChunk only, never on
 // timing, so every launch gives the same bits; there are no float atomics
 // (the bitmap's integer ORs give the same bits in any order).
+//
+// Wide rows (d >= 32 floats; the rule is repro_torch.kernels.bag_path):
+// the GNNs' scatters of edge messages, 75 to 6,272 floats a row. On the
+// path above a lane walks 8 slots and 8 columns at a time, so Equiformer-v2's
+// chunk of 65,536 slots at d = 6,272 is 256 warps making 784 column passes
+// each, and d = 128 runs 16 passes of scalar gathers. These rows take two
+// other launches, over the same plan:
+// - bag_rows_sums: the sorted slots in blocks of kSeg = 32, one warp a
+//   (block, slab) item, lanes over the slab's columns (row_slabs.cuh:
+//   16-byte loads where d % 4 == 0 and g_out and the output allow). The
+//   warp takes the runs that begin in its block and sums each in slot
+//   order from 0 (the gathers of 8 / U slots issued before any is added),
+//   then writes the run's row. A run longer than kSeg (a hub: BA stand-ins
+//   have runs of thousands of slots) is split at its block edges, points
+//   fixed by the ids alone: each block it covers sums its part into the
+//   block's partials (slot 1: the part that begins the run, slot 0: a part
+//   that goes on from an earlier block), so no warp walks a hub alone. A
+//   run is read from the ids around the block (32 behind, 64 ahead, one a
+//   lane, then ballots): a run that began earlier and is no hub belongs to
+//   the block where it began.
+// - bag_rows_finish, warps of two kinds. One a (block, slab): if a hub
+//   begins in the block, it sums the hub's partials from 0 in block order
+//   and writes the row. One a (tile of rows, slab): the tile's untouched
+//   rows are zeroed with streaming stores (the touched-row bitmap as
+//   above).
+// Every slot is summed by exactly one warp a slab and every row written
+// once. The accumulate form (accumulate = 1): out is a running sum, and
+// each touched row becomes out[v] + s_v, s_v the same sum as the form that
+// writes it, so the bits equal a write followed by an add; an untouched row
+// is neither read nor written, and there is no bitmap or zero pass. That
+// lets a caller that sums edge chunks (Equiformer-v2) add each chunk into
+// its running sum without an [V, d] result a chunk.
 
 #include <cuda_runtime.h>
 
 #include <climits>
 #include <cstdint>
+
+#include "row_slabs.cuh"
 
 namespace {
 
@@ -522,7 +556,343 @@ int launch(const Args& a, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// the wide-row path
+// ---------------------------------------------------------------------------
+
+constexpr int kSeg = 32;        // slots a block; a run longer is a hub
+constexpr int kRowWarps = 4;    // warps a thread block
+constexpr int kMaxRowTileLog2 = 6;
+static_assert(kSeg == kWarp, "a block's ids are read one a lane");
+
+struct RowArgs {
+  const int* ids;       // [n_slots] sorted keys: ids in [0, V), then V
+  const int* rows;      // [n_slots] the g_out row of each sorted slot
+  const float* g_out;   // [n_bags, d]
+  float* out;           // [V, d]
+  float* partial;       // [n_blocks, 2, d]
+  unsigned* touched;    // [ceil(V / 32)] a bit a row (not accumulate)
+  long long n_slots, n_blocks, n_slabs, n_tiles;
+  int d, n_vocab, tile_log2;
+};
+
+// Slots summed together: the gathers of kBatch slots' U vectors are
+// issued before any of them is added.
+template <int U>
+__host__ __device__ constexpr int row_batch() {
+  return U == 1 ? 8 : U == 2 ? 4 : 2;
+}
+
+// acc = Σ (from 0, in slot order) of the g_out rows of the slots at
+// offsets [q0, q1) from the block's first slot (q1 <= 64), in this lane's
+// columns of the slab (c0: its first). row_x and row_y hold, one a lane,
+// the rows of offsets [0, 32) and [32, 64).
+template <int VEC, int U>
+__device__ __forceinline__ void walk(const RowArgs& a, int row_x, int row_y,
+                                     int q0, int q1, int c0,
+                                     float (&acc)[U][VEC]) {
+  constexpr int B = row_batch<U>();
+#pragma unroll
+  for (int u = 0; u < U; ++u) slabs::zero<VEC>(acc[u]);
+  for (int q = q0; q < q1; q += B) {
+    float v[B][U][VEC];
+#pragma unroll
+    for (int k = 0; k < B; ++k) {
+      const int qk = q + k;
+      const int rx = __shfl_sync(kFull, row_x, qk & (kWarp - 1));
+      const int ry = __shfl_sync(kFull, row_y, qk & (kWarp - 1));
+      const float* p =
+          a.g_out + static_cast<long long>(qk < kWarp ? rx : ry) * a.d;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int c = c0 + u * kWarp * VEC;
+        if (qk < q1 && c < a.d) {
+          slabs::load_ro<VEC>(p + c, v[k][u]);
+        } else {
+          slabs::zero<VEC>(v[k][u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < B; ++k) {
+      if (q + k < q1) {
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            acc[u][e] = __fadd_rn(acc[u][e], v[k][u][e]);
+          }
+        }
+      }
+    }
+  }
+}
+
+// Row `id` of the output: acc (or, in the accumulate form, out + acc).
+template <int VEC, int U, bool ACC>
+__device__ __forceinline__ void put_row(const RowArgs& a, int id, int c0,
+                                        const float (&acc)[U][VEC]) {
+  float* dst = a.out + static_cast<long long>(id) * a.d;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int c = c0 + u * kWarp * VEC;
+    if (c >= a.d) continue;
+    if constexpr (ACC) {
+      float old[VEC], sum[VEC];
+      slabs::load<VEC>(dst + c, old);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) sum[e] = __fadd_rn(old[e], acc[u][e]);
+      slabs::store<VEC>(dst + c, sum);
+    } else {
+      slabs::store<VEC>(dst + c, acc[u]);
+    }
+  }
+}
+
+template <int VEC, int U>
+__device__ __forceinline__ void put_partial(const RowArgs& a, long long slot,
+                                            int c0,
+                                            const float (&acc)[U][VEC]) {
+  float* dst = a.partial + slot * a.d;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const int c = c0 + u * kWarp * VEC;
+    if (c < a.d) slabs::store<VEC>(dst + c, acc[u]);
+  }
+}
+
+// The runs that begin in block b, in this warp's slab (see the header).
+template <int VEC, int U, bool ACC>
+__global__ void __launch_bounds__(kRowWarps * kWarp)
+bag_rows_sums(const RowArgs a) {
+  const long long w =
+      static_cast<long long>(blockIdx.x) * kRowWarps + threadIdx.x / kWarp;
+  if (w >= a.n_blocks * a.n_slabs) return;
+  const int lane = threadIdx.x % kWarp;
+  const long long b = w / a.n_slabs;
+  const int slab = static_cast<int>(w - b * a.n_slabs);
+  const int c0 = slab * kWarp * U * VEC + lane * VEC;
+  const int V = a.n_vocab;
+  const long long s0 = b * kSeg;
+  // the ids of offsets [-32, 0), [0, 32) and [32, 64) from s0, one a lane:
+  // -1 before the first slot, V past the last (both no valid id)
+  const long long sa = s0 - kWarp + lane, sx = s0 + lane,
+                  sy = s0 + kWarp + lane;
+  const int id_a = sa >= 0 ? __ldg(a.ids + sa) : -1;
+  const int id_x = sx < a.n_slots ? __ldg(a.ids + sx) : V;
+  const int id_y = sy < a.n_slots ? __ldg(a.ids + sy) : V;
+  const int row_x = sx < a.n_slots ? __ldg(a.rows + sx) : 0;
+  const int row_y = sy < a.n_slots ? __ldg(a.rows + sy) : 0;
+  const bool mark = !ACC && slab == 0 && lane == 0;
+  float acc[U][VEC];
+  int p = 0;   // the offset of the next run to take
+  const int first = __shfl_sync(kFull, id_x, 0);
+  if (static_cast<unsigned>(first) >= static_cast<unsigned>(V)) return;
+  if (__shfl_sync(kFull, id_a, kWarp - 1) == first) {
+    // the run of the block's first slot began earlier: its slots behind
+    // (up to 32) and ahead (up to 64) say whether it is a hub
+    const int back = __popc(__ballot_sync(kFull, id_a == first));
+    const int fwd = __popc(__ballot_sync(kFull, id_x == first)) +
+                    __popc(__ballot_sync(kFull, id_y == first));
+    p = fwd < kSeg ? fwd : kSeg;
+    if (back + fwd > kSeg) {     // a hub: this block's part, partial 0
+      walk<VEC, U>(a, row_x, row_y, 0, p, c0, acc);
+      put_partial<VEC, U>(a, 2 * b, c0, acc);
+    }
+  }
+  while (p < kSeg) {
+    const int id = __shfl_sync(kFull, id_x, p);
+    if (static_cast<unsigned>(id) >= static_cast<unsigned>(V)) break;
+    // the run's slots in offsets [p, 64): all of it, or more than kSeg
+    const int len = __popc(__ballot_sync(kFull, id_x == id)) +
+                    __popc(__ballot_sync(kFull, id_y == id));
+    if (mark) atomicOr(a.touched + (id >> 5), 1u << (id & 31));
+    if (len > kSeg) {            // a hub begins here: partial 1
+      walk<VEC, U>(a, row_x, row_y, p, kSeg, c0, acc);
+      put_partial<VEC, U>(a, 2 * b + 1, c0, acc);
+      break;
+    }
+    walk<VEC, U>(a, row_x, row_y, p, p + len, c0, acc);
+    put_row<VEC, U, ACC>(a, id, c0, acc);
+    p += len;
+  }
+}
+
+// Warps [0, n_blocks · n_slabs): a hub that begins in the block, its
+// partials summed from 0 in block order (the continuing blocks found 32 at
+// a time, one a lane; the loads of kBatch partials issued before any is
+// added). Then, unless ACC, one warp a (tile of 2^tile_log2 rows, slab):
+// its untouched rows zeroed.
+template <int VEC, int U, bool ACC>
+__global__ void __launch_bounds__(kRowWarps * kWarp)
+bag_rows_finish(const RowArgs a) {
+  constexpr int B = row_batch<U>();
+  const long long w =
+      static_cast<long long>(blockIdx.x) * kRowWarps + threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const long long n_fin = a.n_blocks * a.n_slabs;
+  const int V = a.n_vocab;
+  if (w < n_fin) {
+    const long long b = w / a.n_slabs;
+    const int slab = static_cast<int>(w - b * a.n_slabs);
+    const int c0 = slab * kWarp * U * VEC + lane * VEC;
+    const long long s = b * kSeg + lane;
+    const int id = s < a.n_slots ? __ldg(a.ids + s) : V;
+    const int prev = s > 0 && s < a.n_slots ? __ldg(a.ids + s - 1) : -1;
+    const int ahead = s + kSeg < a.n_slots ? __ldg(a.ids + s + kSeg) : V;
+    const unsigned hubs = __ballot_sync(
+        kFull, static_cast<unsigned>(id) < static_cast<unsigned>(V) &&
+                   prev != id && ahead == id);
+    if (hubs == 0) return;       // at most one: a hub is longer than kSeg
+    const int hub = __shfl_sync(kFull, id, __ffs(hubs) - 1);
+    float acc[U][VEC];
+#pragma unroll
+    for (int u = 0; u < U; ++u) slabs::zero<VEC>(acc[u]);
+    // partial 1 of block b, then partial 0 of each block the hub goes on in
+    for (long long b1 = b;; b1 += kWarp) {
+      const long long bl = b1 + 1 + lane;
+      const int n_more = __popc(__ballot_sync(
+          kFull, bl < a.n_blocks && __ldg(a.ids + bl * kSeg) == hub));
+      const int n = (b1 == b) + n_more;
+      for (int k0 = 0; k0 < n; k0 += B) {
+        float v[B][U][VEC];
+#pragma unroll
+        for (int k = 0; k < B; ++k) {
+          const int j = k0 + k;  // j-th partial of this round
+          const long long slot =
+              b1 == b ? (j == 0 ? 2 * b + 1 : 2 * (b + j))
+                      : 2 * (b1 + 1 + j);
+          const float* p = a.partial + slot * a.d;
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int c = c0 + u * kWarp * VEC;
+            if (j < n && c < a.d) {
+              slabs::load_ro<VEC>(p + c, v[k][u]);
+            } else {
+              slabs::zero<VEC>(v[k][u]);
+            }
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < B; ++k) {
+          if (k0 + k < n) {
+#pragma unroll
+            for (int u = 0; u < U; ++u) {
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) {
+                acc[u][e] = __fadd_rn(acc[u][e], v[k][u][e]);
+              }
+            }
+          }
+        }
+      }
+      if (n_more < kWarp) break;
+    }
+    put_row<VEC, U, ACC>(a, hub, c0, acc);
+    return;
+  }
+  if constexpr (!ACC) {
+    const long long z = w - n_fin;
+    if (z >= a.n_tiles * a.n_slabs) return;
+    const long long t = z / a.n_slabs;
+    const int slab = static_cast<int>(z - t * a.n_slabs);
+    const int c0 = slab * kWarp * U * VEC + lane * VEC;
+    const long long r0 = t << a.tile_log2;
+    const long long r1 = r0 + (1ll << a.tile_log2) < V
+                             ? r0 + (1ll << a.tile_log2) : V;
+    float zeros[VEC];
+    slabs::zero<VEC>(zeros);
+    for (long long r = r0; r < r1; ++r) {
+      if ((__ldg(a.touched + (r >> 5)) >> (r & 31)) & 1u) continue;
+      float* dst = a.out + r * a.d;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int c = c0 + u * kWarp * VEC;
+        if (c < a.d) slabs::store_stream<VEC>(dst + c, zeros);
+      }
+    }
+  }
+}
+
+template <int VEC, int U, bool ACC>
+int launch_rows(const RowArgs& a, cudaStream_t s) {
+  const long long fin_warps = a.n_blocks * a.n_slabs;
+  const long long zero_warps = ACC ? 0 : a.n_tiles * a.n_slabs;
+  const long long sum_blocks = (fin_warps + kRowWarps - 1) / kRowWarps;
+  const long long fin_blocks =
+      (fin_warps + zero_warps + kRowWarps - 1) / kRowWarps;
+  if (fin_blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  bag_rows_sums<VEC, U, ACC>
+      <<<static_cast<unsigned>(sum_blocks), kRowWarps * kWarp, 0, s>>>(a);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  bag_rows_finish<VEC, U, ACC>
+      <<<static_cast<unsigned>(fin_blocks), kRowWarps * kWarp, 0, s>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int VEC, bool ACC>
+int launch_rows_u(const RowArgs& a, cudaStream_t s) {
+  switch (slabs::loads_per_lane(a.d / VEC)) {
+    case 1:
+      return launch_rows<VEC, 1, ACC>(a, s);
+    case 2:
+      return launch_rows<VEC, 2, ACC>(a, s);
+    case 3:
+      return launch_rows<VEC, 3, ACC>(a, s);
+    default:
+      return launch_rows<VEC, 4, ACC>(a, s);
+  }
+}
+
 }  // namespace
+
+// The wide-row path (any d >= 1 works; the wrapper sends d >= 32 here, and
+// every accumulate call). scratch: the blocks' partials (n_blocks * 2 * d
+// floats, n_blocks = ceil(n_slots / seg)), then at the next 16-byte
+// boundary the bitmap of touched rows (ceil(V / 32) words; unused by the
+// accumulate form); the wrapper computes its size with the same rule
+// (kernels.embedding_bag.ops.bag_wide_layout). Zero tiles of 2^tile_log2
+// rows (0..6). out must be 4-byte aligned; 16-byte alignment (with g_out's
+// and d % 4 == 0) allows the 16-byte loads.
+extern "C" int repro_embedding_bag_backward_rows_f32(
+    const void* sorted_ids, const void* rows, const void* g_out, void* out,
+    void* scratch, long long scratch_bytes, long long n_slots, int d,
+    int n_vocab, int seg, int tile_log2, int accumulate, void* stream) {
+  if (n_slots <= 0 || d <= 0) return 0;
+  if (seg != kSeg || n_vocab <= 0 || tile_log2 < 0 ||
+      tile_log2 > kMaxRowTileLog2 ||
+      (reinterpret_cast<uintptr_t>(out) & 3) != 0 ||
+      (reinterpret_cast<uintptr_t>(scratch) & 15) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long n_blocks = (n_slots + kSeg - 1) / kSeg;
+  const long long n_words = (static_cast<long long>(n_vocab) + 31) / 32;
+  const long long words_at = (n_blocks * 2 * d * 4 + 15) / 16 * 16;
+  if (scratch_bytes < words_at + 4 * n_words) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const bool vec4 = d % 4 == 0 &&
+                    ((reinterpret_cast<uintptr_t>(g_out) |
+                      reinterpret_cast<uintptr_t>(out)) & 15) == 0;
+  const int n_vec = vec4 ? d / 4 : d;
+  unsigned char* base = static_cast<unsigned char*>(scratch);
+  RowArgs a{static_cast<const int*>(sorted_ids), static_cast<const int*>(rows),
+            static_cast<const float*>(g_out), static_cast<float*>(out),
+            reinterpret_cast<float*>(base),
+            reinterpret_cast<unsigned*>(base + words_at), n_slots, n_blocks,
+            slabs::n_slabs(n_vec, slabs::loads_per_lane(n_vec)),
+            (static_cast<long long>(n_vocab) + (1ll << tile_log2) - 1) >>
+                tile_log2,
+            d, n_vocab, tile_log2};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (accumulate) {
+    return vec4 ? launch_rows_u<4, true>(a, s) : launch_rows_u<1, true>(a, s);
+  }
+  const cudaError_t e = cudaMemsetAsync(a.touched, 0, 4 * n_words, s);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return vec4 ? launch_rows_u<4, false>(a, s) : launch_rows_u<1, false>(a, s);
+}
 
 // scratch: the chunks' partials (n_chunks * 2 * d floats), then at the
 // next 16-byte boundary the bitmap of touched rows (ceil(V / 32) words);

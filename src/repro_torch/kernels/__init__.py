@@ -177,3 +177,23 @@ def bag_tile_plan(hot: int, d: int) -> tuple[int, int, int]:
     if hot == 0 or d == 0 or smem > SMEM_PER_BLOCK:
         return bags, 0, 0
     return bags, _BAG_STAGES, smem
+
+
+# rows of at least this many floats take the bag kernels' wide-row path
+BAG_WIDE_MIN_D = 32
+
+
+def bag_path(d: int) -> str:
+    """The path of the bag kernels (``csrc/embedding_bag.cu`` and
+    ``csrc/embedding_bag_backward.cu``) for rows of ``d`` floats:
+    ``"wide"`` from :data:`BAG_WIDE_MIN_D` floats on, where a row fills a
+    warp's 32 lanes with at least one float each (the GNNs' d = 75 and
+    128, Equiformer-v2's 6,272), else ``"narrow"`` (DeepFM's d = 10 and 1,
+    the segment softmax's 8, EGNN's coordinates' 3). The narrow path is
+    the tiled one above (``bag_tile_plan``; in the backward, a lane's 8
+    sorted slots); the wide path splits a row over a warp's lanes and a
+    wide row over several warps. The accumulate form of the backward
+    always takes the wide path."""
+    if d < 0:
+        raise ValueError(f"bag_path: negative width {d}")
+    return "wide" if d >= BAG_WIDE_MIN_D else "narrow"

@@ -3,8 +3,9 @@
 The sources in ``repro_torch/csrc/*.cu`` have a plain C interface; the
 ELL kernels (``spmv_ell``, ``jacobi``, ``agg_vote``) share the TMA-staged
 row tiles of ``csrc/ell_tiles.cuh``, and they and ``embedding_bag`` the
-bulk-copy primitives of ``csrc/bulk_copy.cuh``; ``embedding_bag_backward``
-stands alone, and ``bag_grad_plan`` (its sorted ids) includes the CUDA
+bulk-copy primitives of ``csrc/bulk_copy.cuh``; ``embedding_bag`` and
+``embedding_bag_backward`` share the row split of their wide-row paths
+(``csrc/row_slabs.cuh``), and ``bag_grad_plan`` (its sorted ids) includes the CUDA
 toolkit's CUB. On first use they are compiled for ``sm_90a``
 with ``nvcc`` (one process per source, all started together, then one
 link) into a shared library under
@@ -29,7 +30,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch_kernels"
 SOURCES = ("spmv_ell.cu", "jacobi.cu", "agg_vote.cu", "embedding_bag.cu",
            "embedding_bag_backward.cu", "bag_grad_plan.cu")
-HEADERS = ("bulk_copy.cuh", "ell_tiles.cuh")
+HEADERS = ("bulk_copy.cuh", "ell_tiles.cuh", "row_slabs.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,8 +43,11 @@ _SIGNATURES = {
     "repro_agg_vote_i32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, _P),
     "repro_embedding_bag_f32": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
+    "repro_embedding_bag_rows_f32": (_P, _P, _P, _L, _I, _I, _I, _P),
     "repro_embedding_bag_backward_f32": (_P, _P, _P, _P, _P, _L, _L, _I, _I,
                                          _I, _I, _P),
+    "repro_embedding_bag_backward_rows_f32": (_P, _P, _P, _P, _P, _L, _L,
+                                              _I, _I, _I, _I, _I, _P),
     "repro_bag_grad_plan_i32": (_P, _L, _I, _I, _P, _P, _P, _P, _P, _PL,
                                 _P),
 }

@@ -29,7 +29,14 @@ backward kernel as its gradient, and :class:`ScatterSum` is the
 deterministic ``Σ_{e: receivers[e] = r} msgs[e]`` with the forward
 kernel as its gradient; neither adds with float atomics, so a training
 step gives the same bits every time (``index_add_``, autograd's gather
-backward on CUDA, would not).
+backward on CUDA, would not). :class:`ScatterAdd` adds such a sum into a
+running one in place (the backward's accumulate form), as a caller that
+sums edge chunks needs.
+
+Rows of ``d`` floats take one of two paths in each kernel
+(:func:`repro_torch.kernels.bag_path`): ``"narrow"`` (DeepFM's rows) or
+``"wide"`` (d >= 32: the GNNs' rows, a row split over a warp's lanes).
+Each wrapper counts its launches by path in ``<wrapper>.paths``.
 """
 
 from __future__ import annotations
@@ -39,9 +46,9 @@ import dataclasses
 
 import torch
 
-from repro_torch.kernels import (bag_tile_plan, is_fake, launch, lib, note,
-                                 on_cuda, require, require_aligned,
-                                 shape_only)
+from repro_torch.kernels import (bag_path, bag_tile_plan, is_fake, launch,
+                                 lib, note, on_cuda, require,
+                                 require_aligned, shape_only)
 from repro_torch.kernels._build import check
 from repro_torch.sparse.segment import sorted_segment_sum, take_fill
 
@@ -49,6 +56,9 @@ from repro_torch.sparse.segment import sorted_segment_sum, take_fill
 BAG_GRAD_CHUNK = 256
 # floats of a tile of output rows that one warp of the backward zeroes
 _BAG_GRAD_TILE_FLOATS = 4096
+# sorted slots a block of the backward's wide path (kSeg in its source): a
+# run longer than this (a hub) is summed in parts, a block each
+BAG_WIDE_SEG = 32
 _I32_MAX = torch.iinfo(torch.int32).max
 
 
@@ -96,17 +106,25 @@ def embedding_bag_kernel(table: torch.Tensor,
     out = torch.empty((n_bags, d), dtype=torch.float32, device=table.device)
     if n_bags == 0 or hot == 0 or d == 0:
         return out.zero_()
-    bags, stages, smem = bag_tile_plan(hot, d)
-    check(launch(table, lib().repro_embedding_bag_f32, table.data_ptr(),
-                  indices.data_ptr(), out.data_ptr(), n_bags, hot, d,
-                  n_vocab, bags, stages, smem), "embedding_bag")
+    path = bag_path(d)
+    if path == "wide":
+        check(launch(table, lib().repro_embedding_bag_rows_f32,
+                      table.data_ptr(), indices.data_ptr(), out.data_ptr(),
+                      n_bags, hot, d, n_vocab), "embedding_bag")
+    else:
+        bags, stages, smem = bag_tile_plan(hot, d)
+        check(launch(table, lib().repro_embedding_bag_f32, table.data_ptr(),
+                      indices.data_ptr(), out.data_ptr(), n_bags, hot, d,
+                      n_vocab, bags, stages, smem), "embedding_bag")
     embedding_bag_kernel.launches += 1
+    embedding_bag_kernel.paths[path] += 1
     note("embedding_bag", nbytes)
     return out
 
 
 embedding_bag_kernel.launches = 0
 embedding_bag_kernel.fake_launches = 0
+embedding_bag_kernel.paths = {"narrow": 0, "wide": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -217,46 +235,89 @@ def bag_grad_layout(n_slots: int, n_vocab: int, d: int) -> tuple[int, int,
     return BAG_GRAD_CHUNK, tile_log2, words_at + 4 * -(-n_vocab // 32)
 
 
+def bag_wide_layout(n_slots: int, n_vocab: int, d: int) -> tuple[int, int,
+                                                                 int]:
+    """The backward kernel's layout on the wide path: ``(seg, tile_log2,
+    scratch_bytes)``. The sorted slots go in blocks of ``BAG_WIDE_SEG``
+    (the length past which a run is a hub, summed a block at a time), one
+    warp a block and slab of columns; the pass that zeroes untouched rows
+    takes tiles of ``2**tile_log2`` rows a warp and slab, the least power
+    of two of rows that holds ``_BAG_GRAD_TILE_FLOATS`` floats of a
+    512-float slab (of the row, where it is narrower), from 1 to 64 rows.
+    The scratch holds two partial rows a block, then (at a 16-byte
+    boundary) the bitmap, a bit a row in 32-bit words."""
+    rows = -(-_BAG_GRAD_TILE_FLOATS // max(1, min(d, 512)))
+    tile_log2 = min(6, (rows - 1).bit_length())
+    words_at = -(-(-(-n_slots // BAG_WIDE_SEG) * 2 * d * 4) // 16) * 16
+    return BAG_WIDE_SEG, tile_log2, words_at + 4 * -(-n_vocab // 32)
+
+
 def embedding_bag_backward_ref(g_out: torch.Tensor, indices: torch.Tensor,
                                n_vocab: int,
-                               plan: BagGradPlan | None = None
+                               plan: BagGradPlan | None = None, *,
+                               acc: torch.Tensor | None = None
                                ) -> torch.Tensor:
     """Plain version of the backward: ``g_table[v] = Σ_{(b, h): indices[b,
     h] = v} g_out[b]``, ``[n_vocab, d]``, rows no valid id touches 0. A
     deterministic sorted segment sum (``sparse.segment``) over ``plan``'s
     order (built here when none is given): each row's slots in slot
     order, from 0, the same bits with a plan or without one. In float32
-    (float64 ``g_out`` in float64)."""
+    (float64 ``g_out`` in float64). With ``acc`` (the accumulate form),
+    ``acc.add_(g_table)``: returns ``acc``."""
     plan = _checked_plan(plan, indices, n_vocab)
-    acc = torch.promote_types(g_out.dtype, torch.float32)
-    rows = g_out.to(acc).index_select(0, plan.rows.long())
-    return sorted_segment_sum(rows, plan.sorted_ids, n_vocab)
+    dtype = torch.promote_types(g_out.dtype, torch.float32)
+    rows = g_out.to(dtype).index_select(0, plan.rows.long())
+    sums = sorted_segment_sum(rows, plan.sorted_ids, n_vocab)
+    return sums if acc is None else acc.add_(sums)
+
+
+def _backward_bytes(n_slots: int, n_bags: int, d: int, n_vocab: int,
+                    accumulate: bool) -> int:
+    """The bytes the backward must move, from shapes: the ids, g_out, and
+    the whole ``[n_vocab, d]`` output written, or in the accumulate form
+    the touched rows read and written (at most one a slot)."""
+    rows = 2 * min(n_slots, n_vocab) if accumulate else n_vocab
+    return 4 * n_slots + 4 * n_bags * d + 4 * rows * d
 
 
 def embedding_bag_backward(g_out: torch.Tensor, indices: torch.Tensor,
                            n_vocab: int, plan: BagGradPlan | None = None, *,
+                           acc: torch.Tensor | None = None,
                            _out: torch.Tensor | None = None) -> torch.Tensor:
     """g_out [n_bags, d] float32, indices [n_bags, hot] int32 -> the
     table's gradient [n_vocab, d]: the kernel on CUDA tensors, the plain
     version on CPU ones. ``plan`` is :func:`bag_grad_plan` of ``indices``
     (built here when none is given). Same bits on every launch.
 
+    ``acc`` (a contiguous float32 ``[n_vocab, d]`` running sum on the same
+    device) takes the accumulate form: each touched row ``v`` becomes
+    ``acc[v] + s_v`` in place, ``s_v`` the row's sum as the wide path
+    computes it, and ``acc`` is returned; rows no valid id touches are
+    neither read nor written. It always takes the wide path, so from d =
+    32 on (``bag_path``) its bits are ``acc.add_(embedding_bag_backward(
+    ...))``'s.
+
     ``_out`` (a contiguous float32 ``[n_vocab, d]`` on the same device)
     receives the result in place of a new tensor; it exists to check that
     the kernel writes every row. Fake tensors take the shape-only
     path."""
+    if acc is not None and _out is not None:
+        raise ValueError("embedding_bag_backward: acc and _out exclude "
+                         "each other")
     if is_fake(g_out, indices):
         n_bags, hot = indices.shape
         d = g_out.shape[-1]
-        out = (g_out.new_empty((n_vocab, d)) if _out is None else _out)
+        out = acc if acc is not None else (
+            g_out.new_empty((n_vocab, d)) if _out is None else _out)
         if n_bags * hot == 0 or d == 0:
-            return out.zero_()
+            return out if acc is not None else out.zero_()
         _checked_plan(plan, indices, n_vocab)   # as the kernel's path does
         return shape_only(embedding_bag_backward, "embedding_bag_backward",
-                          4 * n_bags * hot + 4 * n_bags * d
-                          + 4 * n_vocab * d, out)
+                          _backward_bytes(n_bags * hot, n_bags, d, n_vocab,
+                                          acc is not None), out)
     if not on_cuda("embedding_bag_backward", g_out, indices):
-        got = embedding_bag_backward_ref(g_out, indices, n_vocab, plan)
+        got = embedding_bag_backward_ref(g_out, indices, n_vocab, plan,
+                                         acc=acc)
         return got if _out is None else _out.copy_(got)
 
     n_bags, hot = indices.shape
@@ -268,7 +329,14 @@ def embedding_bag_backward(g_out: torch.Tensor, indices: torch.Tensor,
                         f"torch.int32, got {indices.dtype}")
     _c_ints("embedding_bag_backward", d=d, n_vocab=n_vocab)
     plan = _checked_plan(plan, indices, n_vocab)
-    if _out is None:
+    if acc is not None:
+        require("embedding_bag_backward acc", acc, torch.float32,
+                (n_vocab, d))
+        if acc.device != g_out.device:
+            raise ValueError("embedding_bag_backward: acc is on "
+                             f"{acc.device}, g_out on {g_out.device}")
+        out = acc
+    elif _out is None:
         out = torch.empty((n_vocab, d), dtype=torch.float32,
                           device=g_out.device)
     else:
@@ -281,23 +349,36 @@ def embedding_bag_backward(g_out: torch.Tensor, indices: torch.Tensor,
         out = _out
     n_slots = n_bags * hot
     if n_slots == 0 or d == 0:
-        return out.zero_()
-    chunk, tile_log2, scratch_bytes = bag_grad_layout(n_slots, n_vocab, d)
+        return out if acc is not None else out.zero_()
+    path = "wide" if acc is not None else bag_path(d)
+    if path == "wide":
+        chunk, tile_log2, scratch_bytes = bag_wide_layout(n_slots, n_vocab,
+                                                          d)
+    else:
+        chunk, tile_log2, scratch_bytes = bag_grad_layout(n_slots, n_vocab,
+                                                          d)
     scratch = torch.empty(scratch_bytes, dtype=torch.uint8,
                           device=g_out.device)
-    check(launch(g_out, lib().repro_embedding_bag_backward_f32,
-                  plan.sorted_ids.data_ptr(), plan.rows.data_ptr(),
-                  g_out.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                  scratch_bytes, n_slots, d, n_vocab, chunk, tile_log2),
-          "embedding_bag_backward")
+    ptrs = (plan.sorted_ids.data_ptr(), plan.rows.data_ptr(),
+            g_out.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            scratch_bytes, n_slots, d, n_vocab, chunk, tile_log2)
+    if path == "wide":
+        check(launch(g_out, lib().repro_embedding_bag_backward_rows_f32,
+                      *ptrs, int(acc is not None)), "embedding_bag_backward")
+    else:
+        check(launch(g_out, lib().repro_embedding_bag_backward_f32, *ptrs),
+              "embedding_bag_backward")
     embedding_bag_backward.launches += 1
+    embedding_bag_backward.paths[
+        "wide_accumulate" if acc is not None else path] += 1
     note("embedding_bag_backward",
-         4 * n_slots + 4 * n_bags * d + 4 * n_vocab * d)
+         _backward_bytes(n_slots, n_bags, d, n_vocab, acc is not None))
     return out
 
 
 embedding_bag_backward.launches = 0
 embedding_bag_backward.fake_launches = 0
+embedding_bag_backward.paths = {"narrow": 0, "wide": 0, "wide_accumulate": 0}
 
 
 class BagSum(torch.autograd.Function):
@@ -349,3 +430,29 @@ class ScatterSum(torch.autograd.Function):
         (indices,) = ctx.saved_tensors
         return (embedding_bag_kernel(g_out.contiguous(), indices), None,
                 None, None)
+
+
+class ScatterAdd(torch.autograd.Function):
+    """:class:`ScatterSum` added into a running sum, in place:
+    ``ScatterAdd.apply(acc [n_rows, d], msgs [E, d], indices [E, 1]
+    int32, n_rows, plan=None)`` -> ``acc``, each row r increased by the
+    sum of the messages whose index is r (from rows of 32 floats on, the
+    bits of ``acc.add_(ScatterSum.apply(msgs, ...))``). Its forward is the
+    bag backward kernel's accumulate form, which reads and writes only
+    the touched rows; the gradient of ``acc`` is the incoming one, that of
+    each message its row's (the bag forward kernel)."""
+
+    @staticmethod
+    def forward(ctx, acc: torch.Tensor, msgs: torch.Tensor,
+                indices: torch.Tensor, n_rows: int,
+                plan: BagGradPlan | None = None):
+        ctx.save_for_backward(indices)
+        ctx.mark_dirty(acc)
+        return embedding_bag_backward(msgs.contiguous(), indices, n_rows,
+                                      plan, acc=acc)
+
+    @staticmethod
+    def backward(ctx, g_out: torch.Tensor):
+        (indices,) = ctx.saved_tensors
+        return (g_out, embedding_bag_kernel(g_out.contiguous(), indices),
+                None, None, None)

@@ -20,7 +20,8 @@ Edge-parallel (the dry-run's rank program, ``configs.gnn_common``): under
 :func:`edge_parallel` the edges are this rank's share and the node states
 are replicated, so each scatter-sum (and :func:`edge_max`) of edge
 messages is a partial that is all-reduced over the group (its backward the
-identity), and each gather of a node state that carries a gradient
+identity; a sum over several edge chunks is reduced once, by
+:func:`reduce_edges`), and each gather of a node state that carries a gradient
 all-reduces that gradient on the way back (the forward the identity): the
 two conjugate collectives of tensor-parallel layers. Scatters over other
 ids (a graph's nodes) take :func:`edge_parallel` ``(None)``.
@@ -204,22 +205,45 @@ def gather_rows(x: torch.Tensor, idx: torch.Tensor,
 
 
 def scatter_rows(msgs: torch.Tensor, idx: torch.Tensor, n: int,
-                 plan: Optional[BagGradPlan] = None) -> torch.Tensor:
+                 plan: Optional[BagGradPlan] = None,
+                 acc: Optional[torch.Tensor] = None,
+                 reduce: bool = True) -> torch.Tensor:
     """``segment_sum(msgs, idx, n)`` for ``msgs`` [E, d] and ``idx`` [E]
     int32, ids outside ``[0, n)`` dropped: the bag backward kernel over
     ``plan`` (the ``bag_grad_plan`` of ``idx`` for ``n`` rows),
-    differentiable through ``ScatterSum``."""
-    from repro_torch.kernels.embedding_bag import (ScatterSum,
+    differentiable through ``ScatterSum``. With ``acc`` ([n, d] float32,
+    e.g. the sum of earlier edge chunks' messages) the sums are added into
+    ``acc`` in place and ``acc`` is returned (the kernel's accumulate
+    form, through ``ScatterAdd``, with no ``[n, d]`` result of its own;
+    from d = 32 on the bits of ``acc.add_(scatter_rows(msgs, ...))``).
+
+    Under :func:`edge_parallel` the result is all-reduced over the group
+    (all of it, ``acc`` included), unless ``reduce`` is False: a caller
+    that sums several edge sets passes False to each and reduces the
+    total once with :func:`reduce_edges`."""
+    from repro_torch.kernels.embedding_bag import (ScatterAdd, ScatterSum,
                                                    embedding_bag_backward)
 
     bags = idx.reshape(-1, 1)
-    if msgs.requires_grad and torch.is_grad_enabled():
+    grad = torch.is_grad_enabled() and (
+        msgs.requires_grad or (acc is not None and acc.requires_grad))
+    if acc is not None:
+        out = (ScatterAdd.apply(acc, msgs, bags, n, plan) if grad else
+               embedding_bag_backward(msgs.contiguous(), bags, n, plan,
+                                      acc=acc))
+    elif grad:
         out = ScatterSum.apply(msgs, bags, n, plan)
     else:
         out = embedding_bag_backward(msgs.contiguous(), bags, n, plan)
+    return reduce_edges(out) if reduce else out
+
+
+def reduce_edges(t: torch.Tensor) -> torch.Tensor:
+    """A sum over this rank's edges all-reduced over the
+    :func:`edge_parallel` group (its gradient passes as it is); ``t``
+    itself where every edge is here."""
     group = _EDGE_GROUP[-1]
-    return out if group is None else _ReduceFromEdges.apply(out, "sum",
-                                                            group)
+    return t if group is None else _ReduceFromEdges.apply(t, "sum", group)
 
 
 def gather_src(g: GraphBatch, x: torch.Tensor) -> torch.Tensor:

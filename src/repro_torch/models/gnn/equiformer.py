@@ -21,7 +21,10 @@ Structure per layer, as the reference's:
 Message passing runs on the embedding-bag kernels (``common.gather_rows``
 / ``scatter_rows``) with rows of (l_max+1)²·C floats, over plans built
 once a graph (``GraphBatch.with_plans(edge_chunk=...)``: the endpoints'
-and each edge chunk's). The layout is planned for memory, so that
+and each edge chunk's); each chunk's scatter adds into the running sum of
+the chunks before it (the kernel's accumulate form, ``ScatterAdd``), so a
+chunk makes no ``[N, (l_max+1)²·C]`` result of its own. The layout is
+planned for memory, so that
 ``FULL`` trains on ``minibatch_lg`` on one card; the values are the
 reference's up to float32 rounding:
 
@@ -57,7 +60,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.gnn.common import (GraphBatch, chunk_plans,
                                            edge_chunks, gather_rows, init_mlp,
                                            mlp_apply, rbf_encode,
-                                           scatter_rows)
+                                           reduce_edges, scatter_rows)
 from repro_torch.models.gnn.so3 import (frame_from_direction, n_coeffs,
                                         pack_wigner, wigner_from_rotation)
 from repro_torch.sparse.segment import segment_softmax, take_fill
@@ -285,18 +288,22 @@ def _so2_conv(cfg, lp, t, scale):
     return torch.cat(outs, 1)
 
 
-def _edge_messages(cfg, lp, h, senders, receivers, rot, scale, plans):
+def _edge_messages(cfg, lp, h, senders, receivers, rot, scale, plans,
+                   acc=None):
     """Messages of one edge set (all edges or a chunk), summed at their
-    receivers: ``[N, K·C]``. ``rot`` is the edges' :func:`edge_rotation`,
-    ``scale`` [E, C] each edge's distance embedding times its heads'
-    softmax weights, ``plans`` the bag plans of ``senders`` and
-    ``receivers``."""
+    receivers: ``[N, K·C]``, added into ``acc`` in place where one is
+    given (the sum of earlier chunks). ``rot`` is the edges'
+    :func:`edge_rotation`, ``scale`` [E, C] each edge's distance embedding
+    times its heads' softmax weights, ``plans`` the bag plans of
+    ``senders`` and ``receivers``. Under ``edge_parallel`` the sum is this
+    rank's partial: the caller reduces it."""
     N, K, C = h.shape
     E = senders.shape[0]
     src = gather_rows(h.view(N, K * C), senders, plans[0]).view(E, K, C)
     msg = _so2_conv(cfg, lp, _Rotate.apply(src, rot, False), scale)
     msg = _Rotate.apply(msg, rot, True)
-    return scatter_rows(msg.view(E, K * C), receivers, N, plans[1])
+    return scatter_rows(msg.view(E, K * C), receivers, N, plans[1], acc=acc,
+                        reduce=False)
 
 
 @dataclasses.dataclass
@@ -354,14 +361,15 @@ def _layer(cfg, lp, x, g, edges, shard):
     alpha = segment_softmax(logits, g.receivers, N, valid=edges.valid,
                             plan=g.receiver_plan)               # [E, H]
     scale = dist_emb * alpha.repeat_interleave(C // H, dim=1)
+    # each chunk's messages added into the running sum by the scatter
+    # itself (the reference's scan carries agg + _edge_messages(...))
     agg = None
     for i, (a, b) in enumerate(edges.chunks):
         rot = (edges.rot[i] if edges.rot is not None
                else edge_rotation(cfg, edges.dirs[a:b]))
-        part = _edge_messages(cfg, lp, h, g.senders[a:b], g.receivers[a:b],
-                              rot, scale[a:b], edges.plans[i])
-        agg = part if agg is None else agg.add_(part)
-    agg = shard(agg.view(N, K, C))
+        agg = _edge_messages(cfg, lp, h, g.senders[a:b], g.receivers[a:b],
+                             rot, scale[a:b], edges.plans[i], agg)
+    agg = shard(reduce_edges(agg).view(N, K, C))
     del h, h0
     # node update: gated nonlinearity + channel mixing
     upd = (agg.view(N * K, C) @ lp["out_proj"]).view(N, K, C)

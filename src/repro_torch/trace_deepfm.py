@@ -29,8 +29,9 @@ import sys
 
 # device kernels by group, by a part of the name the profiler reports
 # (first match wins; everything else is "other")
-TRAIN_GROUPS = (("bag_forward", ("bag_tiles_kernel",)),
-                ("bag_backward", ("bag_grad_chunks", "bag_grad_finish")),
+TRAIN_GROUPS = (("bag_forward", ("bag_tiles_kernel", "bag_rows_gather")),
+                ("bag_backward", ("bag_grad_chunks", "bag_grad_finish",
+                                  "bag_rows_sums", "bag_rows_finish")),
                 ("sort", ("bag_grad_keys", "RadixSort")),
                 ("gemm", ("gemm", "gemv")))
 

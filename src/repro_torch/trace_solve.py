@@ -57,10 +57,29 @@ def _stage_seconds(prof: cProfile.Profile) -> dict:
 # repro_bag_plan: a histogram, a scan and a pass per 8 bits of the keys)
 PORT_KERNELS = {"StoreRow": "spmv_ell", "JacobiRow": "jacobi",
                 "VoteRow": "agg_vote", "bag_tiles_kernel": "embedding_bag",
+                "bag_rows_gather": "embedding_bag",
                 "bag_grad_chunks": "embedding_bag_backward",
                 "bag_grad_finish": "embedding_bag_backward",
+                "bag_rows_sums": "embedding_bag_backward",
+                "bag_rows_finish": "embedding_bag_backward",
                 "bag_grad_keys": "bag_grad_plan",
                 "repro_bag_plan::": "bag_grad_plan"}
+# a launch of a kernel runs the parts of one of its paths (the bag
+# kernels' narrow and wide paths, kernels.bag_path); a kernel not listed
+# here has a path of each part alone
+_PATHS = {"embedding_bag_backward": (("bag_grad_chunks", "bag_grad_finish"),
+                                     ("bag_rows_sums", "bag_rows_finish")),
+          "bag_grad_plan": (("bag_grad_keys", "repro_bag_plan::"),)}
+
+
+def kernel_paths(kernel: str) -> tuple:
+    """The paths of the port's kernel ``kernel`` (a value of
+    ``PORT_KERNELS``): tuples of parts, the device kernels one launch
+    runs, its first part launched once a call."""
+    parts = tuple(p for p, name in PORT_KERNELS.items() if name == kernel)
+    if not parts:
+        raise ValueError(f"kernel_paths: unknown kernel {kernel!r}")
+    return _PATHS.get(kernel, tuple((p,) for p in parts))
 
 
 def kernel_device_ms(torch, fn, kernel: str, reps: int = 20):
@@ -75,15 +94,15 @@ def kernel_device_ms(torch, fn, kernel: str, reps: int = 20):
     in three windows in a row), so a window that saw no launch is
     profiled again, up to ten in all; ``(nan, 0, 10)`` means none saw
     one. For a kernel of several device kernels (parts), a window must see
-    every part; the launches are those of its first part, and one launch's
-    time is the sum over the parts of each part's mean time per device
-    kernel times its device kernels per launch (its count over the first
-    part's, rounded)."""
+    every part of one of its paths (:func:`kernel_paths`); the launches
+    are those of the path's first part, and one launch's time is the sum
+    over the path's parts of each part's mean time per device kernel
+    times its device kernels per launch (its count over the first part's,
+    rounded)."""
     from torch.profiler import ProfilerActivity, profile
 
-    parts = [part for part, name in PORT_KERNELS.items() if name == kernel]
-    if not parts:
-        raise ValueError(f"kernel_device_ms: unknown kernel {kernel!r}")
+    paths = kernel_paths(kernel)
+    parts = [part for path in paths for part in path]
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -101,11 +120,12 @@ def kernel_device_ms(torch, fn, kernel: str, reps: int = 20):
                     count, us = seen[part]
                     seen[part] = (count + e.count,
                                   us + e.self_device_time_total)
-        count = seen[parts[0]][0]
-        if all(c for c, _ in seen.values()):
-            ms = sum(us / c * max(1, round(c / count))
-                     for c, us in seen.values()) / 1e3
-            return ms, count, window
+        for path in paths:
+            count = seen[path[0]][0]
+            if all(seen[part][0] for part in path):
+                ms = sum(us / c * max(1, round(c / count))
+                         for c, us in (seen[part] for part in path)) / 1e3
+                return ms, count, window
     return float("nan"), 0, window
 
 
@@ -146,11 +166,9 @@ def profile_call(torch, fn, trace_path=None, top: int = 10):
                 count, us = parts.get(part, (0, 0))
                 parts[part] = (count + e.count,
                                us + e.self_device_time_total)
-    # launches of a kernel of several parts: those of its first part
-    first = {}
-    for part, name in PORT_KERNELS.items():
-        first.setdefault(name, part)
-    port = {name: (parts.get(first[name], (0, 0))[0],
+    # launches of a kernel of several parts: those of each path's first
+    port = {name: (sum(parts.get(path[0], (0, 0))[0]
+                       for path in kernel_paths(name)),
                    sum(us for _, us in parts.values()))
             for name, parts in port.items()}
     return out, dict(

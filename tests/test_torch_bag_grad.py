@@ -12,7 +12,13 @@ tables), on the CPU.
   against ``jax.value_and_grad`` (rtol / atol 1e-5, as in
   ``test_torch_train.py``: the float32 matrix products sum in another
   order);
-* the kernel's layout (``bag_grad_layout``).
+* the kernel's layouts (``bag_grad_layout``, and ``bag_wide_layout`` of
+  its wide-row path);
+* the accumulate form's plain version bitwise ``acc + embedding_bag_
+  backward_ref(...)`` (ids outside ``[0, V)``, a hub run, untouched rows
+  kept), and ``ScatterAdd``'s values and gradients bitwise those of
+  ``ScatterSum`` followed by ``add_``;
+* the profiler's names of both paths' device kernels.
 """
 
 import numpy as np
@@ -32,8 +38,9 @@ from repro.models.recsys import deepfm as jd  # noqa: E402
 from repro_torch.configs import deepfm as tcfg  # noqa: E402
 from repro_torch.convert import deepfm_params_from_numpy  # noqa: E402
 from repro_torch.kernels.embedding_bag import (  # noqa: E402
-    BagSum, bag_grad_layout, bag_grad_plan, embedding_bag_backward,
-    embedding_bag_backward_ref)
+    BagSum, ScatterAdd, ScatterSum, bag_grad_layout, bag_grad_plan,
+    bag_wide_layout, embedding_bag_backward, embedding_bag_backward_ref,
+    embedding_bag_kernel)
 from repro_torch.models.recsys import deepfm as td  # noqa: E402
 from repro_torch.tree import leaves  # noqa: E402
 
@@ -203,7 +210,108 @@ def test_bag_grad_layout(n_slots, n_vocab, d):
     assert words_at % 16 == 0 and 0 <= words_at - 8 * d * n_chunks < 16
 
 
+@pytest.mark.parametrize("d", [1, 10, 75])
+@pytest.mark.parametrize("kind", ["zipf", "uniform", "invalid"])
+def test_accumulate_plain_version_is_acc_plus_the_sums(d, kind):
+    """``embedding_bag_backward_ref(..., acc=acc)`` is ``acc + the sums``
+    bit for bit, in place; the CPU wrapper's accumulate form is the same.
+    ``zipf`` puts about half the slots on id 0 (a run far longer than the
+    wide path's 32-slot blocks) and sentinels in every fifth slot; with
+    200 rows many stay untouched, and keep ``acc``'s bits."""
+    rng = np.random.default_rng(40 + d)
+    n_vocab = 200
+    idx = _t(_ids(rng, 333, 3, n_vocab, kind))
+    g = _t(rng.normal(size=(333, d)).astype(np.float32))
+    acc0 = _t(rng.normal(size=(n_vocab, d)).astype(np.float32))
+    plan = bag_grad_plan(idx, n_vocab)
+    sums = embedding_bag_backward_ref(g, idx, n_vocab, plan)
+    if kind == "zipf":
+        assert int((plan.sorted_ids == 0).sum()) > 32      # a hub run
+    acc = acc0.clone()
+    got = embedding_bag_backward_ref(g, idx, n_vocab, plan, acc=acc)
+    assert got is acc and torch.equal(got, acc0 + sums)
+    untouched = (sums == 0).all(1)
+    assert untouched.any() or kind == "uniform"
+    assert torch.equal(got[untouched], acc0[untouched])
+    acc = acc0.clone()
+    assert embedding_bag_backward(g, idx, n_vocab, plan, acc=acc) is acc
+    assert torch.equal(acc, acc0 + sums)
+    with pytest.raises(ValueError):           # acc and _out exclude
+        embedding_bag_backward(g, idx, n_vocab, plan, acc=acc,
+                               _out=torch.empty_like(acc))
+
+
+def test_scatter_add_is_scatter_sum_then_add_bitwise():
+    """``ScatterAdd`` (the accumulate form under autograd) against
+    ``ScatterSum`` followed by ``add_``, over two chunks of messages into
+    one running sum: the values and the gradients of both chunks'
+    messages and of the first chunk's sum bit for bit; the gradient of
+    each message is its row's (the bag gather)."""
+    rng = np.random.default_rng(8)
+    n, d, e = 50, 75, 400
+    idx = _t(_ids(rng, e, 1, n, "zipf"))
+    m = [_t(rng.normal(size=(e // 2, d)).astype(np.float32))
+         for _ in range(2)]
+    up = _t(rng.normal(size=(n, d)).astype(np.float32))
+    plans = [bag_grad_plan(idx[:e // 2], n), bag_grad_plan(idx[e // 2:], n)]
+    runs = []
+    for accumulate in (True, False):
+        leaves = [t.clone().requires_grad_() for t in m]
+        agg = ScatterSum.apply(leaves[0], idx[:e // 2], n, plans[0])
+        if accumulate:
+            agg = ScatterAdd.apply(agg, leaves[1], idx[e // 2:], n, plans[1])
+        else:
+            agg = agg.add_(ScatterSum.apply(leaves[1], idx[e // 2:], n,
+                                            plans[1]))
+        (agg * up).sum().backward()
+        runs.append((agg.detach(), *(t.grad for t in leaves)))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert torch.equal(runs[0][2], embedding_bag_kernel(up, idx[e // 2:]))
+
+
+@pytest.mark.parametrize("n_slots,n_vocab,d", [
+    (65_536, 169_984, 6_272), (168_960, 169_984, 128), (168_960, 169_984, 75),
+    (1, 1, 32), (97, 10, 33), (100, 1000, 4096)])
+def test_bag_wide_layout(n_slots, n_vocab, d):
+    """Blocks of 32 slots; zero tiles of the least power of two of rows
+    that holds 4096 floats of a 512-float slab (of d floats where d is
+    narrower), from 1 to 64 rows; scratch: two partial rows a block, then
+    a bit a row in 32-bit words at a 16-byte boundary."""
+    seg, tile_log2, scratch = bag_wide_layout(n_slots, n_vocab, d)
+    rows, slab = 1 << tile_log2, min(d, 512)
+    assert seg == 32 and 1 <= rows <= 64
+    assert rows * slab >= 4096 or rows == 64
+    assert rows == 1 or rows // 2 * slab < 4096
+    words_at = scratch - 4 * -(-n_vocab // 32)
+    n_blocks = -(-n_slots // 32)
+    assert words_at % 16 == 0 and 0 <= words_at - 8 * d * n_blocks < 16
+    if (n_slots, d) == (65_536, 6_272):       # Equiformer-v2's chunk
+        assert rows == 8 and words_at == 2048 * 2 * 6272 * 4
+
+
+def test_kernel_paths_of_the_bag_kernels():
+    """A launch of the bag backward runs the two passes of one path; the
+    gather one kernel of either path; the plan its key pass and sort."""
+    from repro_torch.trace_solve import kernel_paths
+
+    assert kernel_paths("embedding_bag_backward") == (
+        ("bag_grad_chunks", "bag_grad_finish"),
+        ("bag_rows_sums", "bag_rows_finish"))
+    assert kernel_paths("embedding_bag") == (("bag_tiles_kernel",),
+                                             ("bag_rows_gather",))
+    assert kernel_paths("bag_grad_plan") == (("bag_grad_keys",
+                                              "repro_bag_plan::"),)
+    with pytest.raises(ValueError):
+        kernel_paths("index_add_")
+
+
 @pytest.mark.parametrize("name,group,port", [
+    ("void (anonymous namespace)::bag_rows_gather<4, 4>(float const*)",
+     "bag_forward", "embedding_bag"),
+    ("void (anonymous namespace)::bag_rows_sums<4, 1, true>(RowArgs)",
+     "bag_backward", "embedding_bag_backward"),
+    ("void (anonymous namespace)::bag_rows_finish<1, 3, false>(RowArgs)",
+     "bag_backward", "embedding_bag_backward"),
     ("void (anonymous namespace)::bag_grad_chunks<10, true, 2>(Args)",
      "bag_backward", "embedding_bag_backward"),
     ("void (anonymous namespace)::bag_grad_finish<1, true>(Args, long long)",

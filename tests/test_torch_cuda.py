@@ -11,7 +11,9 @@ plain versions (the float32 summation order differs) and bitwise equal
 from one call to the next, ``agg_vote`` bit-exact, ``embedding_bag``
 bitwise equal at hot <= 2 (a sum of two floats from 0 has one rounding)
 and rtol / atol 1e-6 above (PyTorch's sum may add in another order), and
-bitwise equal from one call to the next, DeepFM logits rtol / atol 1e-5
+bitwise equal from one call to the next; the bag backward within 1e-6 of
+each row's sum of |g| of its plain version, its accumulate form bitwise
+its result added with ``add_``; DeepFM logits rtol / atol 1e-5
 (the card's matrix products sum in another order). The LM family, which
 runs no kernel of the port: the bf16 attention and its gradients bitwise
 the plain form of the reference's block; ``moe_ffn`` bitwise on a repeat
@@ -28,7 +30,8 @@ torch = pytest.importorskip("torch")
 # test process oversubscribes the cores when test files run in parallel
 torch.set_num_threads(1)
 
-from repro_torch.kernels import bag_tile_plan, ell_tile_plan  # noqa: E402
+from repro_torch.kernels import (bag_path, bag_tile_plan,  # noqa: E402
+                                 ell_tile_plan)
 from repro_torch.kernels.agg_vote import vote_reduce, vote_reduce_ref  # noqa: E402
 from repro_torch.kernels.embedding_bag import (  # noqa: E402
     BagSum, bag_grad_layout, bag_grad_plan, bag_grad_plan_ref,
@@ -513,8 +516,7 @@ def _check_bag(T, I):
 _R = bag_tile_plan(2, 10)[0]
 # (n_bags, hot, d, n_vocab): a ragged last tile, fewer bags than a tile,
 # many tiles a block (each block's ring of stages wraps), d = 1, 2 and 4
-# (8, 4 and 2 bags a thread), d = 33, hot 8, and rows too wide for a
-# staged plan (0 stages)
+# (8, 4 and 2 bags a thread), d = 33 and 1000 (the wide-row path), hot 8
 BAG_CASES = [(_R * 7 + 5, 2, 10, 1000), (_R - 3, 2, 10, 1000),
              (1 << 22, 2, 10, 43_429), (100_003, 2, 1, 5000),
              (50_001, 2, 2, 900), (30_001, 3, 4, 800),
@@ -527,9 +529,38 @@ BAG_CASES = [(_R * 7 + 5, 2, 10, 1000), (_R - 3, 2, 10, 1000),
 def test_cuda_embedding_bag_tiles(n_bags, hot, d, n_vocab):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
-    if d == 1000:
-        assert bag_tile_plan(hot, d)[1] == 0
+    path = bag_path(d)
+    n0 = embedding_bag_kernel.paths[path]
     _check_bag(*_bags(n_bags, hot, d, n_vocab, n_bags + d))
+    assert embedding_bag_kernel.paths[path] == n0 + 2
+
+
+@pytest.mark.cuda
+def test_cuda_embedding_bag_unstaged_long_bags():
+    """Bags of 700 ids at d = 10: too large for a staged plan (0 stages:
+    the narrow kernel reads ids and stores sums with plain accesses). The
+    kernel sums each bag from 0 in h order, so it is bit for bit a
+    float32 sum taken in that order; the plain version (PyTorch's
+    reduction order) is within twice (hot − 1)·2⁻²⁴ of each sum's Σ|x|,
+    the float32 error bound of two summation orders."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.sparse.segment import take_fill
+
+    hot = 700
+    assert bag_tile_plan(hot, 10)[1] == 0 and bag_path(10) == "narrow"
+    T, I = _bags(301, hot, 10, 3000, 311)
+    n0 = embedding_bag_kernel.paths["narrow"]
+    got = embedding_bag_kernel(T, I)
+    assert embedding_bag_kernel.paths["narrow"] == n0 + 1
+    rows = take_fill(T, I, 0)                        # [301, hot, 10]
+    in_order = torch.zeros_like(got)
+    for h in range(hot):
+        in_order = in_order + rows[:, h]
+    assert torch.equal(got, in_order)
+    assert torch.equal(embedding_bag_kernel(T, I), got)
+    bound = 2 * (hot - 1) * 2.0 ** -24 * rows.abs().sum(1)
+    assert ((got - embedding_bag_ref(T, I)).abs() <= bound).all()
 
 
 @pytest.mark.cuda
@@ -867,6 +898,186 @@ def test_cuda_gnn_gather_and_scatter_match_plain_versions(n, e, d):
     _assert_bag_grad(grads[0][0], G, S.view(-1, 1), n, plan_s)
     assert torch.equal(grads[0][1], embedding_bag_ref(H, R.view(-1, 1)))
     assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
+# ---------------------------------------------------------------------------
+# the bag kernels' wide-row path (kernels.bag_path: d >= 32)
+# ---------------------------------------------------------------------------
+
+# (d, n_rows, n_edges): PNA's, MeshGraphNet's and Equiformer-v2's widths
+WIDE_CASES = [(75, 3_000, 20_000), (128, 3_000, 20_000),
+              (6_272, 1_500, 4_000)]
+
+
+def _wide_case(d, n, e, seed):
+    """Messages and node rows N(0, 1); senders uniform, every 13th the
+    sentinel n; receivers: a hub (a third of the edges on row 7: a run of
+    hundreds of slots, far past the 32-slot blocks), runs of exactly 32
+    and 33 slots (rows 11 and 12), the rest uniform over rows 13 and up
+    with every 17th a sentinel (-1, n, n + 3); edges shuffled."""
+    rng = np.random.default_rng(seed)
+    s = rng.integers(0, n, e).astype(np.int32)
+    s[::13] = n
+    rest = rng.integers(13, n, e - e // 3 - 65).astype(np.int32)
+    rest[::17] = np.resize(np.array([-1, n, n + 3], np.int32),
+                           rest[::17].shape)
+    r = np.concatenate([np.full(e // 3, 7, np.int32),
+                        np.full(32, 11, np.int32), np.full(33, 12, np.int32),
+                        rest])
+    perm = rng.permutation(e)
+    X = _t(rng.normal(size=(n, d)).astype(np.float32)).cuda()
+    M = _t(rng.normal(size=(e, d)).astype(np.float32)).cuda()
+    return X, M, _t(s[perm]).cuda().view(-1, 1), _t(r[perm]).cuda().view(-1, 1)
+
+
+def _offset_view(t, offset=1):
+    """``t``'s values in a view ``offset`` floats into a larger buffer (not
+    16-byte aligned: the kernels then take 4-byte loads)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    view = buf[offset:].view(t.shape)
+    view.copy_(t)
+    assert view.data_ptr() % 16 != 0
+    return view
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n,e", WIDE_CASES)
+def test_cuda_wide_gather_is_bitwise_its_plain_version(d, n, e):
+    """The gather's wide path (one launch each): bags of one id bitwise the
+    plain version and on a repeat, ids outside [0, n) giving 0; the same
+    bits from a misaligned table view and a misaligned ids view; hot 2
+    bitwise too (a sum of two floats from 0 has one rounding)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    X, _, S, _ = _wide_case(d, n, e, d + 1)
+    w0 = embedding_bag_kernel.paths["wide"]
+    _check_bag(X, S)
+    assert embedding_bag_kernel.paths["wide"] == w0 + 2
+    got = embedding_bag_kernel(X, S)
+    assert torch.equal(embedding_bag_kernel(_offset_view(X), S), got)
+    assert torch.equal(embedding_bag_kernel(X, S[1:]), got[1:])
+    _check_bag(X, S.view(-1)[: e // 2 * 2].view(-1, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n,e", WIDE_CASES)
+def test_cuda_wide_scatter_matches_plain_and_writes_every_row(d, n, e):
+    """The backward's wide path: within 1e-6 of each row's sum of |m| of
+    the plain version (rows no valid id touches exactly 0), bitwise on a
+    repeat, every row written once (into a NaN-filled ``_out``), the same
+    bits from a misaligned messages view; a hub far longer than a block
+    and runs of 32 and 33 slots among the rows."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _, M, _, R = _wide_case(d, n, e, d + 2)
+    plan = bag_grad_plan(R, n)
+    counts = torch.bincount(plan.sorted_ids.long(), minlength=n + 1)[:n]
+    assert int(counts[7]) > 32 * 8 and counts[11:13].tolist() == [32, 33]
+    w0 = embedding_bag_backward.paths["wide"]
+    got = embedding_bag_backward(M, R, n, plan)
+    assert embedding_bag_backward.paths["wide"] == w0 + 1
+    _assert_bag_grad(got, M, R, n, plan)
+    assert torch.equal(embedding_bag_backward(M, R, n, plan), got)
+    out = torch.full((n, d), float("nan"), device="cuda")
+    assert embedding_bag_backward(M, R, n, plan, _out=out) is out
+    assert torch.equal(out, got)
+    assert torch.equal(embedding_bag_backward(_offset_view(M), R, n, plan),
+                       got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,n,e", WIDE_CASES + [(10, 3_000, 20_000)])
+def test_cuda_accumulate_form_is_bitwise_add_of_the_scatter(d, n, e):
+    """The accumulate form (``acc=``) bitwise ``acc.add_(scatter)`` at the
+    wide widths, in place, untouched rows left as they were, from an
+    aligned and a misaligned ``acc`` and messages view; at d = 10 (a
+    narrow width, which the form also sends down the wide path) within
+    1e-6 of each row's sum of |m| of the plain version. ``ScatterAdd``
+    on the card: the gradient of ``acc`` the incoming one, that of the
+    messages the gather of it, bitwise."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    X, M, _, R = _wide_case(d, n, e, d + 3)
+    plan = bag_grad_plan(R, n)
+    part = embedding_bag_backward(M, R, n, plan)
+    want = X + embedding_bag_backward_ref(M, R, n, plan)
+    scale = embedding_bag_backward_ref(M.abs(), R, n, plan)
+    a0 = embedding_bag_backward.paths["wide_accumulate"]
+    for acc, msgs in ((X.clone(), M), (_offset_view(X), _offset_view(M))):
+        got = embedding_bag_backward(msgs, R, n, plan, acc=acc)
+        assert got is acc
+        if d >= 32:
+            assert torch.equal(got, X.clone().add_(part))
+        else:       # the sums' tolerance, and one rounding of the add
+            assert ((got - want).abs()
+                    <= 1e-6 * scale + 2.4e-7 * want.abs()).all()
+    assert embedding_bag_backward.paths["wide_accumulate"] == a0 + 2
+    untouched = ~torch.isin(torch.arange(n, device="cuda"),
+                            plan.sorted_ids.long())
+    assert untouched.any() and torch.equal(got[untouched], X[untouched])
+    if d < 32:
+        return
+    from repro_torch.kernels.embedding_bag import ScatterAdd
+
+    up = torch.randn((n, d), device="cuda")
+    acc, m = X.clone().requires_grad_(), M.clone().requires_grad_()
+    s = acc * 1.0
+    (ScatterAdd.apply(s, m, R, n, plan) * up).sum().backward()
+    assert torch.equal(acc.grad, up)
+    assert torch.equal(m.grad, embedding_bag_ref(up, R))
+
+
+@pytest.mark.cuda
+def test_cuda_equiformer_chunk_sums_bitwise_the_add_form():
+    """Equiformer-v2 at SMOKE widths (3 layers, 4 edge chunks, remat) on
+    the card: the loss and every gradient with each chunk added into the
+    running sum by the kernel bit for bit those of the chunked ``add_``
+    form, the accumulate form launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    import repro_torch.models.gnn.equiformer as TE
+    from repro_torch.configs import equiformer_v2
+    from repro_torch.models.gnn.common import GraphBatch
+    from repro_torch.tree import leaves, value_and_grad
+
+    cfg, init, fwd = equiformer_v2.make_model("smoke", 12)
+    cfg = dataclasses.replace(cfg, n_layers=3, edge_chunk_size=64,
+                              remat=True)
+    rng = np.random.default_rng(21)
+    n, e = 120, 250
+    g = GraphBatch(
+        senders=_t(rng.integers(0, n, e).astype(np.int32)).cuda(),
+        receivers=_t(rng.integers(0, n, e).astype(np.int32)).cuda(),
+        node_feat=_t(rng.normal(size=(n, 12)).astype(np.float32)).cuda(),
+        pos=_t(rng.normal(size=(n, 3)).astype(np.float32)).cuda(),
+    ).with_plans(edge_chunk=64)
+    params = init(cfg, torch.Generator(device="cuda").manual_seed(3),
+                  "cuda")
+    real = TE.scatter_rows
+
+    def add_form(msgs, idx, n_rows, plan=None, acc=None, reduce=True):
+        part = real(msgs, idx, n_rows, plan, reduce=reduce)
+        return part if acc is None else acc.add_(part)
+
+    runs = []
+    for form in (real, add_form):
+        TE.scatter_rows = form
+        try:
+            a0 = embedding_bag_backward.paths["wide_accumulate"]
+            val, grads = value_and_grad(
+                lambda p: torch.mean(torch.square(fwd(cfg, p, g))), params)
+            torch.cuda.synchronize()
+            runs.append((val, leaves(grads),
+                         embedding_bag_backward.paths["wide_accumulate"]
+                         - a0))
+        finally:
+            TE.scatter_rows = real
+    (v0, g0, acc0), (v1, g1, acc1) = runs
+    assert acc0 > 0 and acc1 == 0
+    assert torch.equal(v0, v1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
 
 
 # ---------------------------------------------------------------------------

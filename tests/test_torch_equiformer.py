@@ -418,6 +418,39 @@ def test_remat_on_and_off_give_the_same_bits(chunk):
                                        for a, b in zip(g0, g2))
 
 
+def test_chunk_scatters_add_into_the_sum_bitwise_the_add_form(monkeypatch):
+    """Each edge chunk's scatter adds into the running sum (the kernel's
+    accumulate form, ``ScatterAdd``): the loss, output and every gradient
+    bit for bit those of the chunked ``add_`` form (a sum per chunk, then
+    ``agg.add_(part)``), at SMOKE on 60 edges in 4 chunks of 16 with
+    remat; the form is taken by every chunk but each layer's first."""
+    tcfg, _, _ = t_eqf.make_model("smoke", 12)
+    tcfg = dataclasses.replace(_chunked(tcfg), n_layers=3)
+    _, tg = graphs(graph_inputs(16, 24, 60, 12), edge_chunk=16)
+    tp = TE.init_equiformer(tcfg, torch.Generator().manual_seed(4), "cpu")
+    calls = []
+    real = TE.scatter_rows
+
+    def counted(msgs, idx, n, plan=None, acc=None, reduce=True):
+        calls.append(acc is not None)
+        return real(msgs, idx, n, plan, acc, reduce)
+
+    def add_form(msgs, idx, n, plan=None, acc=None, reduce=True):
+        part = real(msgs, idx, n, plan, reduce=reduce)
+        return part if acc is None else acc.add_(part)
+
+    monkeypatch.setattr(TE, "scatter_rows", counted)
+    v0, o0, g0 = port_loss_and_grads(tcfg, tp, tg)
+    # forward, and the recompute of each layer's forward in the backward
+    assert calls == [False, True, True, True] * 3 * 2
+    monkeypatch.setattr(TE, "scatter_rows", add_form)
+    v1, o1, g1 = port_loss_and_grads(tcfg, tp, tg)
+    assert torch.equal(v0, v1) and torch.equal(o0, o1)
+    assert len(g0) == len(g1) and all(torch.equal(a, b)
+                                      for a, b in zip(g0, g1))
+    assert any(bool((g != 0).any()) for g in g0)
+
+
 def test_rotation_and_translation_invariance_is_the_references():
     """Outputs under a seeded rotation and translation of ``pos``: the
     port's relative change at most twice the reference's."""

@@ -8,7 +8,8 @@ smem_bytes)`` to the C entry points, which refuse a plan that breaks these
 rules. Checked here, without a card, for every width the solver can select
 (0 … 64, ``select_ell_width``'s cap), for the bag shapes of the port's
 models and tests, and past what fits; and that the kernels' build hashes
-every source and header.
+every source and header. ``bag_path(d)`` picks the bag kernels' path
+(the tiles above, or the wide-row split over a warp's lanes) from ``d``.
 """
 
 import pytest
@@ -18,8 +19,8 @@ torch = pytest.importorskip("torch")
 # test process oversubscribes the cores when test files run in parallel
 torch.set_num_threads(1)
 
-from repro_torch.kernels import (SMEM_PER_BLOCK, bag_tile_plan,  # noqa: E402
-                                 ell_tile_plan)
+from repro_torch.kernels import (SMEM_PER_BLOCK, bag_path,  # noqa: E402
+                                 bag_tile_plan, ell_tile_plan)
 
 H100_SMEM_PER_BLOCK = 232_448
 
@@ -62,6 +63,7 @@ def test_build_hashes_every_kernel_source_and_header():
     assert set(_build.HEADERS) == {p.name for p in _build.CSRC.glob("*.cuh")}
     assert "ell_tiles.cuh" in _build.HEADERS
     assert "bulk_copy.cuh" in _build.HEADERS
+    assert "row_slabs.cuh" in _build.HEADERS
 
 
 # (hot, d): DeepFM's bags and first-order weights (2, 10) and (2, 1), the
@@ -106,3 +108,19 @@ def test_bag_tile_plan_zero_stages_where_nothing_fits_or_is_summed():
         bag_tile_plan(-1, 10)
     with pytest.raises(ValueError):
         bag_tile_plan(2, -1)
+
+
+# (d, path): DeepFM's d = 1 and 10, EGNN's coordinates' 3 and the segment
+# softmax's 8 keep the tiled path; PNA's 75, MeshGraphNet's 128 and
+# Equiformer-v2's 6,272 take the wide-row path, from 32 floats on
+@pytest.mark.parametrize("d,path", [
+    (1, "narrow"), (3, "narrow"), (8, "narrow"), (10, "narrow"),
+    (31, "narrow"), (32, "wide"), (75, "wide"), (128, "wide"),
+    (6_272, "wide"), (0, "narrow")])
+def test_bag_path_by_width(d, path):
+    assert bag_path(d) == path
+
+
+def test_bag_path_refuses_a_negative_width():
+    with pytest.raises(ValueError):
+        bag_path(-1)
