@@ -43,7 +43,12 @@ Phases, one line each (any failure exits non-zero):
              on the inputs of the setup's last vote at that level
              (launches per setup; the rows padded to the level's bucket):
              the tile plan, both times against the bound, a check against
-             the plain version and a bitwise repeat.
+             the plain version and a bitwise repeat. Then the k-column
+             forms (``spmv_ell_block``, ``jacobi_block``: the TPU kernels
+             under ``jax.vmap``) at the main path's shapes with k = 8,
+             each against its plain version, bitwise on a repeat and,
+             column by column, bitwise the one-vector kernel; its
+             launches are those of the facade's throughput block.
 4. facade  — the facade (``repro_torch.api``) on the main graph, after the
              main solver is dropped: ``Problem.from_edges`` and
              ``fingerprint()`` (seconds), ``setup(problem, SolverOptions(
@@ -54,7 +59,13 @@ Phases, one line each (any failure exits non-zero):
              ``spmv_ell`` and ``jacobi``, converge in every column with a
              float64 host residual ≤ 1e-4, and equal looped single solves
              bit for bit (ms per right-hand side at k = 1 and 8), as must
-             the block with guards off and with ``x0`` zeros; a second
+             the block with guards off and with ``x0`` zeros; the same
+             block at ``exact_columns=False`` (the reference's vmapped
+             throughput path), after one warm-up solve: ms per right-hand
+             side, iterations against the looped ones, host residual
+             ≤ 1e-4 in every column, and the launches of each form with
+             the counts set to 0 just before (the k-column kernels > 0,
+             the one-vector ones 0); a second
              equal setup from the cache (``setup_seconds == 0.0``);
              ``verify="paranoid"`` and ``"cheap"``, bitwise equal with a
              passing certificate (the certificate's seconds; the check's cost per
@@ -98,10 +109,14 @@ Phases, one line each (any failure exits non-zero):
              aggregation level), and the eager residual histories must be
              bitwise the super-step's; each aggregation level's strength
              stage is timed alone without and with the twin; Jacobi-PCG at
-             tol 1e-6 is recorded, not required to converge. Then
+             tol 1e-6 is recorded, not required to converge. The sweeps
+             run the k-column ``spmv_ell`` (8 vectors a launch; the
+             setup's launches by form are printed). Then the k-column
              ``spmv_ell`` at every shape the sweeps-on setups launched it
              (both modes), on the setup's own last arguments at that
-             shape, against its plain version and for a bitwise repeat.
+             shape, against its plain version, for a bitwise repeat and
+             column by column against the one-vector kernel, and its
+             record at the largest such shape.
              The phase's launches (read before these checks) go into the
              kernels JSON as ``paper_launches``.
 6. service — the serving layer (``repro_torch.service``) at a serving
@@ -152,10 +167,14 @@ Phases, one line each (any failure exits non-zero):
              twice from one cache (the second makes no setup and launches
              no agg_vote; both bitwise equal), and
              ``effective_resistance(n_probes=64)`` (every column's float64
-             host residual ≤ 1e-4). All three solver kernels must launch;
-             then the same kernel checks as ``service`` at the mesh's
-             finest shapes and its setup's first agg_vote level; launches
-             as ``spectral_launches``.
+             host residual ≤ 1e-4), each step with its launches by form.
+             Every solve is blocked on the throughput path: the k-column
+             ``spmv_ell`` and ``jacobi`` and ``agg_vote`` must launch, the
+             one-vector ``spmv_ell`` and ``jacobi`` never; then the same
+             kernel checks as ``service`` (on the k-column forms) at the
+             mesh's finest shapes and its setup's first agg_vote level,
+             and the k-column records there at k = 8 and 64; launches as
+             ``spectral_launches``.
 8. e2e     — the same path at n = 2^16 with the kernels and with the plain
              versions (the setup registry cleared between the two):
              identical levels, iteration counts within ±1 and ‖x_k −
@@ -166,7 +185,8 @@ Phases, one line each (any failure exits non-zero):
              plan's start to its end (lifted only in its host fetches and
              the host work after the last) completes and launches
              ``agg_vote``, and so does one with ``setup_ell_sweeps`` (its
-             own registry entries), which must launch ``spmv_ell``; the
+             own registry entries), which must launch the k-column
+             ``spmv_ell`` (the sweeps' 8 vectors); the
              eager loop's host syncs (mode ``"warn"``)
              are counted beside the super-step's fetches; the second graph
              adds no registry entry; the batched setup of both graphs is
@@ -187,18 +207,22 @@ Phases, one line each (any failure exits non-zero):
              where they differ), unguarded and repeated (both bitwise),
              with all-reduce calls and bytes and launches per solve; the
              facade's ``dist`` backend on the same mesh (converged,
-             bitwise the direct solve). Then ``spmv_ell`` on every
-             distributed level's rank block, ``spmv_ell`` and ``jacobi``
-             on the replicated tail and ``agg_vote`` on every row block
-             of the setup, each against its plain version with both
-             times, the bound and launches per solve column or setup.
+             bitwise the direct solve). The blocked solves run the matvec
+             and the V-cycle on the whole block: the k-column forms of
+             ``spmv_ell`` (every distributed level's rank block, and the
+             tail) and ``jacobi`` (the tail) must launch, each then at
+             the solves' shapes, ``agg_vote`` on every row block of the
+             setup, each against its plain version (a k-column form also
+             column by column against the one-vector kernel) with both
+             times, the bound and launches per solve or setup.
              The kernels' launches there go into the kernels JSON as
              ``dist_launches``. (b) BA 2^18 on a 2×2 mesh of four gloo
              processes on the one card (``run_world``, joined under a
              timeout; every reduction staged through host memory): each
              rank's levels and integer decisions equal a world of one's
              on the same graph, equal iterations, the same x in every
-             rank, host residual ≤ 1e-4, every solver kernel launched,
+             rank, host residual ≤ 1e-4, ``agg_vote`` and the k-column
+             ``spmv_ell`` and ``jacobi`` launched, the k-column
              ``spmv_ell`` and ``agg_vote`` at the rank's block shapes
              against their plain versions; and the paper's §2.2 balance
              (``balance_report``) of the finest level with random ordering
@@ -513,7 +537,26 @@ REPLACES = {
     # backward's id sort
     "embedding_bag_backward": "src/repro/models/recsys/embedding.py:14",
     "bag_grad_plan": "src/repro/models/recsys/embedding.py:14",
+    # the k-column forms: the same TPU kernels under jax.vmap over a column
+    # axis (VMAPPED_AT)
+    "spmv_ell_block": "src/repro/kernels/spmv_ell/spmv_ell.py:41",
+    "jacobi_block": "src/repro/kernels/jacobi/jacobi.py:35",
 }
+# where the reference vmaps those kernels over the columns of a block
+VMAPPED_AT = {
+    "spmv_ell_block": "src/repro/core/krylov.py:311, "
+                      "src/repro/sparse/matvec.py:203, "
+                      "src/repro/dist/solver.py:249",
+    "jacobi_block": "src/repro/core/krylov.py:312, "
+                    "src/repro/dist/solver.py:250",
+}
+# a kernel form's module (the k-column forms share their kernel's wrapper)
+BLOCK_FORMS = {"spmv_ell_block": "spmv_ell", "jacobi_block": "jacobi"}
+
+
+def module_of(name: str) -> str:
+    """The kernel package of a kernel or kernel form's name."""
+    return BLOCK_FORMS.get(name, name)
 # each kernel package's wrapper and its plain version
 WRAPPERS = {
     "repro_torch.kernels.spmv_ell": ("spmv_ell", "spmv_ell_ref"),
@@ -586,15 +629,19 @@ def kernel_work(name: str, args) -> tuple[int, int]:
     """The bytes an ELL kernel must move (each input read once, each output
     written once) and the operations it does, for its wrapper's positional
     ``args``: ``spmv_ell(col, val, x)``, ``jacobi(col, val, x, b, deg)``,
-    ``agg_vote(col, sq, state)``. Only the table's real entries count."""
+    ``agg_vote(col, sq, state)``; the k-column forms ``spmv_ell_block``
+    and ``jacobi_block`` on ``x`` [n_x, k] (the tables read once for all k
+    columns). Only the table's real entries count."""
     col = args[0]
     n, w = col.shape
     n_x = args[2].shape[0]
-    if name == "spmv_ell":
-        return 8 * n * w + 4 * n_x + 4 * n, 2 * int((col < n_x).sum())
-    if name == "jacobi":
-        return (8 * n * w + 4 * n_x + 12 * n,
-                2 * int((col < n_x).sum()) + 6 * n)
+    k = args[2].shape[1] if args[2].dim() == 2 else 1
+    real = int((col < n_x).sum()) if name in ("spmv_ell", "jacobi",
+                                              *BLOCK_FORMS) else 0
+    if module_of(name) == "spmv_ell":
+        return 8 * n * w + 4 * k * (n_x + n), 2 * real * k
+    if module_of(name) == "jacobi":
+        return 8 * n * w + 12 * k * n + 4 * n, (2 * real + 6 * n) * k
     return (8 * n * w + 4 * n_x + 8 * n,
             4 * int(((col >= 0) & (col < n_x)).sum()))
 
@@ -603,7 +650,9 @@ def kernel_work(name: str, args) -> tuple[int, int]:
 def shapes_launched(mods):
     """Within the block, tally the calls of the ELL kernels of ``mods`` by
     table shape: yields {kernel: {(n_rows, width): [calls, args, kw]}},
-    with the arguments of the last call at that shape. The wrapper is
+    with the arguments of the last call at that shape; the calls of
+    ``spmv_ell`` and ``jacobi`` on ``[n, k]`` blocks (their k-column
+    forms) under ``spmv_ell_block`` and ``jacobi_block``. The wrapper is
     rebound to a function that counts and calls it, so its own launch
     count rises as before."""
     tally = {}
@@ -612,12 +661,16 @@ def shapes_launched(mods):
         mod = importlib.import_module(mod_name)
         wrapper_name = WRAPPERS[mod_name][0]
         real = saved[mod_name] = getattr(mod, wrapper_name)
-        counts = tally[mod_name.rsplit(".", 1)[1]] = {}
+        name = mod_name.rsplit(".", 1)[1]
+        forms = {1: tally.setdefault(name, {})}
+        if name in BLOCK_FORMS.values():
+            forms[2] = tally.setdefault(f"{name}_block", {})
 
-        def counted(col, *args, _real=real, _counts=counts, **kw):
+        def counted(col, *args, _real=real, _forms=forms, **kw):
+            counts = _forms[args[1].dim() if len(_forms) > 1 else 1]
             key = tuple(col.shape)
-            calls = _counts[key][0] if key in _counts else 0
-            _counts[key] = [calls + 1, (col, *args), kw]
+            calls = counts[key][0] if key in counts else 0
+            counts[key] = [calls + 1, (col, *args), kw]
             return _real(col, *args, **kw)
 
         setattr(mod, wrapper_name, counted)
@@ -647,6 +700,14 @@ def plain_versions():
         for mod_name, (wrapper, _) in WRAPPERS.items():
             setattr(importlib.import_module(mod_name), wrapper,
                     saved[mod_name])
+
+
+def block_launches() -> dict:
+    """The k-column forms' launch counts, by form name."""
+    return {form: getattr(importlib.import_module(
+        f"repro_torch.kernels.{mod}.ops"), WRAPPERS[
+            f"repro_torch.kernels.{mod}"][0]).block_launches
+        for form, mod in BLOCK_FORMS.items()}
 
 
 def launch_counts(mods=SOLVER_KERNELS) -> tuple:
@@ -718,7 +779,7 @@ def kernel_record(torch, name, launches, err, kernel, plain, bytes_moved,
         bytes=int(bytes_moved), profiler_windows=windows,
         **({} if path is None else dict(path=path)))
     rec = dict(name=label or name, route="cuda",
-               source=f"src/repro_torch/csrc/{name}.cu",
+               source=f"src/repro_torch/csrc/{module_of(name)}.cu",
                replaces=replaces or REPLACES[name], launches=launches,
                max_abs_err=err, ms=d_ms, kernel_ms=k_ms, device_ms=d_ms,
                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
@@ -796,7 +857,7 @@ def phase_main(torch, np):
         undirected_edges=len(r) // 2, stored_nnz=len(r),
         generate_s=round(gen_s, 1))
 
-    spmv_ell.launches = jacobi_step.launches = vote_reduce.launches = 0
+    zero_launches()
     setup_step.reset_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -934,14 +995,7 @@ def phase_kernels(torch, np, solver, launches, per_shape):
     torch.cuda.synchronize()
     check(torch.allclose(y, y_ref, rtol=1e-5, atol=1e-6),
           "spmv_ell disagrees with its plain version")
-    real = col < n
-    counts = real.sum(dim=1)
-    crow = torch.zeros(n + 1, dtype=torch.int64, device=dev)
-    crow[1:] = torch.cumsum(counts, 0)
-    with warnings.catch_warnings():       # sparse CSR is a beta API
-        warnings.simplefilter("ignore", UserWarning)
-        csr = torch.sparse_csr_tensor(crow, col[real].long(), val[real],
-                                      (n, n), check_invariants=False)
+    csr = csr_of(torch, col, val, n)
     record("spmv_ell", (y - y_ref).abs().max().item(),
            lambda: spmv_ell(col, val, x), lambda: spmv_ell_ref(col, val, x),
            *kernel_work("spmv_ell", (col, val, x)),
@@ -998,7 +1052,66 @@ def phase_kernels(torch, np, solver, launches, per_shape):
     after = (spmv_ell.launches, jacobi_step.launches, vote_reduce.launches)
     check(all(a > b for a, b in zip(after, before)),
           "a kernel was not launched in the comparison phase")
+
+    # the k-column forms at the main path's shapes for the facade's
+    # throughput block of 8 (phase facade, whose launches they get):
+    # spmv_ell on the finest table, jacobi on the first aggregation level's
+    top_col, top_val = top.ell.col, top.ell.val
+    X = torch.randn(top_col.shape[0], 8, generator=gen, device=dev)
+    records.append(block_record(torch, "spmv_ell_block", top_col, top_val, X))
+    n = agg.ell.col.shape[0]
+    X, B = (torch.randn(n, 8, generator=gen, device=dev) for _ in range(2))
+    records.append(block_record(torch, "jacobi_block", agg.ell.col,
+                                agg.ell.val, X, B, agg.deg))
     return records
+
+
+def csr_of(torch, col, val, n_cols):
+    """The real slots of an ELL table as a CSR tensor (the library
+    yardstick's operand)."""
+    n = col.shape[0]
+    real = col < n_cols
+    crow = torch.zeros(n + 1, dtype=torch.int64, device=col.device)
+    crow[1:] = torch.cumsum(real.sum(dim=1), 0)
+    with warnings.catch_warnings():       # sparse CSR is a beta API
+        warnings.simplefilter("ignore", UserWarning)
+        return torch.sparse_csr_tensor(crow, col[real].long(), val[real],
+                                       (n, n_cols), check_invariants=False)
+
+
+def block_record(torch, name, col, val, X, B=None, deg=None, launches=0,
+                 label=None) -> dict:
+    """A k-column form's entry of the ``kernels`` JSON line on ``X`` [n, k]
+    (and ``B``, ``deg`` for ``jacobi_block``): against its plain version
+    (rtol 1e-5 / atol 1e-6), bitwise on a repeat and, column by column,
+    bitwise the one-vector kernel; its times, bound and, for
+    ``spmv_ell_block``, ``torch.sparse.mm`` of the table's CSR by ``X`` as
+    the library yardstick. ``launches`` is replaced by the path's own
+    count where the record is of a main path's shapes."""
+    mod = f"repro_torch.kernels.{module_of(name)}"
+    run, plain = (getattr(importlib.import_module(mod), f)
+                  for f in WRAPPERS[mod])
+    args = (col, val, X) if B is None else (col, val, X, B, deg)
+    got, want, again = run(*args), plain(*args), run(*args)
+    torch.cuda.synchronize()
+    where = f"{label or name} ({tuple(col.shape)}, k={X.shape[1]})"
+    check(torch.allclose(got, want, rtol=1e-5, atol=1e-6),
+          f"{where} disagrees with its plain version")
+    check(torch.equal(got, again), f"{where} is not bitwise repeatable")
+    check(columns_bitwise(torch, run, args, {}, got),
+          f"{where}: a column differs from the one-vector kernel")
+    library = None
+    if B is None:
+        csr = csr_of(torch, col, val, X.shape[0])
+        library = lambda: torch.sparse.mm(csr, X)          # noqa: E731
+    rec = kernel_record(torch, name, launches,
+                        (got - want).abs().max().item(),
+                        lambda: run(*args), lambda: plain(*args),
+                        *kernel_work(name, args), library=library,
+                        label=label)
+    rec.update(rows=col.shape[0], width=col.shape[1], k=X.shape[1],
+               vmapped_at=VMAPPED_AT[name])
+    return rec
 
 
 def phase_levels(torch, solver, per_shape) -> None:
@@ -1177,6 +1290,8 @@ def phase_facade(torch, np, setup) -> dict:
     check(res_b.converged and all(s == "converged" for s in res_b.statuses),
           f"a column did not converge: {res_b.statuses.tolist()}")
     check(bool((rels <= 1e-4).all()), f"host residuals {rels.tolist()}")
+    throughput = phase_facade_throughput(torch, np, problem, opts, B, res_b,
+                                         block_s, looped_s, (n, r, c, v))
 
     # 3. the cache
     again = api_setup(problem, opts, backend="auto")
@@ -1300,7 +1415,53 @@ def phase_facade(torch, np, setup) -> dict:
           f"embedding_bag {bags}, its backward {grads} and its plan {plans} "
           "times")
     return dict(launched, agg_vote=votes, embedding_bag=bags,
-                embedding_bag_backward=grads, bag_grad_plan=plans)
+                embedding_bag_backward=grads, bag_grad_plan=plans,
+                **throughput)
+
+
+def phase_facade_throughput(torch, np, problem, opts, B, res_b, block_s,
+                            looped_s, graph) -> dict:
+    """Step 2b of phase facade: the block of 8 again at
+    ``exact_columns=False``, the reference's vmapped throughput path, after
+    one warm-up solve: ms per right-hand side beside the exact block's and
+    the looped solves', per-column iterations against the looped ones
+    (``res_b``'s, which equal them), a float64 host residual ≤ 1e-4 in
+    every column, and the launches of each form in the timed solve, the
+    counts set to 0 just before it: the k-column kernels > 0, the
+    one-vector kernels 0. Returns those launches by form."""
+    from repro_torch.api import setup as api_setup
+
+    n, r, c, v = graph
+    topts = dataclasses.replace(opts, exact_columns=False)
+    # out of the process-wide cache, so that its hierarchy is freed here
+    tsolver = api_setup(problem, topts, backend="auto", cache=False)
+    tsolver.solve(B)                                   # warm
+    zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    X_t, res_t = tsolver.solve(B)
+    torch.cuda.synchronize()
+    thr_s = time.perf_counter() - t0
+    forms = ("spmv_ell", "jacobi", *BLOCK_FORMS)
+    launched = {k: phase_launches()[k] for k in forms}
+    rels = host_residual(n, r, c, v, B, X_t)
+    say("facade", step="throughput", exact_columns=False,
+        ms_per_rhs_k8=thr_s * 1e3 / 8,
+        exact_ms_per_rhs_k8=block_s * 1e3 / 8,
+        looped_ms_per_rhs=looped_s * 1e3 / 8,
+        block_iters=json.dumps(res_t.iters_per_rhs.tolist()),
+        looped_iters=json.dumps(res_b.iters_per_rhs.tolist()),
+        statuses=json.dumps(res_t.statuses.tolist()),
+        max_host_f64_rel_residual=f"{rels.max():.3e}",
+        launches=json.dumps(launched))
+    check(res_t.converged and all(s == "converged" for s in res_t.statuses),
+          f"throughput block: {res_t.statuses.tolist()}")
+    check(bool((rels <= 1e-4).all()), f"throughput host residuals "
+          f"{rels.tolist()}")
+    check(all(launched[k] > 0 for k in BLOCK_FORMS)
+          and launched["spmv_ell"] == launched["jacobi"] == 0,
+          f"the throughput block launched {launched}")
+    return {k: launched[k] for k in BLOCK_FORMS}
 
 
 def _bag_backward() -> dict:
@@ -1310,17 +1471,20 @@ def _bag_backward() -> dict:
 
 
 def phase_launches() -> dict:
-    """Every kernel's launch count, by kernel name."""
+    """Every kernel's launch count, by kernel name (the k-column forms by
+    form name)."""
     counts = dict(zip((m.rsplit(".", 1)[1] for m in WRAPPERS),
                       launch_counts(tuple(WRAPPERS))))
-    return dict(counts, **{name: fn.launches
-                           for name, fn in _bag_backward().items()})
+    return dict(counts, **block_launches(),
+                **{name: fn.launches for name, fn in _bag_backward().items()})
 
 
 def zero_launches() -> None:
     for mod_name, (wrapper, _) in WRAPPERS.items():
-        getattr(importlib.import_module(f"{mod_name}.ops"),
-                wrapper).launches = 0
+        fn = getattr(importlib.import_module(f"{mod_name}.ops"), wrapper)
+        fn.launches = 0
+        if hasattr(fn, "block_launches"):
+            fn.block_launches = 0
     for fn in _bag_backward().values():
         fn.launches = 0
 
@@ -1387,20 +1551,20 @@ def phase_paper(torch, np) -> dict:
             check(ours["wda"] < jac["wda"], f"de2010: ours' WDA "
                   f"{ours['wda']:.3f} is not below Jacobi-PCG's "
                   f"{jac['wda']:.3f}")
-    sweeps_shapes = phase_paper_delaunay(torch, np)
+    sweeps_shapes, twin_rec = phase_paper_delaunay(torch, np)
     launched = phase_launches()
     check_setup_sweeps(torch, sweeps_shapes)
     say("paper", seconds=round(time.perf_counter() - t0, 1))
-    return launched
+    return dict(launched, records=[twin_rec])
 
 
 def check_setup_sweeps(torch, shapes) -> None:
-    """``spmv_ell`` at every (rows, width) where a sweeps-on setup launched
-    it, on that setup's last arguments at the shape
+    """The k-column ``spmv_ell`` at every (rows, width) where a sweeps-on
+    setup launched it, on that setup's last arguments at the shape
     (``check_kernel_shapes``)."""
     check_kernel_shapes(torch, "paper", [
-        ("spmv_ell", shape, entry, dict(step="setup_spmv_ell",
-                                        setup_mode=mode))
+        ("spmv_ell_block", shape, entry, dict(step="setup_spmv_ell",
+                                              setup_mode=mode))
         for mode, tally in shapes.items()
         for shape, entry in sorted(tally.items())])
 
@@ -1410,9 +1574,11 @@ def check_kernel_shapes(torch, phase, picks) -> None:
     launched at: ``picks`` holds ``(kernel, (rows, width), (calls, args,
     kw), labels)`` from ``shapes_launched``. Against the plain version
     (spmv_ell and jacobi at rtol 1e-5 / atol 1e-6, agg_vote bit-exact) and
-    for a bitwise repeat."""
+    for a bitwise repeat; a k-column form also column by column, bitwise
+    against the one-vector kernel."""
     for name, (rows, w), (calls, args, kw), labels in picks:
-        mod = importlib.import_module(f"repro_torch.kernels.{name}")
+        mod = importlib.import_module(
+            f"repro_torch.kernels.{module_of(name)}")
         wrapper, ref = WRAPPERS[mod.__name__]
         run, plain = getattr(mod, wrapper), getattr(mod, ref)
         got, want, again = (run(*args, **kw), plain(*args, **kw),
@@ -1435,6 +1601,23 @@ def check_kernel_shapes(torch, phase, picks) -> None:
                   f"{err:.3e}")
         check(all(torch.equal(g, a) for g, a in zip(got, again)),
               f"{where} is not bitwise repeatable")
+        if name in BLOCK_FORMS:
+            check(columns_bitwise(torch, run, args, kw, got[0]),
+                  f"{where}: a column differs from the one-vector kernel")
+
+
+def columns_bitwise(torch, run, args, kw, block) -> bool:
+    """Each column j of a k-column result ``block`` of ``run(*args)`` (x,
+    and b for jacobi, ``[n, k]``) bitwise the one-vector kernel on column
+    j."""
+    cols = [i for i, a in enumerate(args) if a.dim() == 2 and i >= 2]
+    for j in range(block.shape[1]):
+        one = list(args)
+        for i in cols:
+            one[i] = args[i][:, j].contiguous()
+        if not torch.equal(run(*one, **kw), block[:, j]):
+            return False
+    return True
 
 
 def phase_paper_delaunay(torch, np) -> dict:
@@ -1475,16 +1658,19 @@ def phase_paper_delaunay(torch, np) -> dict:
         cfg = SetupConfig(matvec_backend="ell", setup_ell_sweeps=sweeps,
                           setup_mode=mode)
         torch.cuda.synchronize()
-        k0, t0 = spmv_ell.launches, time.perf_counter()
+        k0, t0 = phase_launches(), time.perf_counter()
         with shapes_launched(SOLVER_KERNELS[:1]) as tally:
             solver = LaplacianSolver.setup(n, r, c, v, cfg)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
-        in_setup = spmv_ell.launches - k0
+        # the setup's launches by form: the sweeps' k-column spmv_ell (8
+        # vectors a sweep, as the reference's vmap), λmax's one-vector one
+        in_setup = {k: phase_launches()[k] - k0[k]
+                    for k in ("spmv_ell", "spmv_ell_block")}
         ts = solver.hierarchy.transfers
         agg_ns = [t.fine.n for t in ts if isinstance(t, AggregationLevel)]
         by_level = {}
-        for (rows, w), (calls, _, _) in tally["spmv_ell"].items():
+        for (rows, w), (calls, _, _) in tally["spmv_ell_block"].items():
             at = [m for m in agg_ns if rows in (m, pow2_bucket(m))]
             by_level[f"{','.join(map(str, at)) or '?'}:{rows}x{w}"] = calls
         solves = []
@@ -1503,22 +1689,24 @@ def phase_paper_delaunay(torch, np) -> dict:
             setup_mode=mode, setup_s=round(setup_s, 3),
             levels=json.dumps([(row["kind"], row["n"])
                                for row in solver.stats()["levels"]]),
-            setup_spmv_ell_launches=in_setup,
-            setup_spmv_ell_by_level=json.dumps(by_level),
+            setup_launches=json.dumps(in_setup),
+            setup_spmv_ell_block_by_level=json.dumps(by_level),
             iters=json.dumps([s[0].iters for s in solves]),
             solve_ms=json.dumps([round(s[1], 1) for s in solves]),
             wda=round(solves[0][0].wda, 3),
             host_f64_rel_residual=f"{max(s[2] for s in solves):.3e}")
         return (solver, in_setup, [s[0].residual_norms for s in solves],
-                tally["spmv_ell"])
+                tally["spmv_ell_block"])
 
     off, off_launches, _, _ = run(False, "superstep")
-    check(off_launches == 0, f"spmv_ell launched {off_launches} times in a "
-          "setup without setup_ell_sweeps")
+    check(not any(off_launches.values()), f"spmv_ell launched "
+          f"{off_launches} in a setup without setup_ell_sweeps")
     del off
     on, on_launches, hist_on, shapes_on = run(True, "superstep")
-    check(on_launches > 0, "spmv_ell was not launched in a setup with "
-          "setup_ell_sweeps")
+    # the sweeps run the k-column form (8 vectors); λmax's power
+    # iteration on the twin stays one vector, as in the reference
+    check(on_launches["spmv_ell_block"] > 0, f"a setup with "
+          f"setup_ell_sweeps launched {on_launches}: no k-column spmv_ell")
     eager, _, hist_eager, shapes_eager = run(True, "eager")
     check(hist_on == hist_eager, "setup_ell_sweeps: eager and super-step "
           "residual histories differ")
@@ -1551,6 +1739,15 @@ def phase_paper_delaunay(torch, np) -> dict:
     jac_ms = (time.perf_counter() - t0) * 1e3
     rel_j = host_residual(n, r, c, v, rhs[0],
                           on._from_internal(x_j).cpu().numpy())
+    # the k-column spmv_ell at the sweeps' largest shape (the finest
+    # aggregation level's width-8 twin, rows padded to the bucket), on the
+    # setup's own last arguments there: 8 vectors
+    shape = max(shapes_on)
+    calls, args, _ = shapes_on[shape]
+    twin_rec = block_record(torch, "spmv_ell_block", *args,
+                            launches=on_launches["spmv_ell_block"],
+                            label="spmv_ell_block@setup_twin")
+    twin_rec["launches_at_shape"] = calls
     say("paper", graph="delaunay_2^20", eager_vs_superstep_bitwise=True,
         strength_s_warm=json.dumps({"coo": strength_s[False],
                                     "ell_twin": strength_s[True]}),
@@ -1562,19 +1759,20 @@ def phase_paper_delaunay(torch, np) -> dict:
     check(spmv_ell.launches > k0, "Jacobi-PCG launched no spmv_ell")
     check(info_j.status != "converged" or rel_j <= 1e-4, "delaunay Jacobi-PCG "
           f"reports converged at host residual {rel_j:.3e}")
-    return {"superstep": shapes_on, "eager": shapes_eager}
+    return {"superstep": shapes_on, "eager": shapes_eager}, twin_rec
 
 
-def finest_picks(solver, tally, labels) -> list:
+def finest_picks(solver, tally, labels, forms=("spmv_ell", "jacobi")) -> list:
     """``check_kernel_shapes`` picks for spmv_ell at the finest level of
     ``solver``'s hierarchy (every PCG matvec) and jacobi at its first
-    aggregation level (the finest it smooths), from ``tally``."""
+    aggregation level (the finest it smooths), from ``tally``; ``forms``
+    names the forms to pick (the k-column ones for blocked solves)."""
     from repro_torch.core.coarsen import AggregationLevel
 
     ts = solver.hierarchy.transfers
     agg = next(t for t in ts if isinstance(t, AggregationLevel)).fine
     picks = []
-    for name, level in (("spmv_ell", ts[0].fine), ("jacobi", agg)):
+    for name, level in zip(forms, (ts[0].fine, agg)):
         shape = tuple(level.ell.col.shape)
         check(shape in tally[name], f"{labels}: {name} was not launched at "
               f"the finest shape {shape}")
@@ -1894,14 +2092,25 @@ def timed_solves(seconds: list):
         Solver.solve = real
 
 
+def launches_since(before: dict) -> dict:
+    """The solver kernels' launches by form since ``before`` (a
+    ``phase_launches()``)."""
+    now = phase_launches()
+    return {k: now[k] - before[k] for k in ("spmv_ell", "jacobi",
+                                             *BLOCK_FORMS, "agg_vote")}
+
+
 def phase_spectral(torch, np, smi) -> dict:
     """The spectral layer (``repro_torch.spectral``) on a Delaunay mesh of
     2^15 uniform points: LOBPCG k = 8 at tol 1e-8 against scipy's
     shift-invert ``eigsh``, Fiedler bisection with and without the sweep,
     spectral clustering and recursive bisection into 4, two positional
-    encodings from one cache, the resistance sketch with 64 probes; then
-    the kernels at the mesh's finest shapes. Returns each kernel's
-    launches over the phase before that check."""
+    encodings from one cache, the resistance sketch with 64 probes, each
+    step with its launches by form (every solve is a blocked one on the
+    throughput path: k-column kernels only); then the kernels at the
+    mesh's finest shapes, and the k-column records there at k = 8 and 64.
+    Returns each kernel's launches over the phase before that check, and
+    the records."""
     from scipy.sparse.linalg import eigsh
 
     from repro_torch.api import HierarchyCache, Problem
@@ -1928,6 +2137,7 @@ def phase_spectral(torch, np, smi) -> dict:
     zero_launches()
     with shapes_launched(SOLVER_KERNELS) as tally:
         # LOBPCG through the default (exact_columns=False) options
+        k0 = phase_launches()
         precond = [0.0]
         t0 = time.perf_counter()
         with timed_solves(precond):
@@ -1944,6 +2154,7 @@ def phase_spectral(torch, np, smi) -> dict:
         unp_s = time.perf_counter() - t0
         rel = np.abs(eig.eigenvalues / ref - 1.0)
         say("spectral", step="lobpcg", k=8, tol=1e-8, iters=eig.iters,
+            launches=json.dumps(launches_since(k0)),
             converged=int(eig.converged.sum()),
             precond_solves=eig.precond_solves,
             precond_columns=eig.precond_columns,
@@ -1964,7 +2175,7 @@ def phase_spectral(torch, np, smi) -> dict:
         check(rel.max() <= 1e-6, f"lobpcg eigenvalues vs eigsh: {rel}")
 
         # Fiedler bisection, clustering and partitioning
-        t0 = time.perf_counter()
+        k0, t0 = phase_launches(), time.perf_counter()
         mask_s, sweep = fiedler_bisect(p, options=opts, cache=cache)
         mask_n, sign = fiedler_bisect(p, sweep=False, options=opts,
                                       cache=cache)
@@ -1980,6 +2191,7 @@ def phase_spectral(torch, np, smi) -> dict:
             bisection_ncut=parts.ncut,
             bisection_conductances=json.dumps(parts.conductances.tolist()),
             bisection_sizes=json.dumps(np.bincount(parts.labels).tolist()),
+            launches=json.dumps(launches_since(k0)),
             seconds=round(time.perf_counter() - t0, 1), card=smi)
         check(sweep["conductance"] <= sign["conductance"] + 1e-12,
               "the sweep cut's conductance is above the sign cut's")
@@ -1988,7 +2200,7 @@ def phase_spectral(torch, np, smi) -> dict:
               "clustering or partitioning did not give 4 parts")
 
         # two positional encodings from one cache: no setup the second time
-        pe = []
+        k0, pe = phase_launches(), []
         for _ in range(2):
             misses, votes = cache.stats()["misses"], phase_launches()
             t0 = time.perf_counter()
@@ -1998,35 +2210,65 @@ def phase_spectral(torch, np, smi) -> dict:
         new_misses = cache.stats()["misses"] - misses
         new_votes = phase_launches()["agg_vote"] - votes["agg_vote"]
         say("spectral", step="pe", k=8, bitwise=bool(np.array_equal(*pe)),
+            launches=json.dumps(launches_since(k0)),
             second_call_misses=new_misses, second_call_agg_vote=new_votes,
             second_call_s=round(pe_s, 1), card=smi)
         check(np.array_equal(*pe) and new_misses == 0 and new_votes == 0,
               "the second laplacian_pe set up again or differs")
 
         # the resistance sketch: 64 probes in one blocked solve
-        t0 = time.perf_counter()
+        k0, t0 = phase_launches(), time.perf_counter()
         sk = effective_resistance(p, n_probes=64, options=opts, cache=cache)
         res_s = time.perf_counter() - t0
         B = _incidence_rhs(p, 64, 0).astype(np.float32)
         rels = host_residual(n, r, c, v, B, sk.Z)
         say("spectral", step="resistance", n_probes=sk.n_probes,
             solve_iters=sk.solve_iters, seconds=round(res_s, 1),
+            launches=json.dumps(launches_since(k0)),
             max_host_f64_rel_residual=f"{rels.max():.3e}", card=smi)
         check((rels <= 1e-4).all(), f"resistance columns above 1e-4: "
               f"{np.flatnonzero(rels > 1e-4).tolist()}")
+    # every solve of the phase is blocked (the throughput path): the
+    # k-column kernels run, the one-vector ones never
     launched = phase_launches()
-    check(all(launched[k] > 0 for k in ("spmv_ell", "jacobi", "agg_vote"))
+    check(all(launched[k] > 0 for k in (*BLOCK_FORMS, "agg_vote"))
+          and launched["spmv_ell"] == launched["jacobi"] == 0
           and launched["embedding_bag"] == 0,
           f"spectral phase launches {launched}")
     handle = cache.peek(HierarchyCache.key(p, opts, "single"))
-    picks = finest_picks(handle._solver, tally, dict(graph="delaunay"))
+    solver = handle._solver
+    picks = finest_picks(solver, tally, dict(graph="delaunay"),
+                         forms=tuple(BLOCK_FORMS))
     first_vote = max(tally["agg_vote"])
     picks.append(("agg_vote", first_vote, tally["agg_vote"][first_vote],
                   dict(graph="delaunay setup")))
     check_kernel_shapes(torch, "spectral", picks)
+    # the k-column records at the mesh's finest shapes: LOBPCG's blocks of
+    # 8 and the sketch's 64 probes
+    records = []
+    gen = torch.Generator(device=solver.device).manual_seed(9)
+    (_, fshape, (fcalls, _, _), _), (_, jshape, (jcalls, jargs, _), _) = \
+        picks[:2]
+    top = solver.hierarchy.transfers[0].fine.ell
+    for k in (8, 64):
+        X = torch.randn(top.n_cols, k, generator=gen, device=solver.device)
+        records.append(block_record(
+            torch, "spmv_ell_block", top.col, top.val, X,
+            launches=launched["spmv_ell_block"],
+            label=f"spmv_ell_block@spectral_k{k}"))
+        col, val, deg = jargs[0], jargs[1], jargs[4]
+        X, B = (torch.randn(col.shape[0], k, generator=gen,
+                            device=solver.device) for _ in range(2))
+        records.append(block_record(
+            torch, "jacobi_block", col, val, X, B, deg,
+            launches=launched["jacobi_block"],
+            label=f"jacobi_block@spectral_k{k}"))
+    for rec in records:
+        rec["launches_at_shape"] = fcalls if rec["kernel"] == \
+            "spmv_ell_block" else jcalls
     say("spectral", seconds=round(time.perf_counter() - t_phase, 1),
         launches=json.dumps(launched), card=smi)
-    return launched
+    return dict(launched, records=records)
 
 
 def phase_e2e(torch, np):
@@ -2090,14 +2332,15 @@ def phase_e2e_superstep(torch, graphs) -> None:
     ledger = ss.counters()
     # the same under setup_ell_sweeps: spmv_ell and the spill path inside
     # the agg step (a registry entry of its own, built under the mode too)
-    spmvs = launch_counts(SOLVER_KERNELS[:1])[0]
+    # (the sweeps' k-column form: 8 vectors a launch)
+    spmvs = block_launches()["spmv_ell_block"]
     torch.cuda.set_sync_debug_mode("error")
     try:
         ss.build_hierarchy_superstep(adjs[0], dataclasses.replace(
             cfg, setup_ell_sweeps=True))
     finally:
         torch.cuda.set_sync_debug_mode(0)
-    spmvs = launch_counts(SOLVER_KERNELS[:1])[0] - spmvs
+    spmvs = block_launches()["spmv_ell_block"] - spmvs
 
     torch.cuda.set_sync_debug_mode("warn")
     try:
@@ -2124,7 +2367,7 @@ def phase_e2e_superstep(torch, graphs) -> None:
         no_sync_in_steps=True, cold_setup_s=round(cold_s, 3),
         host_syncs=ledger["host_syncs"], eager_host_syncs=eager_syncs,
         agg_vote_launches=votes, registry=registry_line(ledger),
-        ell_sweeps_no_sync=True, ell_sweeps_spmv_ell_launches=spmvs,
+        ell_sweeps_no_sync=True, ell_sweeps_spmv_ell_block_launches=spmvs,
         second_graph_new_entries=new_entries, second_setup_s=round(warm_s, 3),
         batch_bitwise=json.dumps(same),
         batch_registry=registry_line(batch_ledger),
@@ -2185,10 +2428,10 @@ def dist_child(rank, world_size, graph, device):
     # level's block, agg_vote on each row block the setup voted on
     gen = torch.Generator(device=solver.device).manual_seed(3)
     shapes = [tuple(t.fine.ell_col.shape) for t in solver.arrays.transfers]
-    picks = [("spmv_ell", shape,
-              (spmvs["spmv_ell"].get(shape, [0])[0],
+    picks = [("spmv_ell_block", shape,
+              (spmvs["spmv_ell_block"].get(shape, [0])[0],
                (t.fine.ell_col, t.fine.ell_val,
-                torch.randn(t.fine.n_pad, generator=gen,
+                torch.randn(t.fine.n_pad, 1, generator=gen,
                             device=solver.device)), {}),
               dict(rank=rank, block=json.dumps(mesh.block)))
              for shape, t in zip(shapes, solver.arrays.transfers)]
@@ -2213,8 +2456,8 @@ def measure_shape(torch, phase, name, shape, args, kw, calls, unit,
     launches per ``unit`` at that shape."""
     check_kernel_shapes(torch, phase, [(name, shape, (calls, args, kw),
                                         labels)])
-    run = getattr(importlib.import_module(f"repro_torch.kernels.{name}"),
-                  WRAPPERS[f"repro_torch.kernels.{name}"][0])
+    mod = f"repro_torch.kernels.{module_of(name)}"
+    run = getattr(importlib.import_module(mod), WRAPPERS[mod][0])
     n, w = args[0].shape
     b_ms, b_by = bound(*kernel_work(name, args))
     k_ms = time_ms(torch, lambda: run(*args, **kw))
@@ -2377,35 +2620,40 @@ def phase_dist_one(torch, np, mesh, main_graph, main_iters) -> dict:
           "the direct solve_block")
     del fs, Xf
     launched = {k: n + launched[k] for k, n in phase_launches().items()}
-    check(all(launched[k] > 0 for k in ("spmv_ell", "jacobi", "agg_vote")),
+    # the blocked solves run the matvec and the V-cycle on the whole block:
+    # the k-column kernels, one launch a level operation for all columns
+    check(all(launched[k] > 0 for k in (*BLOCK_FORMS, "agg_vote")),
           f"the dist path launched {launched}")
 
     # every kernel at the distributed path's shapes: spmv_ell on every
     # distributed level's block (the solve runs it on the finest and the
     # aggregation levels; an elimination level below the finest has no
     # SpMV in a V-cycle), jacobi and spmv_ell on the tail, agg_vote on
-    # every row block of the setup
+    # every row block of the setup; the solves' k-column forms, on the
+    # block of DIST_RHS columns
     gen = torch.Generator(device=mesh.device).manual_seed(5)
-    tally = per_solve["spmv_ell"]
+    tally = per_solve["spmv_ell_block"]
     check(tuple(solver.arrays.fine.ell_col.shape) in tally,
           "spmv_ell did not run on the finest distributed level's block")
     for i, t in enumerate(solver.arrays.transfers):
         lvl = t.fine
         shape = tuple(lvl.ell_col.shape)
-        x = torch.randn(lvl.n_pad, generator=gen, device=mesh.device)
-        measure_shape(torch, "dist", "spmv_ell", shape,
+        x = torch.randn(lvl.n_pad, DIST_RHS, generator=gen,
+                        device=mesh.device)
+        measure_shape(torch, "dist", "spmv_ell_block", shape,
                       (lvl.ell_col, lvl.ell_val, x), {},
-                      tally.get(shape, [0])[0] / DIST_RHS, "solve_column",
+                      tally.get(shape, [0])[0], "solve",
                       level=f"distributed {i}")
     dist_shapes = {tuple(t.fine.ell_col.shape)
                    for t in solver.arrays.transfers}
-    for name in ("spmv_ell", "jacobi"):
+    for name in BLOCK_FORMS:
         for shape, (calls, args, kw) in sorted(per_solve[name].items(),
                                                reverse=True):
             if shape not in dist_shapes:
                 measure_shape(torch, "dist", name, shape, args, kw,
-                              calls / DIST_RHS, "solve_column", level="tail")
-    check(len(per_solve["jacobi"]) > 0, "jacobi did not run on the tail")
+                              calls, "solve", level="tail")
+    check(len(per_solve["jacobi_block"]) > 0,
+          "jacobi did not run on the tail")
     for shape, (calls, args, kw) in sorted(per_setup["agg_vote"].items(),
                                            reverse=True):
         measure_shape(torch, "dist", "agg_vote", shape, args, kw, calls,
@@ -2461,10 +2709,11 @@ def phase_dist_grid(torch, np, mesh_one) -> None:
         check(res["stats"]["calls"] > 0 and res["stats"]["staged"] == staged,
               f"rank {rank}: {res['stats']}")
         check(all(res["launches"][k] > 0
-                  for k in ("spmv_ell", "jacobi", "agg_vote")),
+                  for k in (*BLOCK_FORMS, "agg_vote")),
               f"rank {rank} launched {res['launches']}")
         print(res["lines"], end="", flush=True)
-        check({k for k, _ in res["kernels"]} == {"spmv_ell", "agg_vote"},
+        check({k for k, _ in res["kernels"]} == {"spmv_ell_block",
+                                                 "agg_vote"},
               f"rank {rank} checked {res['kernels']}")
     check(rel <= 1e-4, f"2x2 host residual {rel:.3e} > 1e-4")
     for ordering in (True, False):
@@ -4335,9 +4584,13 @@ def phase_moe(torch, np) -> dict:
 # ----------------------------------------------------------------------
 
 def fake_launch_counts() -> dict:
-    """Every kernel wrapper's shape-only calls, by kernel name."""
-    counts = {m.rsplit(".", 1)[1]: getattr(importlib.import_module(
-        f"{m}.ops"), w).fake_launches for m, (w, _) in WRAPPERS.items()}
+    """Every kernel wrapper's shape-only calls, by kernel name (the
+    k-column forms by form name)."""
+    wrappers = {m.rsplit(".", 1)[1]: getattr(importlib.import_module(
+        f"{m}.ops"), w) for m, (w, _) in WRAPPERS.items()}
+    counts = {name: fn.fake_launches for name, fn in wrappers.items()}
+    counts.update({form: wrappers[mod].block_fake_launches
+                   for form, mod in BLOCK_FORMS.items()})
     return dict(counts, **{name: fn.fake_launches
                            for name, fn in _bag_backward().items()})
 
@@ -4576,9 +4829,14 @@ def main() -> int:
     del setup
     for rec in records:                 # the facade path's own launches
         rec["facade_launches"] = facade[rec["name"]]
+        if rec["name"] in BLOCK_FORMS:  # its throughput block's are theirs
+            rec["launches"] = facade[rec["name"]]
     paper = phase_paper(torch, np)
     service = phase_service(torch, np, main_graph, smi)
     spectral = phase_spectral(torch, np, smi)
+    # the k-column records at the sweeps' and the spectral mesh's shapes,
+    # printed last with their own phase's launches
+    block_extra = paper.pop("records") + spectral.pop("records")
     phase_e2e(torch, np)
     dist = phase_dist(torch, np, main_graph, main_iters)
     del main_graph
@@ -4630,6 +4888,7 @@ def main() -> int:
     dryrun = phase_dryrun(torch, lm_measured)
     for rec in records:                 # (a)'s shape-only launches
         rec["dryrun_launches"] = dryrun[rec.get("kernel", rec["name"])]
+    records += block_extra
     say("total", seconds=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

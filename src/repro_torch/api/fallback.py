@@ -45,7 +45,8 @@ def diag_pcg_block(problem, B, tol, max_iters,
                    guard: GuardConfig | bool = True, x0=None, device=None):
     """Diagonal-preconditioned CG straight off the Problem's edge list, on
     ``device`` (default: the CUDA card)."""
-    from repro_torch.sparse.segment import segment_sum_plan
+    from repro_torch.sparse.segment import (per_row, segment_sum_plan,
+                                            take_rows)
 
     dev = resolve_device(device)
     rows = torch.as_tensor(problem.rows, dtype=torch.int32, device=dev)
@@ -55,14 +56,16 @@ def diag_pcg_block(problem, B, tol, max_iters,
     inv_deg = 1.0 / torch.clamp(deg, min=1e-30)
     row_sum = segment_sum_plan(rows, problem.n)
 
-    def matvec(v):
-        return deg * v - row_sum(vals * v.index_select(0, cols))
+    def matvec(V):                       # the whole (n, k) block at once
+        return per_row(deg, V) * V - row_sum(per_row(vals, V)
+                                             * take_rows(V, cols))
 
     def block(A):
         return torch.as_tensor(np.asarray(A), dtype=torch.float32,
                                device=dev)
 
-    X, info = pcg_block(matvec, block(B), precond=lambda r: inv_deg * r,
+    X, info = pcg_block(matvec, block(B),
+                        precond=lambda R: per_row(inv_deg, R) * R,
                         tol=tol, maxiter=max_iters, exact_columns=False,
                         x0=None if x0 is None else block(x0),
                         project=_projector(problem, dev), guard=guard)

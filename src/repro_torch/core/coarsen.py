@@ -34,6 +34,8 @@ class AggregationLevel:
     def n_coarse(self) -> int:
         return self.coarse.n
 
+    # a vector or the rows of an [n, k] block: the segment sum and the
+    # gather act on dim 0
     def restrict(self, r: torch.Tensor) -> torch.Tensor:
         return segment_sum(r, self.coarse_id, self.n_coarse)
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.sparse.segment import segment_sum
+from repro_torch.sparse.segment import per_row, segment_sum
 
 
 def connected_components(n: int, rows, cols) -> tuple[np.ndarray, int]:
@@ -37,13 +37,14 @@ def connected_components(n: int, rows, cols) -> tuple[np.ndarray, int]:
 
 def component_projector(comp: np.ndarray, n_comp: int, device):
     """``v -> v - per-component-mean(v)``: the disconnected-graph analogue
-    of the Krylov layer's mean-free projection."""
+    of the Krylov layer's mean-free projection; ``v`` a vector or an
+    ``[n, k]`` block (one segment sum for all k columns)."""
     comp_t = torch.as_tensor(comp, dtype=torch.int32, device=device)
     counts = torch.as_tensor(np.bincount(comp, minlength=n_comp)
                              .astype(np.float32), device=device)
 
     def project(v):
-        means = segment_sum(v, comp_t, n_comp) / counts
+        means = segment_sum(v, comp_t, n_comp) / per_row(counts, v)
         return v - means[comp_t.long()]
 
     return project

@@ -38,19 +38,23 @@ def _smooth(level: GraphLevel, b, x, sweeps: int, cfg: SmootherConfig,
 
 
 def coarse_solve(coarse_inv: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Dense bottom solve via the precomputed (L + α·J)⁻¹; result mean-free.
+    """Dense bottom solve via the precomputed (L + α·J)⁻¹; result mean-free
+    (each column of a block ``b`` [n, k]: one product for all k).
 
     On the card the product runs in float32 only while
     ``torch.backends.cuda.matmul.allow_tf32`` is False (PyTorch's default);
     the entry scripts set it so explicitly, and a caller who turns TF32 on
     gets a less accurate bottom solve."""
     x = coarse_inv @ b
-    return x - x.mean()
+    return x - _mean(x)
 
 
 def cycle(transfers: Sequence[Transfer], lam_maxes, coarse_inv: torch.Tensor,
           b: torch.Tensor, cfg: CycleConfig, k: int = 0) -> torch.Tensor:
-    """Apply one multigrid cycle to L_k x = b (x0 = 0). Returns x_k."""
+    """Apply one multigrid cycle to L_k x = b (x0 = 0). Returns x_k. ``b``
+    is a vector or an ``[n, k]`` block: a block runs every level operation
+    once for all k columns (the reference's cycle under ``jax.vmap``), with
+    means and dots per column."""
     if k == len(transfers):
         return coarse_solve(coarse_inv, b)
 
@@ -66,7 +70,7 @@ def cycle(transfers: Sequence[Transfer], lam_maxes, coarse_inv: torch.Tensor,
     x = _smooth(level, b, x, sm.pre_sweeps, sm, lam_maxes[k])
     r = b - level.laplacian_matvec(x)
     r_c = t.restrict(r)
-    r_c = r_c - r_c.mean()
+    r_c = r_c - _mean(r_c)
 
     n_recurse = 1 if cfg.kind == "V" or k + 1 >= len(transfers) else 2
     if cfg.kind == "K" and k + 1 < len(transfers):
@@ -83,6 +87,16 @@ def cycle(transfers: Sequence[Transfer], lam_maxes, coarse_inv: torch.Tensor,
     return _smooth(level, b, x, sm.post_sweeps, sm, lam_maxes[k])
 
 
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of a vector, or of each column of a block ([k])."""
+    return x.mean() if x.dim() == 1 else x.mean(dim=0)
+
+
+def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """u·v of vectors, or of each column pair of blocks ([k])."""
+    return torch.dot(u, v) if u.dim() == 1 else (u * v).sum(dim=0)
+
+
 def _fcg_accelerated(transfers, lam_maxes, coarse_inv, b, cfg: CycleConfig,
                      k: int):
     """K-cycle inner acceleration: ``k_cycle_steps`` of flexible CG whose
@@ -97,11 +111,11 @@ def _fcg_accelerated(transfers, lam_maxes, coarse_inv, b, cfg: CycleConfig,
         d = z
         if d_prev is not None:
             Ad_prev = matvec(d_prev)
-            beta = torch.dot(z, Ad_prev) / torch.clamp(
-                torch.dot(d_prev, Ad_prev), min=1e-30)
+            beta = _dot(z, Ad_prev) / torch.clamp(_dot(d_prev, Ad_prev),
+                                                  min=1e-30)
             d = z - beta * d_prev
         Ad = matvec(d)
-        alpha = torch.dot(r, d) / torch.clamp(torch.dot(d, Ad), min=1e-30)
+        alpha = _dot(r, d) / torch.clamp(_dot(d, Ad), min=1e-30)
         x = x + alpha * d
         r = r - alpha * Ad
         d_prev = d

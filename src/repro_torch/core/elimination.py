@@ -20,8 +20,8 @@ import torch
 from repro_torch.core.graph import GraphLevel, graph_from_adjacency, hash32
 from repro_torch.sparse.coo import COO, coalesce_arrays, spmv, spmv_t
 from repro_torch.sparse.ell import ell_layout_traced
-from repro_torch.sparse.segment import (segment_argmin_lex, segment_sum,
-                                        take_fill)
+from repro_torch.sparse.segment import (per_row, segment_argmin_lex,
+                                        segment_sum, take_fill)
 
 MAX_ELIM_DEGREE = 4  # paper: "like LAMG, we eliminate vertices of degree 4 or less"
 
@@ -81,9 +81,12 @@ class EliminationLevel:
     def n_coarse(self) -> int:
         return self.coarse.n
 
+    # b, x_c: vectors or [n, k] blocks; the masks and inv_deg_f act on
+    # every column
     def restrict(self, b: torch.Tensor) -> torch.Tensor:
         b_f = take_fill(b, self.f_vertices, 0)
-        b_c = segment_sum(torch.where(self.elim_mask, 0, b),
+        elim = per_row(self.elim_mask, b)
+        b_c = segment_sum(torch.where(elim, 0, b),
                           torch.where(self.elim_mask, self.n_coarse,
                                       self.c_index),
                           self.n_coarse)
@@ -91,12 +94,12 @@ class EliminationLevel:
 
     def prolong(self, x_c: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         b_f = take_fill(b, self.f_vertices, 0)
-        x_f = self.inv_deg_f * b_f + spmv(self.p_f, x_c)
+        x_f = per_row(self.inv_deg_f, b_f) * b_f + spmv(self.p_f, x_c)
         x = take_fill(x_c, self.c_index.clamp(0, self.n_coarse - 1), 0)
         n_slots = self.f_vertices.shape[0]
         x_from_f = take_fill(x_f, self.f_index.clamp(0, max(n_slots - 1, 0)),
                              0)
-        return torch.where(self.elim_mask, x_from_f, x)
+        return torch.where(per_row(self.elim_mask, x), x_from_f, x)
 
 
 def schur_arrays(adj: COO, deg: torch.Tensor, elim: torch.Tensor, n, *,

@@ -277,7 +277,8 @@ def build_hierarchy_eager(adj: COO,
 
 def apply_cycle(h: Hierarchy, b: torch.Tensor,
                 cfg: CycleConfig = CycleConfig()) -> torch.Tensor:
-    """One multigrid cycle as preconditioner application: z ≈ L⁻¹ b."""
+    """One multigrid cycle as preconditioner application: z ≈ L⁻¹ b, for
+    a vector ``b`` or each column of an ``[n, k]`` block at once."""
     return cycle(h.transfers, h.lam_maxes, h.coarse_inv, b, cfg)
 
 

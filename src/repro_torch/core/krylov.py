@@ -184,17 +184,13 @@ def pcg(matvec: Callable, b: torch.Tensor, precond: Callable | None = None,
 
 
 class _Columns:
-    """A block as a list of k separate contiguous columns; the operators
-    run a column at a time (the ELL kernels take one vector; a
-    multi-column ELL SpMV is ROADMAP B1). With ``exact`` every column is
-    driven by the very operations ``pcg`` applies to its one vector, so
-    blocked columns are bitwise equal to looped ``pcg`` solves
-    (``exact_columns=True``); otherwise means, dots and norms are 2-D
-    reductions over the ``(n, k)`` block."""
+    """A block as a list of k separate contiguous columns, driven by the
+    very operations ``pcg`` applies to its one vector, so that blocked
+    columns are bitwise equal to looped ``pcg`` solves
+    (``exact_columns=True``). A frozen column skips its operators."""
 
-    def __init__(self, matvec, M, project, exact=True):
-        self.matvec, self.M, self.exact = matvec, M, exact
-        self.project = project
+    def __init__(self, matvec, M, project):
+        self.matvec, self.M, self.project = matvec, M, project
 
     @staticmethod
     def split(B):
@@ -219,12 +215,7 @@ class _Columns:
         return self._lift(self.M, V, act)
 
     def proj(self, V):
-        if self.project is not None:
-            return [self.project(v) for v in V]
-        if self.exact:
-            return [_project(v) for v in V]
-        J = self.join(V)
-        return self.split(J - J.mean(dim=0, keepdim=True))
+        return [(self.project or _project)(v) for v in V]
 
     @staticmethod
     def zeros_like(V):
@@ -246,15 +237,76 @@ class _Columns:
     def select(act, new, old):
         return [nw if a else od for a, nw, od in zip(act, new, old)]
 
-    def cdot(self, U, V):
-        if self.exact:
-            return torch.stack([torch.dot(u, v) for u, v in zip(U, V)])
-        return (self.join(U) * self.join(V)).sum(dim=0)
+    @staticmethod
+    def cdot(U, V):
+        return torch.stack([torch.dot(u, v) for u, v in zip(U, V)])
 
-    def cnorm(self, V):
-        if self.exact:
-            return torch.stack([torch.linalg.norm(v) for v in V])
-        return torch.linalg.vector_norm(self.join(V), dim=0)
+    @staticmethod
+    def cnorm(V):
+        return torch.stack([torch.linalg.norm(v) for v in V])
+
+
+class _Block:
+    """A block as one ``(n, k)`` tensor (``exact_columns=False``, the
+    reference's ``jax.vmap`` throughput path): ``matvec``, the
+    preconditioner and ``project`` each run once on the whole block,
+    frozen columns included, as the reference's vmapped ``bmv``/``bM`` do
+    (the active mask selects their results away), so every level operation
+    is one k-column launch; means, dots and norms are ``dim=0``
+    reductions, and a fault site sees the block once a pass."""
+
+    def __init__(self, matvec, M, project):
+        self.matvec, self.M, self.project = matvec, M, project
+
+    @staticmethod
+    def split(B):
+        return B.contiguous()
+
+    @staticmethod
+    def join(V):
+        return V
+
+    @staticmethod
+    def site(name, V):
+        return faults.site(name, V)
+
+    def bmv(self, V, act):
+        return self.matvec(V)
+
+    def bM(self, V, act):
+        return self.M(V)
+
+    def proj(self, V):
+        if self.project is not None:
+            return self.project(V)
+        return V - V.mean(dim=0, keepdim=True)
+
+    zeros_like = staticmethod(torch.zeros_like)
+
+    @staticmethod
+    def sub(U, V):
+        return U - V
+
+    @staticmethod
+    def axpy(X, a, P):                       # X + a·P
+        return X + a[None, :] * P
+
+    @staticmethod
+    def axmy(R, a, Q):                       # R − a·Q
+        return R - a[None, :] * Q
+
+    @staticmethod
+    def select(act, new, old):
+        return torch.where(torch.as_tensor(act, device=new.device)[None, :],
+                           new, old)
+
+    @staticmethod
+    def cdot(U, V):
+        return (U * V).sum(dim=0)
+
+    @staticmethod
+    def cnorm(V):
+        return torch.linalg.vector_norm(V, dim=0)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -268,17 +320,19 @@ def pcg_block(matvec: Callable, B: torch.Tensor,
               project: Callable | None = None, guard=True, check=None):
     """Blocked multi-RHS PCG: k single-RHS trajectories in lockstep.
 
-    ``B`` is ``(n, k)``. ``matvec``, ``precond`` and ``project`` act on
-    single length-n vectors and are lifted over the columns; all k solves
-    share one iteration loop and one host read of the residual norms an
-    iteration.
+    ``B`` is ``(n, k)``; all k solves share one iteration loop and one
+    host read of the residual norms an iteration.
 
-    ``exact_columns=True`` keeps every column a separate vector and
-    computes every scalar (means, dots, norms) with the same 1-D
-    operations ``pcg`` uses, so each column's iterates and solution are
-    bitwise equal to a standalone ``pcg`` solve. ``exact_columns=False``
-    computes the reductions over the ``(n, k)`` block at once (low-bit
-    drift from the single-RHS trajectories).
+    ``exact_columns=True`` keeps every column a separate vector:
+    ``matvec``, ``precond`` and ``project`` act on single length-n vectors
+    and are lifted over the columns, and every scalar (means, dots,
+    norms) is computed with the same 1-D operations ``pcg`` uses, so each
+    column's iterates and solution are bitwise equal to a standalone
+    ``pcg`` solve. ``exact_columns=False`` is the reference's vmapped
+    throughput path: ``matvec``, ``precond`` and ``project`` are each
+    called once an application on the whole ``(n, k)`` block (the SpMV and
+    V-cycle run the k-column kernels) and the reductions are taken over
+    the block at once (low-bit drift from the single-RHS trajectories).
 
     Columns converge independently: a column whose residual drops below
     ``tol * ||r0||`` freezes (zero step) while the rest keep iterating. The
@@ -314,7 +368,7 @@ def pcg_block(matvec: Callable, B: torch.Tensor,
     else:
         n_rounds = maxiter
     M = precond if precond is not None else (lambda v: v)
-    ops = _Columns(matvec, M, project, exact=exact_columns)
+    ops = (_Columns if exact_columns else _Block)(matvec, M, project)
 
     all_cols = np.ones(k, bool)
     Bp = ops.proj(ops.split(B))

@@ -14,14 +14,16 @@ import torch
 from repro_torch.core.graph import GraphLevel, count_tensor, pow2_bucket
 from repro_torch.core.prng import normal
 from repro_torch.sparse.coo import spmv
+from repro_torch.sparse.segment import per_row
 
 
 def jacobi(level: GraphLevel, b: torch.Tensor, x: torch.Tensor,
            n_sweeps: int = 2, omega: float = 2.0 / 3.0) -> torch.Tensor:
-    """x ← x + ω D⁻¹ (b − L x), ``n_sweeps`` times."""
+    """x ← x + ω D⁻¹ (b − L x), ``n_sweeps`` times; ``b`` and ``x`` vectors
+    or ``[n, k]`` blocks (each column swept as the vector would be)."""
     if getattr(level, "ell", None) is not None:
         return _jacobi_ell(level, b, x, n_sweeps, omega)
-    inv_d = 1.0 / torch.clamp(level.deg, min=1e-30)
+    inv_d = per_row(1.0 / torch.clamp(level.deg, min=1e-30), x)
     for _ in range(n_sweeps):
         r = b - level.laplacian_matvec(x)
         x = x + omega * inv_d * r
@@ -31,8 +33,9 @@ def jacobi(level: GraphLevel, b: torch.Tensor, x: torch.Tensor,
 def _jacobi_ell(level, b: torch.Tensor, x: torch.Tensor, n_sweeps: int,
                 omega: float) -> torch.Tensor:
     """Fused hybrid sweeps: x' = x + ω D⁻¹ ((b + A_rem x) − (D x − A_ell x)).
-    The spill edges fold into the right-hand side first, so the fused
-    sweep stays exact on levels whose rows overflow the ELL width."""
+    The spill edges fold into the right-hand side first (once a sweep for
+    all columns of a block), so the fused sweep stays exact on levels
+    whose rows overflow the ELL width; a block runs the k-column kernel."""
     from repro_torch.kernels.jacobi import jacobi_step
 
     ell, rem = level.ell, level.ell_rem
@@ -78,8 +81,10 @@ def estimate_lambda_max(level: GraphLevel, n_iters: int = 15,
 def chebyshev(level: GraphLevel, b: torch.Tensor, x: torch.Tensor,
               lam_max: torch.Tensor, degree: int = 3,
               lam_min_frac: float = 0.25) -> torch.Tensor:
-    """Chebyshev smoothing on D⁻¹L over [λmax/4, λmax]."""
-    inv_d = 1.0 / torch.clamp(level.deg, min=1e-30)
+    """Chebyshev smoothing on D⁻¹L over [λmax/4, λmax]; ``b`` and ``x``
+    vectors or ``[n, k]`` blocks (λmax is the level's, shared by every
+    column, as under the reference's vmap)."""
+    inv_d = per_row(1.0 / torch.clamp(level.deg, min=1e-30), x)
     lmin = lam_max * lam_min_frac
     theta = 0.5 * (lam_max + lmin)
     delta = 0.5 * (lam_max - lmin)

@@ -140,6 +140,8 @@ class LaplacianSolver:
     def _fine(self):
         return self.hierarchy.transfers[0].fine
 
+    # matvec, precondition, projector and the permutations take internal-
+    # order vectors or [n, k] blocks (one operation for all k columns)
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         return self._fine.laplacian_matvec(x)
 
@@ -192,7 +194,10 @@ class LaplacianSolver:
         """Blocked multi-RHS solve: ``B`` is (n, k), one hierarchy, k solves.
 
         With ``exact_columns=True`` each column is bitwise equal to a
-        single-RHS :meth:`solve` of that column (see ``pcg_block``).
+        single-RHS :meth:`solve` of that column (see ``pcg_block``); with
+        ``False`` the matvec and the V-cycle run once an application on the
+        whole block (the k-column kernels), the reference's throughput
+        path.
         ``x0`` is an optional (n, k) block of initial guesses; ``None``
         starts from zeros. Returns ``(X, BlockSolveInfo)`` with ``X`` a
         float32 (n, k) tensor on the solver's device.

@@ -53,6 +53,15 @@
 // The tile plan (R rows a tile, S stages, the dynamic shared memory) is
 // computed once, in Python (repro_torch.kernels.ell_tile_plan), and
 // passed in; the launcher checks it.
+//
+// The k-column form (block_tiles_kernel, the float kernels on row-major
+// [n, k] blocks: what jax.vmap over a column axis makes of the one-vector
+// TPU kernels) stages the same tiles once for all k columns and gives each
+// (row, column) pair a lane: a row's lanes share its slots (a broadcast
+// from shared memory) and gather X[col, 0 .. k) as k contiguous floats, a
+// whole 32-byte sector at k = 8 where the one-vector kernel uses 4 bytes
+// of each sector it gathers. Each column is summed by row_sum, so column j
+// of a block is bitwise the one-vector kernel's sum of X[:, j].
 
 #pragma once
 
@@ -105,13 +114,31 @@ __device__ __forceinline__ void tree(float (&s)[P]) {
   }
 }
 
+// The gathers of x at a column id cc: x[cc] of one vector (VecGather), or
+// X[cc, j] of column j of a row-major [n_cols, k] block (BlockGather, x
+// pointing at X + j): a row's k lanes then read k contiguous floats.
+struct VecGather {
+  const float* __restrict__ x;
+  __device__ __forceinline__ float operator()(int cc) const {
+    return __ldg(x + cc);
+  }
+};
+
+struct BlockGather {
+  const float* __restrict__ x;
+  int k;
+  __device__ __forceinline__ float operator()(int cc) const {
+    return __ldg(x + static_cast<long long>(cc) * k);
+  }
+};
+
 // The rounded product val[k] · x[col[k]], or +0 for a padding slot.
+template <class G>
 __device__ __forceinline__ float product(const int* c, const float* v, int k,
-                                         const float* __restrict__ x,
-                                         int n_cols) {
+                                         const G& x, int n_cols) {
   const int cc = c[k];
   return static_cast<unsigned>(cc) < static_cast<unsigned>(n_cols)
-             ? __fmul_rn(v[k], __ldg(x + cc))
+             ? __fmul_rn(v[k], x(cc))
              : 0.0f;
 }
 
@@ -119,10 +146,9 @@ __device__ __forceinline__ float product(const int* c, const float* v, int k,
 // the row. With kRotate the thread reads position j from slot
 // k0 + ((j + rot) mod P) and rotates p back afterwards; all P loads and
 // gathers are issued before p is used.
-template <int P, bool kRotate>
+template <int P, bool kRotate, class G>
 __device__ __forceinline__ void full_pass(const int* c, const float* v,
-                                          int k0, int rot, int g,
-                                          const float* __restrict__ x,
+                                          int k0, int rot, int g, const G& x,
                                           int n_cols, float (&p)[P]) {
 #pragma unroll
   for (int j = 0; j < P; ++j) {
@@ -138,11 +164,10 @@ __device__ __forceinline__ void full_pass(const int* c, const float* v,
 // adds 0); then a tree with halving offsets adds lane j+off into lane j.
 // The read rotation (kRotate, rot, g; see rotation()) changes only which
 // slot a thread reads first, never the order of the sum.
-template <int P, bool kRotate>
+template <int P, bool kRotate, class G>
 __device__ __forceinline__ float row_sum(const int* c, const float* v,
                                          int width, int rot, int g,
-                                         const float* __restrict__ x,
-                                         int n_cols) {
+                                         const G& x, int n_cols) {
   float s[P];
   full_pass<P, kRotate>(c, v, 0, rot, g, x, n_cols, s);
 #pragma unroll
@@ -156,7 +181,7 @@ __device__ __forceinline__ float row_sum(const int* c, const float* v,
       for (int j = 0; j < P; ++j) {
         const int cc = k0 + j < width ? c[k0 + j] : -1;
         p[j] = static_cast<unsigned>(cc) < static_cast<unsigned>(n_cols)
-                   ? __fmul_rn(v[k0 + j], __ldg(x + cc))
+                   ? __fmul_rn(v[k0 + j], x(cc))
                    : 0.0f;
       }
     }
@@ -197,9 +222,28 @@ struct SumRow {
   int g;  // bank_group(width)
   __device__ __forceinline__ float operator()(const int* c, const float* v,
                                               int width, int r) const {
-    return row_sum<P, kRotate>(c, v, width, rotation(r, g), g, x, n_cols);
+    return row_sum<P, kRotate>(c, v, width, rotation(r, g), g,
+                               VecGather{x}, n_cols);
   }
   __device__ __forceinline__ static float identity() { return 0.0f; }
+};
+
+// The k-column form's per-(row, column) work: column j of the row's
+// Σ val · X[col, j], in row_sum's order, so that column j of a block is
+// bitwise the one-vector sum of X[:, j]. The rotation is the one-vector
+// kernel's: a warp's rows are a 32/lanes-row window of its 32 rows.
+template <int P, bool kRotate>
+struct BlockSumRow {
+  const float* x;  // X, row-major [n_cols, k]
+  int k;
+  int n_cols;
+  int g;  // bank_group(width)
+  __device__ __forceinline__ float operator()(const int* c, const float* v,
+                                              int width, int r,
+                                              int j) const {
+    return row_sum<P, kRotate>(c, v, width, rotation(r, g), g,
+                               BlockGather{x + j, k}, n_cols);
+  }
 };
 
 // The unstaged rows' call of row(): not inlined, so that the kernel holds
@@ -211,6 +255,34 @@ __device__ __noinline__ auto unstaged_row(const Row& row, const int* c,
                                           const typename Row::Val* v,
                                           int width, int r) {
   return row(c, v, width, r);
+}
+
+// The producer's loop (one thread): the full tiles of this block, two bulk
+// copies each (col, val) into the ring of stages.
+template <class Val>
+__device__ __forceinline__ void produce(const int* __restrict__ col,
+                                        const Val* __restrict__ val,
+                                        int* s_col, Val* s_val,
+                                        uint64_t* full, uint64_t* empty,
+                                        long long tile_slots, int stages,
+                                        int n_full) {
+  const uint32_t bytes = static_cast<uint32_t>(tile_slots * 4);
+  const uint64_t policy = bulk::evict_first_policy();
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = blockIdx.x; t < n_full; t += gridDim.x) {
+    bulk::mbar_wait(&empty[stage], phase ^ 1);
+    bulk::mbar_expect_tx(&full[stage], 2 * bytes);
+    const long long off = static_cast<long long>(t) * tile_slots;
+    bulk::bulk_load(s_col + stage * tile_slots, col + off, bytes,
+                    &full[stage], policy);
+    bulk::bulk_load(s_val + stage * tile_slots, val + off, bytes,
+                    &full[stage], policy);
+    if (++stage == stages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
 }
 
 // row(c, v, width, r) is a row's result from its slots c[0 .. width) and
@@ -247,23 +319,8 @@ tiles_kernel(const int* __restrict__ col,
 
   if (threadIdx.x >= n_consumers) {  // the producer warp
     if (threadIdx.x == n_consumers && staged) {
-      const uint32_t bytes = static_cast<uint32_t>(tile_slots * 4);
-      const uint64_t policy = bulk::evict_first_policy();
-      int stage = 0;
-      uint32_t phase = 0;
-      for (int t = blockIdx.x; t < n_full; t += gridDim.x) {
-        bulk::mbar_wait(&empty[stage], phase ^ 1);
-        bulk::mbar_expect_tx(&full[stage], 2 * bytes);
-        const long long off = static_cast<long long>(t) * tile_slots;
-        bulk::bulk_load(s_col + stage * tile_slots, col + off, bytes,
-                        &full[stage], policy);
-        bulk::bulk_load(s_val + stage * tile_slots, val + off, bytes,
-                        &full[stage], policy);
-        if (++stage == stages) {
-          stage = 0;
-          phase ^= 1;
-        }
-      }
+      produce(col, val, s_col, s_val, full, empty, tile_slots, stages,
+              n_full);
     }
     return;
   }
@@ -358,6 +415,159 @@ int launch(const int* col, const float* val, const float* x, int n_rows,
     return launch_kernel(col, val, n_rows, width, rows_per_tile, stages,
                          smem_bytes, SumRow<P, false>{x, n_cols, g}, epi,
                          stream);
+  });
+}
+
+// ---------------------------------------------------------------------------
+// The k-column form: X and the result are row-major [n, k] blocks (what
+// jax.vmap over a column axis makes of the one-vector TPU kernels). The
+// tables are staged exactly as above, once for all k columns; the
+// consumer threads of a row are its `lanes` (the power of two >= k, at
+// most 32): lane l sums columns l, l + lanes, ... of the row, each with
+// row_sum, so a warp holds 32/lanes rows, its lanes read a slot of shared
+// memory at once (one broadcast a row), and a row's gathers of X[col, :]
+// are k contiguous floats. epi(row, j, result) is called once for every
+// (row, column) pair, by the lane that summed it.
+template <class Row>
+__device__ __noinline__ float unstaged_block_row(const Row& row,
+                                                 const int* c, const float* v,
+                                                 int width, int r, int j) {
+  return row(c, v, width, r, j);
+}
+
+template <class Row, class Epi>
+__global__ void __launch_bounds__(kMaxThreads + kWarp)
+block_tiles_kernel(const int* __restrict__ col,
+                   const float* __restrict__ val, int n_rows, int width,
+                   int rows_per_tile, int stages, int k, int lane_bits,
+                   Row row, Epi epi) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[kMaxStages];
+  __shared__ __align__(8) uint64_t empty[kMaxStages];
+
+  const int n_consumers = blockDim.x - kWarp;
+  const int rows = rows_per_tile;
+  const long long tile_slots = static_cast<long long>(rows) * width;
+  const bool staged = width > 0 && stages > 0;
+  const int n_full = n_rows / rows;
+  const int n_tiles = (n_rows + rows - 1) / rows;
+  int* s_col = reinterpret_cast<int*>(smem);
+  float* s_val = reinterpret_cast<float*>(smem + stages * tile_slots * 4);
+
+  if (threadIdx.x == 0 && staged) {
+    for (int s = 0; s < stages; ++s) {
+      bulk::mbar_init(&full[s], 1);
+      bulk::mbar_init(&empty[s], n_consumers / kWarp);
+    }
+    bulk::fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= n_consumers) {  // the producer warp
+    if (threadIdx.x == n_consumers && staged) {
+      produce(col, val, s_col, s_val, full, empty, tile_slots, stages,
+              n_full);
+    }
+    return;
+  }
+
+  const int lanes = 1 << lane_bits;
+  const int lane = threadIdx.x & (lanes - 1);
+  const int first = threadIdx.x >> lane_bits;  // this thread's first row
+  const int step = n_consumers >> lane_bits;   // rows of a pass of the block
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+    const long long row0 = static_cast<long long>(t) * rows;
+    if (staged && t < n_full) {
+      bulk::mbar_wait(&full[stage], phase);
+      const int* c = s_col + stage * tile_slots;
+      const float* v = s_val + stage * tile_slots;
+      for (int r = first; r < rows; r += step) {
+        const int o = r * width;
+        for (int j = lane; j < k; j += lanes) {
+          epi(row0 + r, j, row(c + o, v + o, width, r, j));
+        }
+      }
+      __syncwarp();
+      if (threadIdx.x % kWarp == 0) bulk::mbar_arrive(&empty[stage]);
+      if (++stage == stages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    } else {  // the ragged last tile, width 0 or no stages: plain loads
+      for (int r = first; r < rows && row0 + r < n_rows; r += step) {
+        const long long o = (row0 + r) * width;
+        for (int j = lane; j < k; j += lanes) {
+          epi(row0 + r, j,
+              width > 0
+                  ? unstaged_block_row(row, col + o, val + o, width, r, j)
+                  : 0.0f);
+        }
+      }
+    }
+  }
+}
+
+// The lanes of a row in the k-column form: log2 of the power of two >= k,
+// at most 5 (32 lanes; a wider block loops over its columns).
+__host__ __device__ __forceinline__ int block_lane_bits(int k) {
+  int bits = 0;
+  while (bits < 5 && (1 << bits) < k) ++bits;
+  return bits;
+}
+
+// Checks the plan and launches the k-column form on a persistent grid:
+// min(rows_per_tile · lanes, kMaxThreads) consumer threads a block.
+template <class Row, class Epi>
+int launch_block_kernel(const int* col, const float* val, int n_rows,
+                        int width, int k, int rows_per_tile, int stages,
+                        int smem_bytes, Row row, Epi epi,
+                        cudaStream_t stream) {
+  if (n_rows <= 0) return cudaSuccess;
+  const int lane_bits = block_lane_bits(k);
+  const long long slots = static_cast<long long>(rows_per_tile) << lane_bits;
+  const int threads = slots < kMaxThreads ? static_cast<int>(slots)
+                                          : kMaxThreads;
+  const long long tile_bytes = static_cast<long long>(rows_per_tile) *
+                               width * 8;
+  if (k < 1 || rows_per_tile <= 0 || slots % threads != 0 ||
+      threads % kWarp != 0 || width < 0 || stages < 0 ||
+      stages > kMaxStages || smem_bytes != stages * tile_bytes ||
+      (width == 0 && stages != 0)) {
+    return cudaErrorInvalidValue;
+  }
+  const long long n_tiles = (n_rows + rows_per_tile - 1) / rows_per_tile;
+  unsigned grid = 0;
+  const cudaError_t e = bulk::persistent_grid<block_tiles_kernel<Row, Epi>>(
+      threads + kWarp, smem_bytes, n_tiles, &grid);
+  if (e != cudaSuccess) return e;
+  block_tiles_kernel<Row, Epi><<<grid, threads + kWarp, smem_bytes, stream>>>(
+      col, val, n_rows, width, rows_per_tile, stages, k, lane_bits, row, epi);
+  return cudaGetLastError();
+}
+
+// The float kernels' k-column form: the lane count P and the read rotation
+// as in launch(), over X of [n_cols, k].
+template <class Epi>
+int launch_block(const int* col, const float* val, const float* x,
+                 int n_rows, int width, int n_cols, int k, int rows_per_tile,
+                 int stages, int smem_bytes, Epi epi, cudaStream_t stream) {
+  const int g = bank_group(width);
+  return dispatch_width(width, [&](auto lanes) {
+    constexpr int P = decltype(lanes)::value;
+    if constexpr (P >= 4) {
+      if (g > 1) {
+        return launch_block_kernel(col, val, n_rows, width, k, rows_per_tile,
+                                   stages, smem_bytes,
+                                   BlockSumRow<P, true>{x, k, n_cols, g},
+                                   epi, stream);
+      }
+    }
+    return launch_block_kernel(col, val, n_rows, width, k, rows_per_tile,
+                               stages, smem_bytes,
+                               BlockSumRow<P, false>{x, k, n_cols, g}, epi,
+                               stream);
   });
 }
 

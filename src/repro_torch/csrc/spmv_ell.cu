@@ -19,6 +19,18 @@
 // stream nor the gathers wait on the other (ell_tiles.cuh). The store of
 // y is coalesced. Staged this way the stream alone runs near the byte
 // bound; the gathers of x are what is left (PERF.md).
+//
+// The k-column form (repro_spmv_ell_block_f32) replaces the same TPU
+// kernel under jax.vmap over a column axis (src/repro/sparse/matvec.py ::
+// level_spmm, src/repro/core/krylov.py :: pcg_block(exact_columns=False),
+// src/repro/dist/solver.py :: _block_ops): Y[r, j] = sum_w val[r, w] *
+// X[col[r, w], j] for row-major X [n_cols, k], Y [n_rows, k]. Its bound is
+// bytes too: 8 * n_rows * width + 4 * k * (n_cols + n_rows), the tables
+// read once for all k columns. Where k one-vector launches gather 4 bytes
+// of each 32-byte sector they touch, its lanes gather k contiguous floats
+// of X's row col[r, w] (a whole sector at k = 8); a row's lanes read its
+// slots from shared memory as one broadcast (ell_tiles.cuh, "k-column
+// form"). Each column is summed in the one-vector kernel's order.
 
 #include "ell_tiles.cuh"
 
@@ -28,6 +40,17 @@ struct StoreRow {
   float* y;
   __device__ __forceinline__ void operator()(long long r, float acc) const {
     y[r] = acc;
+  }
+};
+
+// Y[r, j] of a row-major [n_rows, k] block: a warp's lanes store its rows'
+// k contiguous floats.
+struct StoreBlock {
+  float* y;
+  int k;
+  __device__ __forceinline__ void operator()(long long r, int j,
+                                             float acc) const {
+    y[r * k + j] = acc;
   }
 };
 
@@ -41,5 +64,19 @@ extern "C" int repro_spmv_ell_f32(const void* col, const void* val,
       static_cast<const int*>(col), static_cast<const float*>(val),
       static_cast<const float*>(x), n_rows, width, n_cols, rows_per_tile,
       stages, smem_bytes, StoreRow{static_cast<float*>(y)},
+      static_cast<cudaStream_t>(stream));
+}
+
+// The k-column form: Y = A_ell X for row-major X [n_cols, k] and Y
+// [n_rows, k] (the TPU kernel under jax.vmap over the column axis).
+extern "C" int repro_spmv_ell_block_f32(const void* col, const void* val,
+                                        const void* x, void* y, int n_rows,
+                                        int width, int n_cols, int k,
+                                        int rows_per_tile, int stages,
+                                        int smem_bytes, void* stream) {
+  return ell_tiles::launch_block(
+      static_cast<const int*>(col), static_cast<const float*>(val),
+      static_cast<const float*>(x), n_rows, width, n_cols, k, rows_per_tile,
+      stages, smem_bytes, StoreBlock{static_cast<float*>(y), k},
       static_cast<cudaStream_t>(stream));
 }

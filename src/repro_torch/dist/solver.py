@@ -25,11 +25,12 @@ distributed solver is the serial solver with its big SpMVs distributed.
 The blocked PCG is the reference's scanned solve written as eager loops:
 the same active mask and freezing, guard lanes and ``check`` lane, run in
 chunks of ``_CHUNK`` steps with an exit at the first chunk boundary where
-every column is done. The matvec of a block is one all-reduce for all its
-columns; the preconditioner runs a column at a time (a multi-column ELL
-SpMV is ROADMAP B1). Every decision the host makes (the split, the chunk
-exit) reads values that went through an all-reduce or were computed
-identically on every rank, so the ranks stay in step.
+every column is done. The matvec and the V-cycle of a block each run once
+on all its columns, as the reference's ``jax.vmap`` runs them: one
+all-reduce a distributed SpMV and one k-column kernel launch a level
+operation for the whole block. Every decision the host makes (the split,
+the chunk exit) reads values that went through an all-reduce or were
+computed identically on every rank, so the ranks stay in step.
 """
 
 from __future__ import annotations
@@ -54,8 +55,15 @@ from repro_torch.dist.partition import (block_row_counts, ell_width_for,
                                         partition_edges_2d, rank_block,
                                         rank_ell_block)
 from repro_torch.graphs.generators import random_relabel, to_laplacian_coo
-from repro_torch.sparse.segment import segment_sum_plan, take_fill
+from repro_torch.sparse.segment import per_row, segment_sum_plan, take_fill
 from repro_torch.testing import faults
+
+
+def _pad_rows(x: torch.Tensor, n_pad: int) -> torch.Tensor:
+    """``x`` (a vector or the rows of an [n, k] block) zero-padded to
+    ``n_pad`` rows."""
+    return torch.nn.functional.pad(x, (0, 0) * (x.dim() - 1)
+                                   + (0, n_pad - x.shape[0]))
 
 
 def _aligned(x: torch.Tensor) -> torch.Tensor:
@@ -128,18 +136,15 @@ class DistGraphLevel:
         # the same one-bad-shard payload model, on the values the kernel
         # contracts
         ev = self._site_shard("sdc.shard_payload", self.ell_val)
-        cols = [X] if X.dim() == 1 else [X[:, j] for j in range(X.shape[1])]
-        ys = [spmv_ell(self.ell_col, ev, _aligned(x)) for x in cols]
-        y = ys[0] if X.dim() == 1 else torch.stack(ys, dim=1)
+        y = spmv_ell(self.ell_col, ev, _aligned(X))     # one launch for k
         if self.nb == self.n_pad:
             part = y
         else:
             part = X.new_zeros(X.shape)
             part[self.row0:self.row0 + self.nb] = y
         if self.spill_row is not None:
-            sv = self.spill_val if X.dim() == 1 else self.spill_val[:, None]
-            part = part + self._spill_plan(sv * take_fill(X, self.spill_col,
-                                                          0))
+            part = part + self._spill_plan(per_row(self.spill_val, X)
+                                           * take_fill(X, self.spill_col, 0))
         return part
 
     def spmv_padded(self, x_pad: torch.Tensor) -> torch.Tensor:
@@ -153,15 +158,15 @@ class DistGraphLevel:
         return self.mesh.psum(part.contiguous())
 
     def laplacian_matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """L @ x on length-n vectors (the smoother / residual interface)."""
-        x_pad = torch.nn.functional.pad(x, (0, self.n_pad - self.n))
-        return self.deg * x - self.spmv_padded(x_pad)[: self.n]
+        """L @ x on length-n vectors or [n, k] blocks (the smoother /
+        residual interface)."""
+        x_pad = _pad_rows(x, self.n_pad)
+        return per_row(self.deg, x) * x - self.spmv_padded(x_pad)[: self.n]
 
     def matvec_padded(self, x_pad: torch.Tensor) -> torch.Tensor:
         """L @ x on [n_pad] vectors or [n_pad, k] blocks (the PCG
         iteration space)."""
-        deg = self.deg_pad if x_pad.dim() == 1 else self.deg_pad[:, None]
-        return deg * x_pad - self.spmv_padded(x_pad)
+        return per_row(self.deg_pad, x_pad) * x_pad - self.spmv_padded(x_pad)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -198,17 +203,14 @@ class DistLevelMeta:
 def _block_ops(matvec, precond, n: int, n_pad: int, device):
     """Block operators + masked projection for [n_pad, k] blocks.
 
-    ``matvec`` takes a whole block (one all-reduce); ``precond`` takes
-    one column and is lifted over every column, as the reference's vmap
-    is (a frozen column's result is selected away, and knowing which
-    columns are frozen would take a host read). The mean-free projection
-    (the Laplacian nullspace) averages over the n real entries and pins
-    padding to zero."""
+    ``matvec`` and ``precond`` each take a whole block, frozen columns
+    included, as the reference's vmapped ones do (a frozen column's
+    result is selected away, and knowing which columns are frozen would
+    take a host read): one all-reduce a distributed SpMV and one block
+    V-cycle an application. The mean-free projection (the Laplacian
+    nullspace) averages over the n real entries and pins padding to
+    zero."""
     mask = (torch.arange(n_pad, device=device) < n)[:, None]
-
-    def bM(V):
-        return torch.stack([precond(V[:, j].contiguous())
-                            for j in range(V.shape[1])], dim=1)
 
     def proj(V):
         V = torch.where(mask, V, 0)
@@ -217,7 +219,7 @@ def _block_ops(matvec, precond, n: int, n_pad: int, device):
     def cnorm(V):
         return torch.linalg.vector_norm(V, dim=0)
 
-    return matvec, bM, proj, cnorm
+    return matvec, precond, proj, cnorm
 
 
 def _pcg_block_init(ops, B, guard=None):
@@ -535,18 +537,14 @@ class DistLaplacianSolver:
         n, n_pad = self.n, self.n_pad
         cyc = self.cycle_config
         fine = arrays.fine
-        if isinstance(fine, DistGraphLevel):
-            matvec = fine.matvec_padded
-        else:                                   # n_pad == n fallback
-            def matvec(V):
-                return torch.stack([fine.laplacian_matvec(
-                    V[:, j].contiguous()) for j in range(V.shape[1])], 1)
+        matvec = (fine.matvec_padded if isinstance(fine, DistGraphLevel)
+                  else fine.laplacian_matvec)   # n_pad == n fallback
         transfers = arrays.transfers + coarse_h.transfers
         lams = arrays.lam_maxes + coarse_h.lam_maxes
 
-        def precond(r_pad):
-            z = cycle(transfers, lams, coarse_h.coarse_inv, r_pad[:n], cyc)
-            return torch.nn.functional.pad(z, (0, n_pad - n))
+        def precond(R_pad):                     # one block V-cycle
+            Z = cycle(transfers, lams, coarse_h.coarse_inv, R_pad[:n], cyc)
+            return _pad_rows(Z, n_pad)
 
         return _block_ops(matvec, precond, n, n_pad, self.device)
 

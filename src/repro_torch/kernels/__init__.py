@@ -2,7 +2,8 @@
 
 Each wrapper runs its CUDA kernel on CUDA tensors and its plain version on
 CPU tensors, and only there; it counts its kernel launches in a plain int
-attribute, ``<wrapper>.launches``.
+attribute, ``<wrapper>.launches`` (the ELL kernels' k-column form, on
+``[n, k]`` blocks, in ``<wrapper>.block_launches``).
 
 On fake tensors (the dry-run's ``FakeTensorMode``, ``repro_torch.launch``)
 a wrapper takes a shape-only path instead, whatever their device: it
@@ -51,10 +52,14 @@ def note(name: str, nbytes: int) -> None:
         COUNTERS[-1].note_kernel(name, nbytes)
 
 
-def shape_only(wrapper, name: str, nbytes: int, out):
+def shape_only(wrapper, name: str, nbytes: int, out, block: bool = False):
     """A wrapper's shape-only path: ``out`` (its empty result), the call
-    counted in ``wrapper.fake_launches`` and noted with ``nbytes``."""
-    wrapper.fake_launches += 1
+    counted in ``wrapper.fake_launches`` (``block_fake_launches`` for the
+    k-column form of the ELL kernels) and noted with ``nbytes``."""
+    if block:
+        wrapper.block_fake_launches += 1
+    else:
+        wrapper.fake_launches += 1
     note(name, nbytes)
     return out
 

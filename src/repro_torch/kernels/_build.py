@@ -39,7 +39,11 @@ _P, _I, _L, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 _PL = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "repro_spmv_ell_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "repro_spmv_ell_block_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _I, _P),
     "repro_jacobi_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
+    "repro_jacobi_block_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
+                               _I, _I, _P),
     "repro_agg_vote_i32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, _P),
     "repro_embedding_bag_f32": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),

@@ -15,7 +15,8 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.sparse.segment import (segment_max, segment_sum, take_fill)
+from repro_torch.sparse.segment import (per_row, segment_max, segment_sum,
+                                        take_fill)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,16 +105,20 @@ def coo_from_arrays(row, col, val, n_rows: int, n_cols: int,
 # ----------------------------------------------------------------------------
 
 def spmv(a: COO, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x. x: [n_cols] -> y: [n_rows]."""
+    """y = A @ x. x: [n_cols] -> y: [n_rows]; a block [n_cols, k] is
+    :func:`spmm` (one segment sum for all k columns)."""
+    if x.dim() == 2:
+        return spmm(a, x)
     xg = take_fill(x, a.col, 0)
     prod = torch.where(a.valid, a.val * xg, 0)
     return segment_sum(prod, a.row, a.n_rows)
 
 
 def spmv_t(a: COO, x: torch.Tensor) -> torch.Tensor:
-    """y = Aᵀ @ x without materialising the transpose."""
+    """y = Aᵀ @ x without materialising the transpose; x: [n_rows] or a
+    block [n_rows, k]."""
     xg = take_fill(x, a.row, 0)
-    prod = torch.where(a.valid, a.val * xg, 0)
+    prod = torch.where(per_row(a.valid, xg), per_row(a.val, xg) * xg, 0)
     col = torch.where(a.valid, a.col, a.n_cols)
     return segment_sum(prod, col, a.n_cols)
 

@@ -19,8 +19,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.sparse.coo import COO, spmm, spmv
+from repro_torch.sparse.coo import COO, spmv
 from repro_torch.sparse.ell import ELL, coo_to_ell
+from repro_torch.sparse.segment import per_row
 
 MATVEC_BACKENDS = ("coo", "ell", "auto")
 
@@ -97,12 +98,15 @@ def build_hybrid(adj: COO, backend: str, *, percentile: float = 95.0,
 # ----------------------------------------------------------------------------
 
 def hybrid_spmv(ell: ELL, rem: COO | None, x: torch.Tensor) -> torch.Tensor:
-    """y = A @ x through the hybrid ELL+COO split. ``width == 0`` degrades
-    to remainder-only."""
+    """y = A @ x through the hybrid ELL+COO split, for a vector ``x`` or a
+    row-major block ``[n, k]`` (one k-column kernel launch and one spill
+    segment sum for all k columns). ``width == 0`` degrades to
+    remainder-only."""
     from repro_torch.kernels.spmv_ell import spmv_ell
 
     if ell.width == 0:
-        y = torch.zeros(ell.n_rows, dtype=x.dtype, device=x.device)
+        y = torch.zeros((ell.n_rows,) + x.shape[1:], dtype=x.dtype,
+                        device=x.device)
     else:
         y = spmv_ell(ell.col, ell.val, x)
     if rem is not None:
@@ -111,7 +115,8 @@ def hybrid_spmv(ell: ELL, rem: COO | None, x: torch.Tensor) -> torch.Tensor:
 
 
 def level_spmv(level, x: torch.Tensor) -> torch.Tensor:
-    """A @ x for a level, dispatching on its attached layout."""
+    """A @ x for a level, dispatching on its attached layout; ``x`` a
+    vector or a block ``[n, k]``."""
     ell = getattr(level, "ell", None)
     if ell is None:
         return spmv(level.adj, x)
@@ -119,16 +124,13 @@ def level_spmv(level, x: torch.Tensor) -> torch.Tensor:
 
 
 def laplacian_matvec(level, x: torch.Tensor) -> torch.Tensor:
-    """L @ x = deg * x - A @ x through the selected execution format."""
-    return level.deg * x - level_spmv(level, x)
+    """L @ x = deg * x - A @ x through the selected execution format, for a
+    vector or each column of a block."""
+    return per_row(level.deg, x) * x - level_spmv(level, x)
 
 
 def level_spmm(level, x: torch.Tensor) -> torch.Tensor:
-    """Y = A @ X for [n, d] blocks: per column through the ELL twin where a
-    level carries one, else the COO ``spmm``."""
-    ell = getattr(level, "ell", None)
-    if ell is None:
-        return spmm(level.adj, x)
-    return torch.stack([hybrid_spmv(ell, level.ell_rem,
-                                    x[:, j].contiguous())
-                        for j in range(x.shape[1])], dim=1)
+    """Y = A @ X for [n, d] blocks (the strength sweeps): the k-column
+    ``spmv_ell`` kernel where a level carries an ELL twin (the reference
+    vmaps its kernel over the columns), else the COO ``spmm``."""
+    return level_spmv(level, x)

@@ -44,6 +44,32 @@ def _seg_ids(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
     return torch.where(ok, ids, num_segments)
 
 
+def per_row(v: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``v`` (one value a row) shaped to act on every column of ``x``:
+    ``v`` itself for a vector ``x``, ``v[:, None]`` for a block ``[n, k]``
+    (the port's form of a function the reference ``jax.vmap``s over
+    columns)."""
+    return v if x.dim() == 1 else v[:, None]
+
+
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x.index_select(0, idx)`` for in-range int64 ``idx``. Rows of 16 to
+    256 bytes of a contiguous ``[n, k]`` tensor (the blocks of the
+    throughput path, the setup's narrow tables) are taken through one flat
+    index over the elements instead: on an H100 (torch 2.11) a 2-D
+    ``index_select`` of 2.5 M such rows took ≈ 1.51 ms whatever their
+    width, the flat form 0.141 ms at k = 8 float32 columns
+    (``benchmarks/port_gather.py``, PERF.md). The values are the same."""
+    if x.dim() != 2 or not x.is_contiguous() \
+            or not 16 <= x.shape[1] * x.element_size() <= 256:
+        return x.index_select(0, idx)
+    k = x.shape[1]
+    itype = torch.int32 if x.numel() < _I32_MAX else torch.int64
+    cols = torch.arange(k, dtype=itype, device=x.device)
+    flat = (idx.to(itype)[:, None] * k + cols).reshape(-1)
+    return x.reshape(-1).index_select(0, flat).view(idx.shape[0], k)
+
+
 def take_fill(x: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
     """``x[idx]`` along dim 0, with ``fill`` where ``idx`` is out of range."""
     n = x.shape[0]
@@ -52,7 +78,7 @@ def take_fill(x: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
         return torch.full(idx.shape + x.shape[1:], fill, dtype=x.dtype,
                           device=x.device)
     flat = idx.reshape(-1).long().clamp(0, n - 1)
-    g = x.index_select(0, flat).reshape(idx.shape + x.shape[1:])
+    g = take_rows(x, flat).reshape(idx.shape + x.shape[1:])
     if x.dim() > 1:
         ok = ok.reshape(ok.shape + (1,) * (x.dim() - 1))
     return torch.where(ok, g, fill)
@@ -77,7 +103,7 @@ def segment_sum_plan(ids: torch.Tensor, num_segments: int):
     lengths = _sorted_lengths(seg.index_select(0, order), num_segments)
 
     def apply(data: torch.Tensor) -> torch.Tensor:
-        return _sum_sorted(data.index_select(0, order), lengths,
+        return _sum_sorted(take_rows(data, order), lengths,
                            num_segments)
 
     return apply

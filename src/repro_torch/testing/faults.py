@@ -39,10 +39,10 @@ armed). A build's body runs as *passes* (:meth:`TracedBuild.run`: one
 round of the vote, one selection, the init, one PCG step). The *k*-th time a pass
 reaches a site draws that site for the build, on the first pass that gets
 there; every later pass replays the same draw. So a site draws once per
-build and call site, as in the reference, except where the port makes
-several calls where the reference vmaps one: the blocked solve's
-preconditioner runs a column at a time, so a site inside it is reached
-once per column of a pass (and draws once per column). A traced site
+build and call site, as in the reference: the blocked solve's matvec and
+preconditioner run once a pass on the whole block, as the reference's
+vmapped ones do, so a site inside them draws once a pass (on the block's
+``[n_pad, k]`` shape). A traced site
 reached outside any build draws on every call, like :func:`site`. With
 one shard index the corruption hits only the seeded shard
 (``axis_index == target``); every rank draws the same target.

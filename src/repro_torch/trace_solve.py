@@ -1,6 +1,6 @@
 """Where the time of setup and of a solve goes on the card.
 
-    python -m repro_torch.trace_solve [--n 1048576] [--trace PATH]
+    python -m repro_torch.trace_solve [--n 1048576] [--trace PATH] [--block K]
 
 Builds the main path's graph (Barabási–Albert, m = 4, seed 0, weighted,
 connected) and:
@@ -18,7 +18,12 @@ connected) and:
   overhead stretches the traced solve's wall time, so the share against
   that is reported too, as a lower bound), and each of the port's own
   kernels' device time and launches. The port runs on one stream, so
-  kernel times add up. ``--trace`` writes the Chrome trace.
+  kernel times add up. ``--trace`` writes the Chrome trace;
+* with ``--block K``, traces one warm blocked solve of K right-hand
+  sides on the throughput path (``exact_columns=False``: one k-column
+  ``spmv_ell``/``jacobi`` launch a level operation) the same way, its
+  kernels grouped by kernel and form (``spmv_ell_block``,
+  ``jacobi_block``).
 
 Prints one JSON object. It needs a CUDA device.
 """
@@ -56,6 +61,7 @@ def _stage_seconds(prof: cProfile.Profile) -> dict:
 # pass and the radix sort's kernels (CUB compiled under the namespace
 # repro_bag_plan: a histogram, a scan and a pass per 8 bits of the keys)
 PORT_KERNELS = {"StoreRow": "spmv_ell", "JacobiRow": "jacobi",
+                "StoreBlock": "spmv_ell_block", "JacobiBlock": "jacobi_block",
                 "VoteRow": "agg_vote", "bag_tiles_kernel": "embedding_bag",
                 "bag_rows_gather": "embedding_bag",
                 "bag_grad_chunks": "embedding_bag_backward",
@@ -198,6 +204,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=1 << 20)
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
+    ap.add_argument("--block", type=int, default=0,
+                    help="also trace a blocked solve of this many columns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("trace_solve: needs a CUDA device", file=sys.stderr)
@@ -233,6 +241,17 @@ def main(argv=None) -> int:
     b -= b.mean()
     (_, info), prof_solve = profile_call(
         torch, lambda: solver.solve(b, tol=1e-6), args.trace, top=12)
+    block = {}
+    if args.block:
+        B = np.random.default_rng(200).normal(size=(n, args.block)).astype(
+            np.float32)
+        B -= B.mean(axis=0)
+        (_, binfo), prof_block = profile_call(
+            torch, lambda: solver.solve_block(B, tol=1e-6,
+                                              exact_columns=False), top=12)
+        block = dict(block_k=args.block,
+                     block_iters=binfo.iters.tolist(),
+                     **{f"block_{k}": val for k, val in prof_block.items()})
     print(json.dumps(dict(
         device=torch.cuda.get_device_name(0), n=n, nnz=len(r),
         setup_s=round(setup_s, 3), setup_stage_s=_stage_seconds(prof),
@@ -243,7 +262,7 @@ def main(argv=None) -> int:
         superstep_registry={k: f"{st['compiles']}/{st['calls']}"
                             for k, st in ledger["steps"].items()},
         solve_iters=info.iters,
-        **{f"solve_{k}": val for k, val in prof_solve.items()})))
+        **{f"solve_{k}": val for k, val in prof_solve.items()}, **block)))
     return 0
 
 

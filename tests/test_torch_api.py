@@ -348,12 +348,12 @@ def test_vectorized_path_matches_reference(built):
 def test_block_reductions_follow_exact_columns(exact):
     """``exact_columns=True`` reduces each column with ``pcg``'s own 1-D
     operations; ``False`` reduces the ``(n, k)`` block in 2-D."""
-    from repro_torch.core.krylov import _Columns, _project
+    from repro_torch.core.krylov import _Block, _Columns, _project
 
     g = torch.Generator().manual_seed(0)
     U = torch.randn(1000, 5, generator=g)
     V = torch.randn(1000, 5, generator=g)
-    ops = _Columns(None, None, None, exact=exact)
+    ops = (_Columns if exact else _Block)(None, None, None)
     Uc, Vc = ops.split(U), ops.split(V)
     if exact:
         dots = torch.stack([torch.dot(u, v) for u, v in zip(Uc, Vc)])

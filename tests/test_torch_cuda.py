@@ -8,7 +8,8 @@ it runs on a machine that has only the port's dependencies:
 
 Tolerances: ``spmv_ell``/``jacobi`` rtol 1e-5 / atol 1e-6 against their
 plain versions (the float32 summation order differs) and bitwise equal
-from one call to the next, ``agg_vote`` bit-exact, ``embedding_bag``
+from one call to the next; their k-column forms the same, and each column
+bitwise the one-vector kernel on that column, ``agg_vote`` bit-exact, ``embedding_bag``
 bitwise equal at hot <= 2 (a sum of two floats from 0 has one rounding)
 and rtol / atol 1e-6 above (PyTorch's sum may add in another order), and
 bitwise equal from one call to the next; the bag backward within 1e-6 of
@@ -130,6 +131,77 @@ def test_cuda_rows_too_wide_to_stage_run_unstaged(n_rows, width):
     assert torch.equal(out[::5], X[::5])
     want = vote_reduce_ref(C, Q, S, levels=1 << 20)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+BLOCK_WIDTHS = (1, 8, 19, 34, 64)
+BLOCK_KS = (1, 3, 8, 32, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", BLOCK_WIDTHS)
+@pytest.mark.parametrize("k", BLOCK_KS)
+def test_cuda_block_kernels_match_column_kernels(width, k):
+    """The k-column forms on row-major [n, k] blocks: column j bitwise the
+    one-vector kernel on ``X[:, j]``, within tolerance of the plain
+    version, bitwise on a repeat; each form counts its own launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n = 20_011                          # a ragged last tile at every width
+    rng = np.random.default_rng(1000 * width + k)
+    col, val = _ell(rng, n, n, width)
+    x, b = (rng.normal(size=(n, k)).astype(np.float32) for _ in range(2))
+    deg = np.abs(rng.normal(size=n)).astype(np.float32) * width
+    deg[::7] = 0.0
+    C, V, X, B, D = (_t(a).cuda() for a in (col, val, x, b, deg))
+    s0, j0 = spmv_ell.launches, jacobi_step.launches
+    sb, jb = spmv_ell.block_launches, jacobi_step.block_launches
+    y, out = spmv_ell(C, V, X), jacobi_step(C, V, X, B, D)
+    assert (spmv_ell.block_launches, jacobi_step.block_launches) == (sb + 1,
+                                                                     jb + 1)
+    assert (spmv_ell.launches, jacobi_step.launches) == (s0, j0)
+    assert y.shape == out.shape == (n, k)
+    torch.testing.assert_close(y, spmv_ell_ref(C, V, X), rtol=RTOL,
+                               atol=ATOL)
+    torch.testing.assert_close(out, jacobi_step_ref(C, V, X, B, D),
+                               rtol=RTOL, atol=ATOL)
+    assert torch.equal(out[::7], X[::7])
+    assert torch.equal(spmv_ell(C, V, X), y)
+    assert torch.equal(jacobi_step(C, V, X, B, D), out)
+    for j in range(k):
+        xj, bj = X[:, j].contiguous(), B[:, j].contiguous()
+        assert torch.equal(y[:, j], spmv_ell(C, V, xj)), f"spmv col {j}"
+        assert torch.equal(out[:, j], jacobi_step(C, V, xj, bj, D)), \
+            f"jacobi col {j}"
+
+
+@pytest.mark.cuda
+def test_cuda_block_arguments_checked_and_nothing_falls_back():
+    """A block that the k-column kernels do not take raises before any
+    launch: not contiguous, misaligned, no columns, another dtype."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    n, w, k = 1000, 8, 4
+    rng = np.random.default_rng(5)
+    col, val = _ell(rng, n, n, w)
+    C, V = _t(col).cuda(), _t(val).cuda()
+    deg = torch.ones(n, device="cuda")
+    X = torch.randn(n, k, device="cuda")
+    buf = torch.zeros(n * k + 1, device="cuda")
+    bad = {"transposed": torch.randn(k, n, device="cuda").t(),
+           "misaligned": buf[1:].view(n, k),
+           "no columns": torch.zeros(n, 0, device="cuda"),
+           "float64": X.double(), "int32": X.int()}
+    counts = lambda: (spmv_ell.launches, spmv_ell.block_launches,  # noqa: E731
+                      jacobi_step.launches, jacobi_step.block_launches)
+    before = counts()
+    for name, Xb in bad.items():
+        with pytest.raises((TypeError, ValueError)):
+            spmv_ell(C, V, Xb)
+        with pytest.raises((TypeError, ValueError)):
+            jacobi_step(C, V, Xb, Xb, deg)
+    with pytest.raises(ValueError):          # B of another shape than X
+        jacobi_step(C, V, X, X[:, :2].contiguous(), deg)
+    assert counts() == before
 
 
 @pytest.mark.cuda
@@ -804,9 +876,10 @@ def test_cuda_agg_registry_key_separates_ell_sweeps():
 @pytest.mark.cuda
 def test_cuda_dist_world_of_one_runs_the_kernels():
     """A world of one over NCCL on the card: the distributed setup and
-    solve launch ``agg_vote``, ``spmv_ell`` and ``jacobi``, converge to a
-    host residual ≤ 1e-4 in ``single``'s iterations, and make every
-    reduction an NCCL all-reduce (none staged)."""
+    solve launch ``agg_vote`` and the k-column ``spmv_ell`` and ``jacobi``
+    (the blocked solve runs its matvec and V-cycle on the whole block),
+    converge to a host residual ≤ 1e-4 in ``single``'s iterations, and
+    make every reduction an NCCL all-reduce (none staged)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     import torch.distributed as dist
@@ -826,7 +899,8 @@ def test_cuda_dist_world_of_one_runs_the_kernels():
     cfg = SetupConfig(matvec_backend="ell")
     mesh = init_world("cuda")
     try:
-        k0 = (spmv_ell.launches, jacobi_step.launches, vote_reduce.launches)
+        k0 = (spmv_ell.block_launches, jacobi_step.block_launches,
+              vote_reduce.launches)
         s = DistLaplacianSolver.setup(n, r, c, v, mesh, cfg,
                                       dist_nnz_threshold=1000)
         X, norms, iters, codes = s.solve_block(b[:, None], n_iters=200,
@@ -834,7 +908,8 @@ def test_cuda_dist_world_of_one_runs_the_kernels():
         stats = mesh.stats()
     finally:
         dist.destroy_process_group()
-    k1 = (spmv_ell.launches, jacobi_step.launches, vote_reduce.launches)
+    k1 = (spmv_ell.block_launches, jacobi_step.block_launches,
+          vote_reduce.launches)
     assert all(b1 > b0 for b0, b1 in zip(k0, k1))
     assert mesh.backend == "nccl" and stats["calls"] > 0
     assert stats["staged"] == 0 and int(codes[0]) == 0
