@@ -1109,7 +1109,10 @@ def block_record(torch, name, col, val, X, B=None, deg=None, launches=0,
                         lambda: run(*args), lambda: plain(*args),
                         *kernel_work(name, args), library=library,
                         label=label)
+    from repro_torch.kernels import ell_block_tile_plan
+
     rec.update(rows=col.shape[0], width=col.shape[1], k=X.shape[1],
+               plan=list(ell_block_tile_plan(col.shape[1], X.shape[1])),
                vmapped_at=VMAPPED_AT[name])
     return rec
 

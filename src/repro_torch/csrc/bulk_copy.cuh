@@ -1,7 +1,7 @@
 // The bulk-copy pipeline primitives of the port's Hopper (sm_90a) kernels:
 // mbarrier phases, 1-D bulk copies (cp.async.bulk, the TMA's non-tensor
-// form) between global and shared memory, an L2 evict-first policy, and
-// the persistent grid that the staged kernels launch.
+// form) between global and shared memory, L2 evict-first and evict-last
+// policies, and the persistent grid that the staged kernels launch.
 //
 // Users: ell_tiles.cuh (spmv_ell, jacobi, agg_vote) stages its row tiles
 // with bulk_load; embedding_bag.cu stages its id tiles with bulk_load and
@@ -77,6 +77,17 @@ __device__ __forceinline__ void fence_mbar_init() {
 __device__ __forceinline__ uint64_t evict_first_policy() {
   uint64_t policy;
   asm volatile("createpolicy.fractional.L2::evict_first.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  return policy;
+}
+
+// An L2 policy that evicts a gathered array last, so that the gathers'
+// lines outlive what streams past them (the ELL kernels' k-column form:
+// X, gathered at random rows, has to stay in L2 while the tables and the
+// result pass through it).
+__device__ __forceinline__ uint64_t evict_last_policy() {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
                : "=l"(policy));
   return policy;
 }

@@ -56,12 +56,27 @@
 //
 // The k-column form (block_tiles_kernel, the float kernels on row-major
 // [n, k] blocks: what jax.vmap over a column axis makes of the one-vector
-// TPU kernels) stages the same tiles once for all k columns and gives each
-// (row, column) pair a lane: a row's lanes share its slots (a broadcast
-// from shared memory) and gather X[col, 0 .. k) as k contiguous floats, a
-// whole 32-byte sector at k = 8 where the one-vector kernel uses 4 bytes
-// of each sector it gathers. Each column is summed by row_sum, so column j
-// of a block is bitwise the one-vector kernel's sum of X[:, j].
+// TPU kernels, spmv_ell_pallas and jacobi_step_pallas) stages the same
+// tiles once for all k columns. A unit of work is a (row, group of C
+// contiguous columns), C = 4 where k % 4 == 0; T threads of a warp split
+// the row's P lanes of row_sum between them, so that a thread holds at
+// most 16 partial sums (its plan: repro_torch.kernels.
+// ell_block_tile_plan, one unit a consumer thread where a tile allows).
+// What bounds it is bytes: the tables once, X once and the result once,
+// and a (row, slot) gathers one 32-byte sector of X at k = 8 (a float4
+// for each of two threads), the sector the one-vector kernel fetches from
+// L2 for its 4 bytes. But X is k times the one-vector kernel's x: on an
+// H100 the gathers mostly hit L2 at 2^20 rows and k = 4 (X 16 MB) and
+// mostly miss it at k = 8 (32 MB), a sector of HBM each, which sets the
+// pace there (PERF.md). So X is gathered under an L2 evict-last policy,
+// and the tables (evict-first bulk copies) and the result (streaming
+// stores) pass by it. The tree's
+// offsets >= T add inside a thread and those < T by shuffles, the same
+// additions in the same order as row_sum's, so column j of a block is
+// bitwise the one-vector kernel's sum of X[:, j]. No read rotation: the T
+// threads of a unit read consecutive slots, and at k = 8 the rows a warp
+// holds meet at most 2-way bank conflicts at the widths 8, 19, 34 and 64
+// (none at 19).
 
 #pragma once
 
@@ -421,26 +436,201 @@ int launch(const int* col, const float* val, const float* x, int n_rows,
 // ---------------------------------------------------------------------------
 // The k-column form: X and the result are row-major [n, k] blocks (what
 // jax.vmap over a column axis makes of the one-vector TPU kernels). The
-// tables are staged exactly as above, once for all k columns; the
-// consumer threads of a row are its `lanes` (the power of two >= k, at
-// most 32): lane l sums columns l, l + lanes, ... of the row, each with
-// row_sum, so a warp holds 32/lanes rows, its lanes read a slot of shared
-// memory at once (one broadcast a row), and a row's gathers of X[col, :]
-// are k contiguous floats. epi(row, j, result) is called once for every
-// (row, column) pair, by the lane that summed it.
-template <class Row>
-__device__ __noinline__ float unstaged_block_row(const Row& row,
-                                                 const int* c, const float* v,
-                                                 int width, int r, int j) {
-  return row(c, v, width, r, j);
+// tables are staged exactly as above (produce(), the same ring), once for
+// all k columns. The unit of work is a (row, column group): C contiguous
+// columns j0 .. j0+C of one row, C = block_cols(k), owned by T threads of
+// one warp (block_unit_threads) that split the row's P lanes of row_sum:
+// thread t holds lanes t, t+T, t+2T, … (N = P/T of them) and adds each
+// lane's slots left to right, as row_sum's lane does; the halving tree
+// then runs its offsets >= T inside the thread and its offsets < T by
+// shuffles. The additions are row_sum's, in its order, so column j of a
+// block is bitwise the one-vector kernel's sum of X[:, j]. A thread reads
+// each of its slots from shared memory once for its C columns and gathers
+// X[col, j0 .. j0+C) with one vector load; the T threads of a unit read
+// consecutive slots (distinct banks). X is gathered under an L2
+// evict-last policy and the result stored as streaming (evict-first), so
+// that X stays in L2 while the tables and the result pass through it.
+
+constexpr int kBlockPartials = 16;  // N·C, the partial sums of a thread
+
+// C, the columns of a unit: 4 where k % 4 == 0 (X's and Y's rows are then
+// 16-byte aligned), 2 where k is even, else 1.
+__host__ __device__ constexpr int block_cols(int k) {
+  return k % 4 == 0 ? 4 : k % 2 == 0 ? 2 : 1;
 }
 
-template <class Row, class Epi>
+// T, the threads of a unit: the fewest (a power of two dividing P) that
+// keep a thread's N·C partial sums within kBlockPartials.
+__host__ __device__ constexpr int block_unit_threads(int P, int C) {
+  return P * C > kBlockPartials ? P * C / kBlockPartials : 1;
+}
+
+template <int C>
+struct Cols {
+  float v[C];
+};
+
+// C contiguous floats at p (4·C-byte aligned) through the read-only path,
+// with the L2 policy `policy` (bulk::evict_last_policy() for X). Volatile:
+// a padding slot's load sits under a branch and must not be hoisted.
+template <int C>
+__device__ __forceinline__ void load_cols(const float* p, uint64_t policy,
+                                          float (&o)[C]) {
+  if constexpr (C == 4) {
+    asm volatile(
+        "ld.global.nc.L2::cache_hint.v4.f32 {%0, %1, %2, %3}, [%4], %5;"
+        : "=f"(o[0]), "=f"(o[1]), "=f"(o[2]), "=f"(o[3])
+        : "l"(p), "l"(policy));
+  } else if constexpr (C == 2) {
+    asm volatile(
+        "ld.global.nc.L2::cache_hint.v2.f32 {%0, %1}, [%2], %3;"
+        : "=f"(o[0]), "=f"(o[1])
+        : "l"(p), "l"(policy));
+  } else {
+    asm volatile(
+        "ld.global.nc.L2::cache_hint.f32 %0, [%1], %2;"
+        : "=f"(o[0])
+        : "l"(p), "l"(policy));
+  }
+}
+
+// C contiguous floats at p (4·C-byte aligned) read once (streaming).
+template <int C>
+__device__ __forceinline__ void stream_cols(const float* p, float (&o)[C]) {
+  if constexpr (C == 4) {
+    const float4 a = __ldcs(reinterpret_cast<const float4*>(p));
+    o[0] = a.x, o[1] = a.y, o[2] = a.z, o[3] = a.w;
+  } else if constexpr (C == 2) {
+    const float2 a = __ldcs(reinterpret_cast<const float2*>(p));
+    o[0] = a.x, o[1] = a.y;
+  } else {
+    o[0] = __ldcs(p);
+  }
+}
+
+// C contiguous floats to p (4·C-byte aligned), one streaming store.
+template <int C>
+__device__ __forceinline__ void store_cols(float* p, const float (&o)[C]) {
+  if constexpr (C == 4) {
+    __stcs(reinterpret_cast<float4*>(p), make_float4(o[0], o[1], o[2], o[3]));
+  } else if constexpr (C == 2) {
+    __stcs(reinterpret_cast<float2*>(p), make_float2(o[0], o[1]));
+  } else {
+    __stcs(p, o[0]);
+  }
+}
+
+// p[q] = the rounded product val[s] · X[col[s], j0 + q] of slot s, or +0
+// for a padding slot (product() for each of C columns); x points at
+// X + j0, a row-major [n_cols, k] block. A padding slot gathers nothing.
+template <int C>
+__device__ __forceinline__ void block_products(const int* c, const float* v,
+                                               int s, const float* x, int k,
+                                               int n_cols, uint64_t policy,
+                                               float (&p)[C]) {
+  const int cc = c[s];
+  const bool real = static_cast<unsigned>(cc) < static_cast<unsigned>(n_cols);
+  float g[C];
+#pragma unroll
+  for (int q = 0; q < C; ++q) g[q] = 0.0f;
+  if (real) load_cols<C>(x + static_cast<long long>(cc) * k, policy, g);
+  const float vs = v[s];
+#pragma unroll
+  for (int q = 0; q < C; ++q) p[q] = real ? __fmul_rn(vs, g[q]) : 0.0f;
+}
+
+// s[i] += s[i + OFF] for i < OFF, then for OFF/2, …, 1, in each column:
+// tree() on a thread's N lanes of C columns.
+template <int N, int C, int OFF>
+__device__ __forceinline__ void tree_cols(float (&s)[N][C]) {
+  if constexpr (OFF > 0) {
+#pragma unroll
+    for (int i = 0; i < OFF; ++i) {
+#pragma unroll
+      for (int q = 0; q < C; ++q) s[i][q] = __fadd_rn(s[i][q], s[i + OFF][q]);
+    }
+    tree_cols<N, C, OFF / 2>(s);
+  }
+}
+
+// One unit's sums: thread t (of the unit's T, lanes t, t+T, … of row_sum's
+// P) adds its lanes' rounded products in row_sum's order: each lane from
+// +0, its slots lane, lane+P, lane+2P, … left to right (a slot past the
+// row adds 0); then the tree, offsets P/2 … T in the thread, T/2 … 1 by
+// shuffles within the unit's lanes of the warp (mask). The C sums end in
+// thread t = 0. All T threads call it together.
+template <int P, int T, int C>
+__device__ __forceinline__ Cols<C> unit_sum(const int* c, const float* v,
+                                            int width, int t, const float* x,
+                                            int k, int n_cols, uint64_t policy,
+                                            unsigned mask) {
+  constexpr int N = P / T;
+  float s[N][C];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    block_products<C>(c, v, t + i * T, x, k, n_cols, policy, s[i]);
+  }
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int q = 0; q < C; ++q) s[i][q] = __fadd_rn(0.0f, s[i][q]);
+  }
+  for (int k0 = P; k0 < width; k0 += P) {
+    float p[N][C];
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int slot = k0 + t + i * T;
+      if (slot < width) {
+        block_products<C>(c, v, slot, x, k, n_cols, policy, p[i]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < C; ++q) p[i][q] = 0.0f;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+#pragma unroll
+      for (int q = 0; q < C; ++q) s[i][q] = __fadd_rn(s[i][q], p[i][q]);
+    }
+  }
+  tree_cols<N, C, N / 2>(s);
+  Cols<C> out;
+#pragma unroll
+  for (int q = 0; q < C; ++q) {
+    float a = s[0][q];
+#pragma unroll
+    for (int off = T / 2; off > 0; off /= 2) {
+      a = __fadd_rn(a, __shfl_down_sync(mask, a, off, T));
+    }
+    out.v[q] = a;
+  }
+  return out;
+}
+
+// The lanes of this thread's unit in its warp: T aligned lanes.
+template <int T>
+__device__ __forceinline__ unsigned unit_mask() {
+  if constexpr (T == kWarp) {
+    return 0xffffffffu;
+  } else {
+    return ((1u << T) - 1u) << (threadIdx.x & (kWarp - T));
+  }
+}
+
+// Thread i of the consumers is thread t = i mod T of unit i / T, then of
+// unit i / T + (consumers / T), …; unit u of a tile is its row u / G,
+// columns (u mod G)·C … (G = k / C column groups), so a warp's units are
+// a run of its rows' column groups and their stores one contiguous run.
+// epi(row, j0, sums, policy) is called once for every unit, by its thread
+// t = 0. Both paths inline unit_sum (an out-of-line call for the unstaged
+// rows, as unstaged_row, spilled registers of the staged loop here).
+template <int P, int T, int C, class Epi>
 __global__ void __launch_bounds__(kMaxThreads + kWarp)
 block_tiles_kernel(const int* __restrict__ col,
-                   const float* __restrict__ val, int n_rows, int width,
-                   int rows_per_tile, int stages, int k, int lane_bits,
-                   Row row, Epi epi) {
+                   const float* __restrict__ val,
+                   const float* __restrict__ x, int n_rows, int width,
+                   int n_cols, int k, int rows_per_tile, int stages,
+                   Epi epi) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ __align__(8) uint64_t full[kMaxStages];
   __shared__ __align__(8) uint64_t empty[kMaxStages];
@@ -471,23 +661,29 @@ block_tiles_kernel(const int* __restrict__ col,
     return;
   }
 
-  const int lanes = 1 << lane_bits;
-  const int lane = threadIdx.x & (lanes - 1);
-  const int first = threadIdx.x >> lane_bits;  // this thread's first row
-  const int step = n_consumers >> lane_bits;   // rows of a pass of the block
+  const int groups = k / C;
+  const int units = rows * groups;
+  const int t = threadIdx.x & (T - 1);
+  const int first = threadIdx.x / T;
+  const int step = n_consumers / T;
+  const unsigned mask = unit_mask<T>();
+  const uint64_t policy = bulk::evict_last_policy();
   int stage = 0;
   uint32_t phase = 0;
-  for (int t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const long long row0 = static_cast<long long>(t) * rows;
-    if (staged && t < n_full) {
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const long long row0 = static_cast<long long>(tile) * rows;
+    if (staged && tile < n_full) {
       bulk::mbar_wait(&full[stage], phase);
       const int* c = s_col + stage * tile_slots;
       const float* v = s_val + stage * tile_slots;
-      for (int r = first; r < rows; r += step) {
+      for (int u = first; u < units; u += step) {
+        const int r = u / groups;
+        const int j0 = (u - r * groups) * C;
         const int o = r * width;
-        for (int j = lane; j < k; j += lanes) {
-          epi(row0 + r, j, row(c + o, v + o, width, r, j));
-        }
+        const Cols<C> sums = unit_sum<P, T, C>(c + o, v + o, width, t,
+                                               x + j0, k, n_cols, policy,
+                                               mask);
+        if (t == 0) epi(row0 + r, j0, sums, policy);
       }
       __syncwarp();
       if (threadIdx.x % kWarp == 0) bulk::mbar_arrive(&empty[stage]);
@@ -496,78 +692,88 @@ block_tiles_kernel(const int* __restrict__ col,
         phase ^= 1;
       }
     } else {  // the ragged last tile, width 0 or no stages: plain loads
-      for (int r = first; r < rows && row0 + r < n_rows; r += step) {
-        const long long o = (row0 + r) * width;
-        for (int j = lane; j < k; j += lanes) {
-          epi(row0 + r, j,
-              width > 0
-                  ? unstaged_block_row(row, col + o, val + o, width, r, j)
-                  : 0.0f);
+      for (int u = first; u < units; u += step) {
+        const int r = u / groups;
+        if (row0 + r >= n_rows) break;
+        const int j0 = (u - r * groups) * C;
+        Cols<C> sums{};
+        if (width > 0) {
+          const long long o = (row0 + r) * width;
+          sums = unit_sum<P, T, C>(col + o, val + o, width, t, x + j0, k,
+                                   n_cols, policy, mask);
         }
+        if (t == 0) epi(row0 + r, j0, sums, policy);
       }
     }
   }
 }
 
-// The lanes of a row in the k-column form: log2 of the power of two >= k,
-// at most 5 (32 lanes; a wider block loops over its columns).
-__host__ __device__ __forceinline__ int block_lane_bits(int k) {
-  int bits = 0;
-  while (bits < 5 && (1 << bits) < k) ++bits;
-  return bits;
-}
-
-// Checks the plan and launches the k-column form on a persistent grid:
-// min(rows_per_tile · lanes, kMaxThreads) consumer threads a block.
-template <class Row, class Epi>
-int launch_block_kernel(const int* col, const float* val, int n_rows,
-                        int width, int k, int rows_per_tile, int stages,
-                        int smem_bytes, Row row, Epi epi,
+// Checks the plan (repro_torch.kernels.ell_block_tile_plan: rows a tile, a
+// multiple of 4 so that every tile's bulk copies are 16-byte multiples;
+// stages; shared bytes; C; T; consumer threads, the tile's units' threads
+// rounded up to warps, at most kMaxThreads) and launches the k-column form
+// on a persistent grid.
+template <int P, int C, class Epi>
+int launch_block_kernel(const int* col, const float* val, const float* x,
+                        int n_rows, int width, int n_cols, int k,
+                        int rows_per_tile, int stages, int smem_bytes,
+                        int cols, int unit_threads, int threads, Epi epi,
                         cudaStream_t stream) {
-  if (n_rows <= 0) return cudaSuccess;
-  const int lane_bits = block_lane_bits(k);
-  const long long slots = static_cast<long long>(rows_per_tile) << lane_bits;
-  const int threads = slots < kMaxThreads ? static_cast<int>(slots)
-                                          : kMaxThreads;
+  constexpr int T = block_unit_threads(P, C);
+  const long long tile_threads = static_cast<long long>(rows_per_tile) *
+                                 (k / C) * T;        // one a unit's thread
+  const long long warps = (tile_threads + kWarp - 1) / kWarp * kWarp;
+  const long long want = warps < kMaxThreads ? warps : kMaxThreads;
   const long long tile_bytes = static_cast<long long>(rows_per_tile) *
                                width * 8;
-  if (k < 1 || rows_per_tile <= 0 || slots % threads != 0 ||
-      threads % kWarp != 0 || width < 0 || stages < 0 ||
-      stages > kMaxStages || smem_bytes != stages * tile_bytes ||
-      (width == 0 && stages != 0)) {
+  if (cols != C || unit_threads != T || rows_per_tile <= 0 ||
+      rows_per_tile % 4 != 0 || threads != want || width < 0 ||
+      stages < 0 || stages > kMaxStages || smem_bytes != stages * tile_bytes ||
+      (width == 0 && stages != 0) ||
+      reinterpret_cast<uintptr_t>(x) % (4 * C) != 0) {
     return cudaErrorInvalidValue;
   }
   const long long n_tiles = (n_rows + rows_per_tile - 1) / rows_per_tile;
   unsigned grid = 0;
-  const cudaError_t e = bulk::persistent_grid<block_tiles_kernel<Row, Epi>>(
-      threads + kWarp, smem_bytes, n_tiles, &grid);
+  const cudaError_t e =
+      bulk::persistent_grid<block_tiles_kernel<P, T, C, Epi>>(
+          threads + kWarp, smem_bytes, n_tiles, &grid);
   if (e != cudaSuccess) return e;
-  block_tiles_kernel<Row, Epi><<<grid, threads + kWarp, smem_bytes, stream>>>(
-      col, val, n_rows, width, rows_per_tile, stages, k, lane_bits, row, epi);
+  block_tiles_kernel<P, T, C, Epi>
+      <<<grid, threads + kWarp, smem_bytes, stream>>>(
+          col, val, x, n_rows, width, n_cols, k, rows_per_tile, stages, epi);
   return cudaGetLastError();
 }
 
-// The float kernels' k-column form: the lane count P and the read rotation
-// as in launch(), over X of [n_cols, k].
+// The float kernels' k-column form over X of [n_cols, k]: picks the lane
+// count P of row_sum (dispatch_width) and the unit's columns C from k, and
+// launches (width 0 sums nothing).
 template <class Epi>
 int launch_block(const int* col, const float* val, const float* x,
                  int n_rows, int width, int n_cols, int k, int rows_per_tile,
-                 int stages, int smem_bytes, Epi epi, cudaStream_t stream) {
-  const int g = bank_group(width);
+                 int stages, int smem_bytes, int cols, int unit_threads,
+                 int threads, Epi epi, cudaStream_t stream) {
+  if (n_rows <= 0) return cudaSuccess;
+  if (k < 1) return cudaErrorInvalidValue;
   return dispatch_width(width, [&](auto lanes) {
     constexpr int P = decltype(lanes)::value;
-    if constexpr (P >= 4) {
-      if (g > 1) {
-        return launch_block_kernel(col, val, n_rows, width, k, rows_per_tile,
-                                   stages, smem_bytes,
-                                   BlockSumRow<P, true>{x, k, n_cols, g},
-                                   epi, stream);
-      }
+    switch (block_cols(k)) {
+      case 4:
+        return launch_block_kernel<P, 4>(col, val, x, n_rows, width, n_cols,
+                                         k, rows_per_tile, stages, smem_bytes,
+                                         cols, unit_threads, threads, epi,
+                                         stream);
+      case 2:
+        return launch_block_kernel<P, 2>(col, val, x, n_rows, width, n_cols,
+                                         k, rows_per_tile, stages, smem_bytes,
+                                         cols, unit_threads, threads, epi,
+                                         stream);
+      default:
+        return launch_block_kernel<P, 1>(col, val, x, n_rows, width, n_cols,
+                                         k, rows_per_tile, stages, smem_bytes,
+                                         cols, unit_threads, threads, epi,
+                                         stream);
     }
-    return launch_block_kernel(col, val, n_rows, width, k, rows_per_tile,
-                               stages, smem_bytes,
-                               BlockSumRow<P, false>{x, k, n_cols, g}, epi,
-                               stream);
   });
 }
 

@@ -26,11 +26,19 @@
 // src/repro/dist/solver.py :: _block_ops): Y[r, j] = sum_w val[r, w] *
 // X[col[r, w], j] for row-major X [n_cols, k], Y [n_rows, k]. Its bound is
 // bytes too: 8 * n_rows * width + 4 * k * (n_cols + n_rows), the tables
-// read once for all k columns. Where k one-vector launches gather 4 bytes
-// of each 32-byte sector they touch, its lanes gather k contiguous floats
-// of X's row col[r, w] (a whole sector at k = 8); a row's lanes read its
-// slots from shared memory as one broadcast (ell_tiles.cuh, "k-column
-// form"). Each column is summed in the one-vector kernel's order.
+// read once for all k columns. A (row, slot) gathers X's row col[r, w]:
+// at k = 8 one 32-byte sector, the sector that the one-vector kernel
+// fetches from L2 for its 4 bytes, so k columns cost about the gathers of
+// one one-vector launch while X stays in L2 (gathered under an evict-last
+// policy, the result stored as a stream); where X outgrows L2 (32 MB at
+// 2^20 rows, k = 8), a gather costs a sector of HBM. A thread owns a
+// (row, group of C = 4, 2 or 1 contiguous columns) and T threads split
+// the row's slot lanes (ell_tiles.cuh, "k-column form"): each slot is
+// read from shared memory once for C columns, gathered as one float4 /
+// float2, and stored with one vector store by the unit's first thread.
+// Each column is summed with row_sum's additions in row_sum's order (the
+// tree's small offsets by shuffles), so it is bitwise the one-vector
+// kernel's.
 
 #include "ell_tiles.cuh"
 
@@ -43,14 +51,16 @@ struct StoreRow {
   }
 };
 
-// Y[r, j] of a row-major [n_rows, k] block: a warp's lanes store its rows'
-// k contiguous floats.
+// Y[r, j0 .. j0+C) of a row-major [n_rows, k] block, one streaming vector
+// store: a warp's units store one contiguous run.
 struct StoreBlock {
   float* y;
   int k;
-  __device__ __forceinline__ void operator()(long long r, int j,
-                                             float acc) const {
-    y[r * k + j] = acc;
+  template <int C>
+  __device__ __forceinline__ void operator()(long long r, int j0,
+                                             const ell_tiles::Cols<C>& acc,
+                                             uint64_t) const {
+    ell_tiles::store_cols<C>(y + r * k + j0, acc.v);
   }
 };
 
@@ -68,15 +78,22 @@ extern "C" int repro_spmv_ell_f32(const void* col, const void* val,
 }
 
 // The k-column form: Y = A_ell X for row-major X [n_cols, k] and Y
-// [n_rows, k] (the TPU kernel under jax.vmap over the column axis).
+// [n_rows, k] (the TPU kernel under jax.vmap over the column axis), on the
+// plan of repro_torch.kernels.ell_block_tile_plan(width, k).
 extern "C" int repro_spmv_ell_block_f32(const void* col, const void* val,
                                         const void* x, void* y, int n_rows,
                                         int width, int n_cols, int k,
                                         int rows_per_tile, int stages,
-                                        int smem_bytes, void* stream) {
+                                        int smem_bytes, int cols,
+                                        int unit_threads, int threads,
+                                        void* stream) {
+  if (reinterpret_cast<uintptr_t>(y) % (4 * ell_tiles::block_cols(k)) != 0) {
+    return cudaErrorInvalidValue;
+  }
   return ell_tiles::launch_block(
       static_cast<const int*>(col), static_cast<const float*>(val),
       static_cast<const float*>(x), n_rows, width, n_cols, k, rows_per_tile,
-      stages, smem_bytes, StoreBlock{static_cast<float*>(y), k},
+      stages, smem_bytes, cols, unit_threads, threads,
+      StoreBlock{static_cast<float*>(y), k},
       static_cast<cudaStream_t>(stream));
 }

@@ -17,6 +17,8 @@ counter, if one runs (:data:`COUNTERS`).
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 # the dry-run's running counters (``launch.cost.count``), innermost last
@@ -143,6 +145,68 @@ def ell_tile_plan(width: int) -> tuple[int, int, int]:
     if width == 0 or smem > SMEM_PER_BLOCK:
         return _TILE_ROWS, 0, 0
     return rows, 2, smem
+
+
+_BLOCK_THREADS = 256            # consumer threads of a block, at most
+_BLOCK_PARTIALS = 16            # partial sums a thread holds: (P / T)·c
+_BLOCK_RING_BYTES = 16 * 1024   # stages added (2 to 8) while the ring is less
+
+
+class BlockTilePlan(NamedTuple):
+    """The tile plan of the ELL kernels' k-column form; see
+    :func:`ell_block_tile_plan`."""
+
+    rows_per_tile: int
+    stages: int
+    smem_bytes: int
+    cols: int           # c: the contiguous columns of a unit
+    unit_threads: int   # T: the threads that split a row's lanes
+    threads: int        # consumer threads of a block
+
+
+def ell_lanes(width: int) -> int:
+    """P, the lanes of a row sum of ``width`` slots in the ELL kernels'
+    order (``csrc/ell_tiles.cuh`` ``row_sum``): the largest power of two
+    <= ``width``, at most 32 (1 at widths 0 and 1)."""
+    return min(1 << (max(width, 1).bit_length() - 1), 32)
+
+
+def ell_block_tile_plan(width: int, k: int) -> BlockTilePlan:
+    """The tile plan of the float ELL kernels' k-column form
+    (``csrc/ell_tiles.cuh`` ``block_tiles_kernel``) at ``width`` and ``k``
+    columns.
+
+    A unit of work is a (row, group of c contiguous columns): c = 4 where
+    ``k % 4 == 0`` (a row of the block is then 16-byte aligned), 2 where
+    ``k`` is even, else 1. T threads of one warp own a unit and split the
+    row's P lanes (:func:`ell_lanes`), P/T each: T is the fewest, a power
+    of two, that keep a thread's (P/T)·c partial sums within 16. A row is
+    (k/c)·T threads; a tile is the largest multiple of 4 rows whose units
+    give each of 256 consumer threads at most two, in turn, and whose
+    tables stay within 32 KB (4 rows at least, a thread then taking more
+    units in turn: a row of more than 64 threads), so that the bulk copies
+    of a tile are 16-byte multiples; on an H100, two units a thread ran
+    4–7 % faster than one at k = 8 and 64 and alike at k = 4 (PERF.md).
+    The consumer threads are the tile's units' threads rounded up to
+    warps, at most 256. Stages: two, more (up to 8) while the ring would
+    hold less than 16 KB, so that small tiles still keep a stream in
+    flight. Width 0, or two stages beyond a block's shared memory: no
+    stages (plain loads)."""
+    if width < 0 or k < 1:
+        raise ValueError(f"ell_block_tile_plan: width {width}, k {k}")
+    lanes = ell_lanes(width)
+    cols = 4 if k % 4 == 0 else 2 if k % 2 == 0 else 1
+    unit_threads = max(1, lanes * cols // _BLOCK_PARTIALS)
+    row_threads = (k // cols) * unit_threads
+    rows = max(4, min(2 * (_BLOCK_THREADS // row_threads),
+                      _TILE_MAX_BYTES // (8 * max(width, 1))) // 4 * 4)
+    threads = min(_BLOCK_THREADS, -(-rows * row_threads // 32) * 32)
+    tile = 8 * rows * width
+    stages = min(8, max(2, -(-_BLOCK_RING_BYTES // max(tile, 1))))
+    if width == 0 or 2 * tile > SMEM_PER_BLOCK:
+        return BlockTilePlan(rows, 0, 0, cols, unit_threads, threads)
+    return BlockTilePlan(rows, stages, stages * tile, cols, unit_threads,
+                         threads)
 
 
 _BAG_THREADS = 256              # consumer threads of a block, halved ...

@@ -40,10 +40,10 @@ _PL = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "repro_spmv_ell_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     "repro_spmv_ell_block_f32": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                 _I, _P),
+                                 _I, _I, _I, _I, _P),
     "repro_jacobi_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P),
     "repro_jacobi_block_f32": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _I,
-                               _I, _I, _P),
+                               _I, _I, _I, _I, _I, _P),
     "repro_agg_vote_i32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, _P),
     "repro_embedding_bag_f32": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),

@@ -5,8 +5,9 @@ Replaces ``repro/kernels/jacobi/jacobi.py::jacobi_step_pallas``. The
 kernel (``repro_torch/csrc/jacobi.cu``) is bound by bytes: one pass over
 (col, val, x, b, deg) per sweep instead of an SpMV and three elementwise
 passes, with the tables staged in shared memory by bulk copies (the plan
-is :func:`repro_torch.kernels.ell_tile_plan`). It writes a new buffer,
-never ``x`` in place.
+is :func:`repro_torch.kernels.ell_tile_plan`, and
+:func:`repro_torch.kernels.ell_block_tile_plan` for a block). It writes a
+new buffer, never ``x`` in place.
 
 Two forms, as ``spmv_ell``'s: vectors ``x``, ``b`` of ``[n]`` (counted
 in ``jacobi_step.launches``), and row-major blocks ``[n, k]`` (the
@@ -19,9 +20,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import (ell_tile_plan, is_fake, launch, lib, note,
-                                 on_cuda, require, require_aligned,
-                                 shape_only)
+from repro_torch.kernels import (ell_block_tile_plan, ell_tile_plan, is_fake,
+                                 launch, lib, note, on_cuda, require,
+                                 require_aligned, shape_only)
 from repro_torch.kernels.spmv_ell.ops import ell_row_sums
 
 
@@ -61,9 +62,10 @@ def jacobi_step(col, val, x, b, deg, omega: float = 2.0 / 3.0):
     require("jacobi deg", deg, torch.float32, (n,))
     if block and k == 0:
         raise ValueError("jacobi x: a block needs at least one column")
-    for nm, t in (("col", col), ("val", val), ("x", x)):
+    # a block's rows of B are read as vectors of up to 4 floats, as X's
+    for nm, t in (("col", col), ("val", val), ("x", x)) + (
+            (("b", b),) if block else ()):
         require_aligned(f"jacobi {nm}", t)
-    rows, stages, smem = ell_tile_plan(width)
     out = torch.empty(shape, dtype=torch.float32, device=x.device)
     if n == 0:
         return out
@@ -71,9 +73,10 @@ def jacobi_step(col, val, x, b, deg, omega: float = 2.0 / 3.0):
         check(launch(x, lib().repro_jacobi_block_f32, col.data_ptr(),
                      val.data_ptr(), x.data_ptr(), b.data_ptr(),
                      deg.data_ptr(), out.data_ptr(), n, width, k,
-                     float(omega), rows, stages, smem), name)
+                     float(omega), *ell_block_tile_plan(width, k)), name)
         jacobi_step.block_launches += 1
     else:
+        rows, stages, smem = ell_tile_plan(width)
         check(launch(x, lib().repro_jacobi_f32, col.data_ptr(),
                      val.data_ptr(), x.data_ptr(), b.data_ptr(),
                      deg.data_ptr(), out.data_ptr(), n, width, float(omega),

@@ -3,7 +3,8 @@
 Replaces ``repro/kernels/spmv_ell/spmv_ell.py::spmv_ell_pallas``. The
 kernel (``repro_torch/csrc/spmv_ell.cu``) is bound by bytes on the card:
 it streams the col/val tables once, in tiles that bulk copies stage in
-shared memory (the plan is :func:`repro_torch.kernels.ell_tile_plan`),
+shared memory (the plan is :func:`repro_torch.kernels.ell_tile_plan`, and
+:func:`repro_torch.kernels.ell_block_tile_plan` for a block),
 and gathers ``x`` through L2, since ``x`` does not fit in shared memory
 at the main path's sizes. See the source for the design.
 
@@ -19,9 +20,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import (ell_tile_plan, is_fake, launch, lib, note,
-                                 on_cuda, require, require_aligned,
-                                 shape_only)
+from repro_torch.kernels import (ell_block_tile_plan, ell_tile_plan, is_fake,
+                                 launch, lib, note, on_cuda, require,
+                                 require_aligned, shape_only)
 from repro_torch.sparse.segment import take_fill
 
 
@@ -72,16 +73,17 @@ def spmv_ell(col: torch.Tensor, val: torch.Tensor,
         raise ValueError("spmv_ell x: a block needs at least one column")
     for nm, t in (("col", col), ("val", val), ("x", x)):
         require_aligned(f"spmv_ell {nm}", t)
-    rows, stages, smem = ell_tile_plan(width)
     y = torch.empty(out_shape, dtype=torch.float32, device=x.device)
     if width == 0 or n_rows == 0:
         return y.zero_()
     if block:
         check(launch(x, lib().repro_spmv_ell_block_f32, col.data_ptr(),
                      val.data_ptr(), x.data_ptr(), y.data_ptr(), n_rows,
-                     width, x.shape[0], k, rows, stages, smem), name)
+                     width, x.shape[0], k, *ell_block_tile_plan(width, k)),
+              name)
         spmv_ell.block_launches += 1
     else:
+        rows, stages, smem = ell_tile_plan(width)
         check(launch(x, lib().repro_spmv_ell_f32, col.data_ptr(),
                      val.data_ptr(), x.data_ptr(), y.data_ptr(), n_rows,
                      width, x.shape[0], rows, stages, smem), name)

@@ -301,3 +301,129 @@ def test_level_spmm_makes_one_block_call():
     np.testing.assert_allclose(got.numpy(), level_spmm(
         dataclasses.replace(twin, ell=None, ell_rem=None), X).numpy(),
         rtol=1e-5, atol=1e-5)
+
+
+# The k-column kernels' plan and summation order (csrc/ell_tiles.cuh,
+# block_tiles_kernel): checked here without a card.
+PLAN_KS = (1, 2, 3, 4, 8, 12, 32, 64, 128)
+BLOCK_PARTIALS = 16          # a thread's partial sums, (P / T)·c, at most
+
+
+@pytest.mark.parametrize("k", PLAN_KS)
+def test_ell_block_tile_plan_rules(k):
+    """At every width 0 … 64: whole warps, at most 256 consumer threads;
+    shared memory within a block's; c divides k (4 only where k % 4 == 0);
+    T a power of two dividing P with (P/T)·c within the budget, and the
+    fewest that is; tiles of a multiple of 4 rows (16-byte bulk copies);
+    and, following the kernel's thread → unit map, every (row, column)
+    pair of a tile owned by exactly one thread (its unit's thread t = 0),
+    a unit's T threads in one warp, and at most two units a thread
+    wherever a row takes at most 64 threads."""
+    from repro_torch.kernels import (SMEM_PER_BLOCK, ell_block_tile_plan,
+                                     ell_lanes)
+
+    for width in range(65):
+        plan = ell_block_tile_plan(width, k)
+        rows, stages, smem, c, T, threads = plan
+        P = ell_lanes(width)
+        assert threads % 32 == 0 and 32 <= threads <= 256, plan
+        assert smem <= SMEM_PER_BLOCK and rows % 4 == 0, plan
+        assert k % c == 0 and (c == 4) == (k % 4 == 0), plan
+        assert c == 2 or k % 4 == 0 or k % 2 == 1, plan
+        assert T & (T - 1) == 0 and P % T == 0, plan
+        assert (P // T) * c <= BLOCK_PARTIALS, plan
+        assert T == 1 or (P // (T // 2)) * c > BLOCK_PARTIALS, plan  # fewest
+        if width:
+            assert 2 <= stages <= 8 and smem == stages * rows * width * 8
+        else:
+            assert (stages, smem) == (0, 0), plan
+        groups = k // c
+        owner = np.full((rows, k), -1)
+        units_of = np.zeros(threads, dtype=int)
+        for tid in range(threads):
+            t, first = tid % T, tid // T
+            assert (first * T) // 32 == (first * T + T - 1) // 32, plan
+            for u in range(first, rows * groups, threads // T):
+                units_of[tid] += 1
+                r, g = divmod(u, groups)
+                if t == 0:
+                    assert (owner[r, g * c:(g + 1) * c] == -1).all()
+                    owner[r, g * c:(g + 1) * c] = tid
+        assert (owner >= 0).all(), plan
+        if groups * T <= 64:
+            assert units_of.max() <= 2, plan
+
+
+def _row_sum_order(prod):
+    """The one-vector kernel's order (``row_sum``): P lanes, lane j from
+    +0 adding slots j, j+P, … left to right (a slot past the row adds 0),
+    then the halving tree; on ``prod`` [rows, width] float32 products."""
+    n, w = prod.shape
+    P = min(1 << (w.bit_length() - 1), 32)
+    zero = np.zeros(n, np.float32)
+    s = [np.float32(0) + prod[:, j] for j in range(P)]
+    for k0 in range(P, w, P):
+        s = [s[j] + (prod[:, k0 + j] if k0 + j < w else zero)
+             for j in range(P)]
+    off = P // 2
+    while off:
+        s = [s[j] + s[j + off] if j < off else s[j] for j in range(P)]
+        off //= 2
+    return s[0]
+
+
+def _split_order(prod, T):
+    """The k-column kernel's order: T threads, thread t holding lanes t,
+    t+T, … (P/T of them) and adding their slots as ``row_sum``'s lanes do;
+    the tree's offsets >= T inside each thread, then ``__shfl_down_sync``
+    of width T for offsets T/2 … 1 (a source past the T threads gives a
+    thread its own value)."""
+    n, w = prod.shape
+    P = min(1 << (w.bit_length() - 1), 32)
+    N = P // T
+    zero = np.zeros(n, np.float32)
+    s = [[np.float32(0) + prod[:, t + i * T] for i in range(N)]
+         for t in range(T)]
+    for k0 in range(P, w, P):
+        for t in range(T):
+            for i in range(N):
+                slot = k0 + t + i * T
+                s[t][i] = s[t][i] + (prod[:, slot] if slot < w else zero)
+    for t in range(T):
+        off = N // 2
+        while off:
+            s[t] = [s[t][i] + s[t][i + off] if i < off else s[t][i]
+                    for i in range(N)]
+            off //= 2
+    a = [s[t][0] for t in range(T)]
+    off = T // 2
+    while off:
+        a = [a[t] + (a[t + off] if t + off < T else a[t]) for t in range(T)]
+        off //= 2
+    return a[0]
+
+
+@pytest.mark.parametrize("k", PLAN_KS)
+def test_block_split_order_is_row_sum_order_bitwise(k):
+    """At widths 1 … 64, for the T that the plan picks at ``k``: the split
+    over T threads adds exactly as ``row_sum`` does, bitwise, on rows of
+    float32 products spread over twelve binades (a padding slot's +0
+    among them), where another order rounds otherwise."""
+    from repro_torch.kernels import ell_block_tile_plan
+
+    rng = np.random.default_rng(k)
+    differs = 0
+    for w in range(1, 65):
+        T = ell_block_tile_plan(w, k).unit_threads
+        prod = (rng.normal(size=(64, w))
+                * 2.0 ** rng.integers(-6, 6, (64, w))).astype(np.float32)
+        prod[rng.random((64, w)) < 0.2] = 0.0
+        want = _row_sum_order(prod)
+        got = _split_order(prod, T)
+        assert np.array_equal(got.view(np.uint32), want.view(np.uint32)), \
+            f"width {w}, T {T}"
+        seq = np.zeros(64, np.float32)
+        for j in range(w):
+            seq = seq + prod[:, j]
+        differs += int((seq != want).sum())
+    assert differs > 0        # the rows do tell one order from another

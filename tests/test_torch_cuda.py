@@ -134,7 +134,7 @@ def test_cuda_rows_too_wide_to_stage_run_unstaged(n_rows, width):
 
 
 BLOCK_WIDTHS = (1, 8, 19, 34, 64)
-BLOCK_KS = (1, 3, 8, 32, 64)
+BLOCK_KS = (1, 2, 3, 4, 8, 12, 16, 32, 64, 128)   # c = 1, 2, 4; k > 32
 
 
 @pytest.mark.cuda
@@ -177,7 +177,9 @@ def test_cuda_block_kernels_match_column_kernels(width, k):
 @pytest.mark.cuda
 def test_cuda_block_arguments_checked_and_nothing_falls_back():
     """A block that the k-column kernels do not take raises before any
-    launch: not contiguous, misaligned, no columns, another dtype."""
+    launch: not contiguous, misaligned (k = 4 rows are read as float4:
+    4 or 8 bytes off a 16-byte boundary; B too), no columns, another
+    dtype."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     n, w, k = 1000, 8, 4
@@ -186,9 +188,10 @@ def test_cuda_block_arguments_checked_and_nothing_falls_back():
     C, V = _t(col).cuda(), _t(val).cuda()
     deg = torch.ones(n, device="cuda")
     X = torch.randn(n, k, device="cuda")
-    buf = torch.zeros(n * k + 1, device="cuda")
+    buf = torch.zeros(n * k + 2, device="cuda")
     bad = {"transposed": torch.randn(k, n, device="cuda").t(),
-           "misaligned": buf[1:].view(n, k),
+           "misaligned": buf[1:1 + n * k].view(n, k),
+           "8 bytes off": buf[2:].view(n, k),
            "no columns": torch.zeros(n, 0, device="cuda"),
            "float64": X.double(), "int32": X.int()}
     counts = lambda: (spmv_ell.launches, spmv_ell.block_launches,  # noqa: E731
@@ -201,6 +204,9 @@ def test_cuda_block_arguments_checked_and_nothing_falls_back():
             jacobi_step(C, V, Xb, Xb, deg)
     with pytest.raises(ValueError):          # B of another shape than X
         jacobi_step(C, V, X, X[:, :2].contiguous(), deg)
+    for off in (1, 2):                       # X aligned, B not
+        with pytest.raises(ValueError):
+            jacobi_step(C, V, X, buf[off:off + n * k].view(n, k), deg)
     assert counts() == before
 
 
