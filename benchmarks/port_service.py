@@ -22,6 +22,9 @@ connected), all in one bucket signature, generated in parallel processes.
   ``BENCH_service.json`` claims batched ≥ 2× looped from a *modelled*
   parallel time on the CPU; here the ratio is the card's measured wall
   time.
+* **Stages.** The host preparation of the graphs, then the group's
+  hierarchy builds stacked against looped, warm and in turns (where a
+  batched setup's time goes: the stacked steps speed only the builds).
 * **Request latency.** The ``service`` phase's stream (per graph k = 1
   and k = 4 at tol 1e-6, k = 8 at tol 1e-8 with ``max_iters=100``)
   through a service with ``max_batch=8`` and ``verify="cheap"``: one cold
@@ -107,6 +110,59 @@ def setups_per_s(torch, problems, max_batch: int, device) -> dict:
                 setup_batches=st["setup_batches"],
                 setups_batched=st["setups_batched"],
                 setups_looped=st["setups_looped"])
+
+
+def stages(torch, problems, device) -> dict:
+    """Where a batched setup's time goes, at the service's setup
+    configuration: the host preparation of every graph (relabelling,
+    components, the padded adjacency on the device: the same work batched
+    or looped), then the group's hierarchy builds, stacked
+    (``build_hierarchy_superstep_batch``: one stacked step a level round,
+    one graph-batched vote launch a round) and looped
+    (``build_hierarchy_superstep`` a graph), warm, in turns stacked,
+    looped, looped, stacked; with each build's registry calls, host
+    fetches and vote launches."""
+    from repro_torch.api import SolverOptions
+    from repro_torch.core import setup_step as ss
+    from repro_torch.core.solver import _prepare
+    from repro_torch.kernels.agg_vote import ops
+
+    dev = torch.device(device)
+    cfg = SolverOptions(matvec_backend="ell", tol=1e-6,
+                        device=device).setup_config()
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    adjs = [_prepare(p.n, p.rows, p.cols, p.vals, cfg.seed, True, None,
+                     dev)[1] for p in problems]
+    sync()
+    prep_s = time.perf_counter() - t0
+    runs = dict(stacked=lambda: ss.build_hierarchy_superstep_batch(adjs, cfg),
+                looped=lambda: [ss.build_hierarchy_superstep(a, cfg)
+                                for a in adjs])
+    for run in runs.values():             # warm the registry
+        run()
+    seconds, counts = {k: [] for k in runs}, {}
+    for name in ("stacked", "looped", "looped", "stacked"):
+        sync()
+        v0 = (ops.vote_reduce.launches, ops.vote_reduce_batched.launches)
+        ss.reset_counters()
+        t0 = time.perf_counter()
+        runs[name]()
+        sync()
+        seconds[name].append(time.perf_counter() - t0)
+        ledger = ss.counters()
+        counts[name] = dict(
+            step_calls={k: v["calls"] for k, v in ledger["steps"].items()},
+            host_syncs=ledger["host_syncs"],
+            vote_launches=ops.vote_reduce.launches - v0[0],
+            vote_batched_launches=ops.vote_reduce_batched.launches - v0[1])
+    return dict(graphs=len(problems), prep_s=prep_s,
+                stacked_s=seconds["stacked"], looped_s=seconds["looped"],
+                stacked=counts["stacked"], looped=counts["looped"])
 
 
 def latency(torch, problems, device) -> list:
@@ -198,6 +254,9 @@ def main(argv=None) -> int:
                                         for a, r in zip(looped, runs)]
         rows.append(row)
         print(json.dumps(row), flush=True)
+    rows.append(dict(card=card, step="stages",
+                     **stages(torch, problems, args.device)))
+    print(json.dumps(rows[-1]), flush=True)
     for row in latency(torch, problems, args.device):
         rows.append(dict(card=card, step="latency", **row))
         print(json.dumps(rows[-1]), flush=True)

@@ -132,7 +132,12 @@ Phases, one line each (any failure exits non-zero):
              every ticket ``converged`` with a passing certificate and a
              float64 host residual ≤ 1e-4 in every column; ``agg_vote``
              launched in the setup pass, ``spmv_ell`` and ``jacobi`` in
-             the solve pass. Then, bitwise: the 2^20 graph's and two 2^17
+             the solve pass; the batched setup pass (the 8 graphs' stacked
+             steps) must launch the graph-batched ``agg_vote`` and the
+             one-graph one only for the agg steps of a member alone in
+             its bucket (its launches by kernel, registry calls and peak
+             are printed, and beside them the looped ``max_batch=1``
+             pass's). Then, bitwise: the 2^20 graph's and two 2^17
              graphs' tickets against direct facade solves of the same
              columns, a ``max_batch=1`` service on those two graphs
              (batched = looped), and the re-submitted stream (cache hits
@@ -147,11 +152,18 @@ Phases, one line each (any failure exits non-zero):
              setups/s batched and looped (wall), latency p50/p90/p99,
              solve seconds per column and peak memory, with the card's
              name and power limit. Last, spmv_ell and jacobi at the
-             finest shapes of a 2^17 and the 2^20 hierarchy and agg_vote at
-             the batched setup's first level, on the flush's own last
-             arguments there, against the plain version and for a bitwise
-             repeat. The phase's launches (read before those checks) go
-             into the kernels JSON as ``service_launches``.
+             finest shapes of a 2^17 and the 2^20 hierarchy, on the
+             flush's own last arguments there, against the plain version
+             and for a bitwise repeat; and the graph-batched ``agg_vote``
+             (what ``jax.vmap`` over a group of graphs makes of
+             ``vote_reduce_pallas``) at the batched setup's first level
+             (8 × 131,072 × 8), on its own last arguments there: bitwise
+             its plain version, the one-graph kernel on each graph's
+             slice and a repeat, with its record (device ms against its
+             bound, the time of the eight one-graph launches beside it),
+             printed last in the kernels JSON. The phase's launches (read
+             before those checks) go into the kernels JSON as
+             ``service_launches``.
 7. spectral — the spectral layer (``repro_torch.spectral``) on a Delaunay
              triangulation of 2^15 uniform points (unweighted), with the
              entry points' default options (``exact_columns=False``) on
@@ -189,8 +201,11 @@ Phases, one line each (any failure exits non-zero):
              ``spmv_ell`` (the sweeps' 8 vectors); the
              eager loop's host syncs (mode ``"warn"``)
              are counted beside the super-step's fetches; the second graph
-             adds no registry entry; the batched setup of both graphs is
-             bitwise equal, tensor by tensor, to their single builds.
+             adds no registry entry; the batched setups of both graphs,
+             with and without ``setup_ell_sweeps``, under sync debug
+             ``"error"`` too, are bitwise equal, tensor by tensor, to
+             their single builds, and their vote rounds run the
+             graph-batched ``agg_vote``.
 9. dist    — the 2D-distributed solver (``repro_torch.dist``). (a) A
              world of one over NCCL on ``cuda:0`` (``init_world``) on the
              main graph, ``matvec_backend="ell"``, the distributed
@@ -552,11 +567,24 @@ VMAPPED_AT = {
 }
 # a kernel form's module (the k-column forms share their kernel's wrapper)
 BLOCK_FORMS = {"spmv_ell_block": "spmv_ell", "jacobi_block": "jacobi"}
+# the graph-batched vote (the batched setup's form of agg_vote, what
+# jax.vmap over a group of graphs makes of it): its own wrapper in the
+# agg_vote package, beside the one-graph one
+REPLACES["agg_vote_batched"] = REPLACES["agg_vote"]
+VMAPPED_AT["agg_vote_batched"] = ("src/repro/core/setup_step.py:561 "
+                                  "(reached from :328-334 through "
+                                  "src/repro/core/aggregation.py:86-94)")
+VOTE_BATCHED = ("repro_torch.kernels.agg_vote.ops", "vote_reduce_batched")
 
 
 def module_of(name: str) -> str:
     """The kernel package of a kernel or kernel form's name."""
-    return BLOCK_FORMS.get(name, name)
+    return {**BLOCK_FORMS, "agg_vote_batched": "agg_vote"}.get(name, name)
+
+
+def vote_batched():
+    """The graph-batched vote's wrapper (read from the ``ops`` module)."""
+    return getattr(importlib.import_module(VOTE_BATCHED[0]), VOTE_BATCHED[1])
 # each kernel package's wrapper and its plain version
 WRAPPERS = {
     "repro_torch.kernels.spmv_ell": ("spmv_ell", "spmv_ell_ref"),
@@ -652,7 +680,9 @@ def shapes_launched(mods):
     table shape: yields {kernel: {(n_rows, width): [calls, args, kw]}},
     with the arguments of the last call at that shape; the calls of
     ``spmv_ell`` and ``jacobi`` on ``[n, k]`` blocks (their k-column
-    forms) under ``spmv_ell_block`` and ``jacobi_block``. The wrapper is
+    forms) under ``spmv_ell_block`` and ``jacobi_block``, those of the
+    graph-batched vote under ``agg_vote_batched`` by ``(graphs, n_rows,
+    width)``. The wrapper is
     rebound to a function that counts and calls it, so its own launch
     count rises as before."""
     tally = {}
@@ -674,12 +704,25 @@ def shapes_launched(mods):
             return _real(col, *args, **kw)
 
         setattr(mod, wrapper_name, counted)
+    vote_pkg = importlib.import_module("repro_torch.kernels.agg_vote")
+    real_batched = vote_pkg.vote_reduce_batched
+    if "repro_torch.kernels.agg_vote" in mods:
+        counts_b = tally.setdefault("agg_vote_batched", {})
+
+        def counted_batched(col, *args, **kw):
+            key = tuple(col.shape)
+            calls = counts_b[key][0] if key in counts_b else 0
+            counts_b[key] = [calls + 1, (col, *args), kw]
+            return real_batched(col, *args, **kw)
+
+        vote_pkg.vote_reduce_batched = counted_batched
     try:
         yield tally
     finally:
         for mod_name, real in saved.items():
             setattr(importlib.import_module(mod_name),
                     WRAPPERS[mod_name][0], real)
+        vote_pkg.vote_reduce_batched = real_batched
 
 
 @contextlib.contextmanager
@@ -1479,6 +1522,7 @@ def phase_launches() -> dict:
     counts = dict(zip((m.rsplit(".", 1)[1] for m in WRAPPERS),
                       launch_counts(tuple(WRAPPERS))))
     return dict(counts, **block_launches(),
+                agg_vote_batched=vote_batched().launches,
                 **{name: fn.launches for name, fn in _bag_backward().items()})
 
 
@@ -1490,6 +1534,7 @@ def zero_launches() -> None:
             fn.block_launches = 0
     for fn in _bag_backward().values():
         fn.launches = 0
+    vote_batched().launches = 0
 
 
 def phase_paper(torch, np) -> dict:
@@ -1836,6 +1881,8 @@ def phase_service(torch, np, main_graph, smi) -> dict:
     from benchmarks.port_service import ba_graphs, stream
     from repro_torch.api import HierarchyCache, Problem, SolverOptions
     from repro_torch.api import setup as api_setup
+    from repro_torch.core import setup_step
+    from repro_torch.core.hierarchy import SetupConfig
     from repro_torch.device import resolve_device
     from repro_torch.service import SolverService
     from repro_torch.testing import KILL_EXIT_CODE, Fault, FaultPlan, inject
@@ -1871,18 +1918,27 @@ def phase_service(torch, np, main_graph, smi) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     svc = SolverService(opts, max_batch=8)
-    passes, batched_votes = {}, {}
+    passes, batched_votes, peaks = {}, {}, [0]
 
-    def instrument(service, name, after=None):
+    def instrument(service, name, after=None, key=None):
         real = getattr(service, name)
 
         def run(*args, **kw):
             torch.cuda.synchronize()
+            if name == "_setup_batched":    # the batched setup pass's peak
+                peaks[0] = max(peaks[0], torch.cuda.max_memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+                setup_step.reset_counters()
             k0, t0 = phase_launches(), time.perf_counter()
             out = real(*args, **kw)
             torch.cuda.synchronize()
-            passes[name] = dict(seconds=time.perf_counter() - t0, launches={
-                k: v - k0[k] for k, v in phase_launches().items()})
+            passes[key or name] = dict(
+                seconds=time.perf_counter() - t0, launches={
+                    k: v - k0[k] for k, v in phase_launches().items()})
+            if name == "_setup_batched":
+                passes[name].update(
+                    peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                    steps=setup_step.counters()["steps"])
             if after:
                 after()
             return out
@@ -1892,14 +1948,18 @@ def phase_service(torch, np, main_graph, smi) -> dict:
     with shapes_launched(SOLVER_KERNELS) as tally:
         instrument(svc, "_setup_pass")
         instrument(svc, "_solve_pass")
-        instrument(svc, "_setup_batched",
-                   after=lambda: batched_votes.update(tally["agg_vote"]))
+        instrument(svc, "_setup_batched", after=lambda: batched_votes.update(
+            tally["agg_vote_batched"]))
         t0 = time.perf_counter()
         tickets = [svc.submit(problems[i], B, **kw) for i, B, kw in requests]
         svc.flush()
         flush_s = time.perf_counter() - t0
     st = svc.stats()
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    peak_gib = max(peaks[0], torch.cuda.max_memory_allocated()) / 2**30
+    batched_pass = passes["_setup_batched"]
+    # agg steps a member ran alone (its levels left the group's buckets):
+    # the only one-graph votes the batched pass may launch
+    alone = batched_pass["steps"].get("agg", {}).get("calls", 0)
     counts = {k: st[k] for k in ("setup_batches", "setups_batched",
                                  "setups_looped", "solve_blocks",
                                  "rhs_columns")}
@@ -1929,6 +1989,9 @@ def phase_service(torch, np, main_graph, smi) -> dict:
         peak_gib=round(peak_gib, 3),
         max_host_f64_rel_residual=f"{worst:.3e}",
         setup_pass_launches=json.dumps(passes["_setup_pass"]["launches"]),
+        batched_setup_pass_launches=json.dumps(batched_pass["launches"]),
+        batched_setup_pass_registry=json.dumps(batched_pass["steps"]),
+        batched_setup_pass_peak_gib=round(batched_pass["peak_gib"], 3),
         solve_pass_launches=json.dumps(passes["_solve_pass"]["launches"]),
         card=smi)
     check(counts == dict(setup_batches=1, setups_batched=SERVICE_GRAPHS,
@@ -1938,6 +2001,13 @@ def phase_service(torch, np, main_graph, smi) -> dict:
     check(not bad, f"tickets not converged, certified and within 1e-4: {bad}")
     check(passes["_setup_pass"]["launches"]["agg_vote"] > 0,
           "the setup pass launched no agg_vote")
+    check(batched_pass["launches"]["agg_vote_batched"] > 0,
+          "the batched setup pass launched no graph-batched agg_vote")
+    check(batched_pass["launches"]["agg_vote"]
+          == alone * SetupConfig().aggregation.n_rounds,
+          f"the batched setup pass launched the one-graph agg_vote "
+          f"{batched_pass['launches']['agg_vote']} times for {alone} agg "
+          f"steps of a member alone")
     check(all(passes["_solve_pass"]["launches"][k] > 0
               for k in ("spmv_ell", "jacobi")),
           "the solve pass launched no spmv_ell or jacobi")
@@ -1950,6 +2020,7 @@ def phase_service(torch, np, main_graph, smi) -> dict:
               if i in (0, 1, main_i)]
     # batched = looped: the same two graphs through a max_batch=1 service
     looped_svc = SolverService(opts, max_batch=1)
+    instrument(looped_svc, "_setup_pass", key="looped_setup_pass")
     pair = [(t, i, B, kw) for t, (i, B, kw) in zip(tickets, requests)
             if i in (0, 1)]
     looped = [looped_svc.submit(problems[i], B, **kw) for _, i, B, kw in pair]
@@ -1972,6 +2043,13 @@ def phase_service(torch, np, main_graph, smi) -> dict:
         direct_tickets=len(direct), looped_bitwise=all(same_looped),
         setups_per_s_batched=batched_rate, setups_per_s_looped=looped_rate,
         batched_over_looped=batched_rate / looped_rate,
+        batched_setup_pass_launches=json.dumps(batched_pass["launches"]),
+        looped_setup_pass_launches=json.dumps(
+            passes["looped_setup_pass"]["launches"]),
+        batched_setup_pass_total=sum(batched_pass["launches"].values()),
+        looped_setup_pass_total=sum(
+            passes["looped_setup_pass"]["launches"].values()),
+        looped_setups=lst["setups_looped"],
         resubmit_hits=hits,
         resubmit_misses=after["cache"]["misses"] - before["cache"]["misses"],
         resubmit_setup_s=after["setup_seconds"] - before["setup_seconds"],
@@ -2064,13 +2142,71 @@ def phase_service(torch, np, main_graph, smi) -> dict:
                                                    svc.backend))
         picks += finest_picks(handle._solver, tally,
                               dict(graph=f"ba_n{problems[i].n}"))
-    first_vote = max(batched_votes)
-    picks.append(("agg_vote", first_vote, batched_votes[first_vote],
-                  dict(graph="batched setup")))
     check_kernel_shapes(torch, "service", picks)
+    first_vote = max(batched_votes, key=lambda shape: (shape[1], shape[0]))
+    record = vote_batched_record(torch, first_vote, batched_votes[first_vote],
+                                 batched_pass["launches"]["agg_vote_batched"])
     say("service", seconds=round(time.perf_counter() - t_phase, 1),
         launches=json.dumps(launched), card=smi)
-    return launched
+    return dict(launched, records=[record])
+
+
+def vote_batched_record(torch, shape, entry, launches) -> dict:
+    """The graph-batched vote on the batched setup's own last arguments at
+    ``shape`` (graphs, rows a graph, width): bitwise its plain version,
+    the one-graph kernel on each graph's tables and state, and itself on a
+    repeat; its entry of the ``kernels`` JSON line (``launches``: the
+    batched setup pass's), with the time of one one-graph launch a graph
+    at the same shape beside it."""
+    from repro_torch.kernels import ell_tile_plan
+    from repro_torch.kernels.agg_vote import (vote_reduce,
+                                              vote_reduce_batched,
+                                              vote_reduce_batched_ref)
+
+    calls, (col, sq, state), kw = entry
+    n_graphs, n, w = shape
+    got, want, again = (vote_reduce_batched(col, sq, state, **kw),
+                        vote_reduce_batched_ref(col, sq, state, **kw),
+                        vote_reduce_batched(col, sq, state, **kw))
+    members = [(col[g].clone(), sq[g].clone(), state[g].clone())
+               for g in range(n_graphs)]
+    ones = [vote_reduce(*m, **kw) for m in members]
+    torch.cuda.synchronize()
+    where = f"service agg_vote_batched ({n_graphs} x {n} x {w})"
+    check(all(torch.equal(g, r) for g, r in zip(got, want)),
+          f"{where} is not bit-exact against its plain version")
+    check(all(torch.equal(g, a) for g, a in zip(got, again)),
+          f"{where} is not bitwise repeatable")
+    check(all(torch.equal(o[j], got[j][g]) for g, o in enumerate(ones)
+              for j in (0, 1)),
+          f"{where} differs from the one-graph kernel on a graph's slice")
+    say("service", kernel="agg_vote_batched", graphs=n_graphs, rows=n,
+        width=w, calls_at_shape=calls, plain_bitwise=True,
+        one_graph_bitwise=True, repeat_bitwise=True)
+    real = int(((col >= 0) & (col < state.shape[1])).sum())
+    bytes_moved = n_graphs * (8 * n * w + 4 * state.shape[1] + 8 * n)
+    rec = kernel_record(
+        torch, "agg_vote_batched", launches, 0.0,
+        lambda: vote_reduce_batched(col, sq, state, **kw),
+        lambda: vote_reduce_batched_ref(col, sq, state, **kw), bytes_moved,
+        4 * real)
+    one_device_ms, _ = device_ms(
+        torch, lambda: vote_reduce(*members[0], **kw), "agg_vote")
+    per_graph_ms = time_ms(
+        torch, lambda: [vote_reduce(*m, **kw) for m in members])
+    say("service", kernel="agg_vote_batched", graphs=n_graphs,
+        device_ms=rec["device_ms"], bound_ms=rec["bound_ms"],
+        of_bound=round(rec["bound_ms"] / rec["device_ms"], 4),
+        one_graph_device_ms_times_graphs=n_graphs * one_device_ms,
+        one_graph_launches_kernel_ms=per_graph_ms,
+        batched_kernel_ms=rec["kernel_ms"])
+    rec.update(graphs=n_graphs, rows=n, width=w,
+               plan=list(ell_tile_plan(w)),
+               vmapped_at=VMAPPED_AT["agg_vote_batched"],
+               library="— (no single call)",
+               one_graph_device_ms_times_graphs=n_graphs * one_device_ms,
+               one_graph_launches_kernel_ms=per_graph_ms)
+    return rec
 
 
 @contextlib.contextmanager
@@ -2337,13 +2473,14 @@ def phase_e2e_superstep(torch, graphs) -> None:
     # the agg step (a registry entry of its own, built under the mode too)
     # (the sweeps' k-column form: 8 vectors a launch)
     spmvs = block_launches()["spmv_ell_block"]
+    sweeps = dataclasses.replace(cfg, setup_ell_sweeps=True)
     torch.cuda.set_sync_debug_mode("error")
     try:
-        ss.build_hierarchy_superstep(adjs[0], dataclasses.replace(
-            cfg, setup_ell_sweeps=True))
+        sweeps_single = [ss.build_hierarchy_superstep(adjs[0], sweeps)]
     finally:
         torch.cuda.set_sync_debug_mode(0)
     spmvs = block_launches()["spmv_ell_block"] - spmvs
+    sweeps_single.append(ss.build_hierarchy_superstep(adjs[1], sweeps))
 
     torch.cuda.set_sync_debug_mode("warn")
     try:
@@ -2361,26 +2498,50 @@ def phase_e2e_superstep(torch, graphs) -> None:
     warm_s = time.perf_counter() - t0
     new_entries = sum(st["compiles"]
                       for st in ss.counters()["steps"].values())
+    # the batched setups (stacked steps, one graph-batched vote launch a
+    # round) under the same sync debug mode as the single ones
     ss.reset_counters()
-    batch = ss.build_hierarchy_superstep_batch(adjs, cfg)
-    batch_ledger = ss.counters()
+    k0 = phase_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        batch = ss.build_hierarchy_superstep_batch(adjs, cfg)
+        batch_ledger = ss.counters()
+        batch_sweeps = ss.build_hierarchy_superstep_batch(adjs, sweeps)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    batch_votes = {k: phase_launches()[k] - k0[k]
+                   for k in ("agg_vote", "agg_vote_batched")}
+    # agg steps a graph ran alone (its decisions left the group's round):
+    # the only one-graph votes the batched builds may launch
+    alone = ss.counters()["steps"].get("agg", {}).get("calls", 0)
     same = [bitwise_equal(torch, h, hb)
             for h, hb in zip((first, second), batch)]
+    same_sweeps = [bitwise_equal(torch, h, hb)
+                   for h, hb in zip(sweeps_single, batch_sweeps)]
     say("e2e", superstep_floor=E2E_FLOOR, sync_debug="error",
         no_sync_in_steps=True, cold_setup_s=round(cold_s, 3),
         host_syncs=ledger["host_syncs"], eager_host_syncs=eager_syncs,
         agg_vote_launches=votes, registry=registry_line(ledger),
         ell_sweeps_no_sync=True, ell_sweeps_spmv_ell_block_launches=spmvs,
         second_graph_new_entries=new_entries, second_setup_s=round(warm_s, 3),
-        batch_bitwise=json.dumps(same),
+        batch_sync_debug="error", batch_bitwise=json.dumps(same),
         batch_registry=registry_line(batch_ledger),
-        batch_host_syncs=batch_ledger["host_syncs"])
+        batch_host_syncs=batch_ledger["host_syncs"],
+        batch_sweeps_bitwise=json.dumps(same_sweeps),
+        batch_vote_launches=json.dumps(batch_votes), batch_agg_alone=alone)
     check(votes > 0, "the super-step setup launched no agg_vote kernel")
     check(spmvs > 0, "the super-step setup with setup_ell_sweeps launched "
           "no spmv_ell kernel")
     check(new_entries == 0,
           f"a second same-bucket graph added {new_entries} registry entries")
     check(all(same), "batched setups differ from single ones")
+    check(all(same_sweeps), "batched setups with setup_ell_sweeps differ "
+          "from single ones")
+    check(batch_votes["agg_vote_batched"] > 0 and batch_votes["agg_vote"]
+          == alone * cfg.aggregation.n_rounds,
+          f"the batched setups' votes {batch_votes} with {alone} agg steps "
+          f"of a graph alone: a group's rounds must run the graph-batched "
+          f"kernel")
 
 
 def dist_decisions(solver) -> dict:
@@ -4839,7 +5000,8 @@ def main() -> int:
     spectral = phase_spectral(torch, np, smi)
     # the k-column records at the sweeps' and the spectral mesh's shapes,
     # printed last with their own phase's launches
-    block_extra = paper.pop("records") + spectral.pop("records")
+    block_extra = (paper.pop("records") + service.pop("records")
+                   + spectral.pop("records"))
     phase_e2e(torch, np)
     dist = phase_dist(torch, np, main_graph, main_iters)
     del main_graph

@@ -23,8 +23,9 @@ import dataclasses
 import torch
 
 from repro_torch.core.graph import GraphLevel
-from repro_torch.sparse.segment import (segment_argmax_lex, segment_sum,
-                                        take_fill)
+from repro_torch.sparse.segment import (group_ids, segment_argmax_lex,
+                                        segment_sum, segment_sum_groups,
+                                        take_fill, take_groups)
 
 DECIDED = 0
 UNDECIDED = 1
@@ -82,11 +83,38 @@ def vote_edge_reduce(layout, sq_table: torch.Tensor, spill_sq: torch.Tensor,
     return lex_combine(best_k, best_i, sp_k, sp_i)
 
 
+def vote_edge_reduce_groups(layout, sq_table: torch.Tensor,
+                            spill_sq: torch.Tensor, state: torch.Tensor,
+                            cfg: AggregationConfig):
+    """:func:`vote_edge_reduce` of every graph of a group (``state`` ``[G,
+    n]``, ``layout`` a ``sparse.ell.GroupEllLayout``): the group's ELL
+    tables through ONE launch of the graph-batched vote kernel, the
+    spilled entries through one staged reduction over the stacked ids,
+    lex-merged. Returns ``[G, n]`` keys and each graph's own ids."""
+    from repro_torch.kernels.agg_vote import vote_reduce_batched
+
+    g, n = state.shape
+    w = layout.width
+    best_k, best_i = vote_reduce_batched(
+        layout.col_table.view(g, n, w), sq_table.view(g, n, w), state,
+        levels=cfg.strength_levels, decided=DECIDED)
+    nbr_state = take_groups(state, layout.spill_col, DECIDED)
+    emit_ok = (layout.spill_row < n) & (nbr_state != DECIDED)
+    key = _pack_state_strength(nbr_state, spill_sq,
+                               cfg.strength_levels).reshape(-1)
+    sp_k, _, sp_i = segment_argmax_lex(
+        key, torch.zeros_like(key), layout.spill_col.reshape(-1),
+        group_ids(layout.spill_row, n).reshape(-1), g * n,
+        valid=emit_ok.reshape(-1))
+    return lex_combine(best_k, best_i, sp_k.view(g, n), sp_i.view(g, n))
+
+
 def apply_vote_update(state, votes, aggregates, best_key, best_id,
                       cfg: AggregationConfig):
     """The replicated state update of one Alg 2 round, given the per-vertex
-    ⊕ results ``(best_key, best_id)``."""
-    n = state.shape[0]
+    ⊕ results ``(best_key, best_id)``: ``[n]`` vectors, or ``[G, n]``
+    (each graph of a group its own update)."""
+    n = state.shape[-1]
     iota = torch.arange(n, dtype=torch.int32, device=state.device)
     best_state = torch.where(
         best_key >= 0, torch.div(best_key, cfg.strength_levels + 2,
@@ -102,7 +130,8 @@ def apply_vote_update(state, votes, aggregates, best_key, best_id,
     state = torch.where(join, DECIDED, state)
 
     tgt = torch.where(vote, best_id, n)
-    votes = votes + segment_sum(torch.ones_like(tgt), tgt, n)
+    count = segment_sum if tgt.dim() == 1 else segment_sum_groups
+    votes = votes + count(torch.ones_like(tgt), tgt, n)
 
     promote = (state == UNDECIDED) & (votes > cfg.seed_votes)
     state = torch.where(promote, SEED, state)
@@ -175,6 +204,43 @@ def renumber_device(aggregates: torch.Tensor, n_valid=None):
     if n_valid is not None:
         hits_root = hits_root | (iota >= n_valid)
     return coarse_id, roots.sum(), hits_root.all()
+
+
+def aggregate_groups(n_valid: torch.Tensor, n: int, edge_reduce,
+                     cfg: AggregationConfig = AggregationConfig()):
+    """:func:`aggregate` of every graph of a group of bucket-padded levels
+    of ``n`` vertices, ``n_valid`` ``[G]`` their real counts and
+    ``edge_reduce`` the group's per-round ⊕ (``[G, n] -> ([G, n], [G,
+    n])``). Returns ``[G, n]`` aggregates and states, graph g's its own
+    run's."""
+    dev = n_valid.device
+    g = n_valid.shape[0]
+    iota = torch.arange(n, dtype=torch.int32, device=dev)
+    state = torch.full((g, n), UNDECIDED, dtype=torch.int32, device=dev)
+    state = torch.where(iota < n_valid[:, None], state, DECIDED)
+    votes = torch.zeros((g, n), dtype=torch.int32, device=dev)
+    aggregates = iota.expand(g, n).clone()
+    for _ in range(cfg.n_rounds):
+        best_key, best_id = edge_reduce(state)
+        state, votes, aggregates = apply_vote_update(
+            state, votes, aggregates, best_key, best_id, cfg)
+    aggregates = torch.where((state == UNDECIDED) | (state == SEED), iota,
+                             aggregates)
+    return aggregates, state
+
+
+def renumber_device_groups(aggregates: torch.Tensor, n_valid: torch.Tensor):
+    """:func:`renumber_device` of every graph of a group: ``aggregates``
+    ``[G, n]``, ``n_valid`` ``[G]``; returns ``[G, n]`` coarse ids and the
+    ``[G]`` coarse counts and invariants."""
+    n = aggregates.shape[1]
+    iota = torch.arange(n, dtype=torch.int32, device=aggregates.device)
+    real = iota < n_valid[:, None]
+    roots = (aggregates == iota) & real
+    root_rank = (torch.cumsum(roots.to(torch.int32), 1) - 1).to(torch.int32)
+    coarse_id = take_groups(root_rank, aggregates, 0)
+    hits_root = take_groups(roots, aggregates, False) | ~real
+    return coarse_id, roots.sum(1), hits_root.all(1)
 
 
 def renumber_aggregates(aggregates: torch.Tensor, n: int):

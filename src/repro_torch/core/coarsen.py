@@ -13,8 +13,9 @@ import dataclasses
 import torch
 
 from repro_torch.core.graph import GraphLevel, graph_from_adjacency
-from repro_torch.sparse.coo import COO, coalesce_arrays
-from repro_torch.sparse.segment import segment_sum, take_fill
+from repro_torch.sparse.coo import (COO, coalesce_arrays,
+                                    coalesce_arrays_groups)
+from repro_torch.sparse.segment import segment_sum, take_fill, take_groups
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +63,23 @@ def contract_arrays(adj: COO, coarse_id: torch.Tensor, n_coarse,
     val = torch.where(keep, adj.val, 0)
     return coalesce_arrays(row, col, val, n_coarse,
                            out_capacity or adj.capacity, sentinel=sentinel)
+
+
+def contract_arrays_groups(row, col, val, n: int, coarse_id: torch.Tensor,
+                           n_coarse: torch.Tensor, sentinel: int,
+                           out_capacity: int):
+    """:func:`contract_arrays` of every graph of a group: ``row``, ``col``,
+    ``val`` ``[G, m]`` (each graph's own ids, padding ``>= n``),
+    ``coarse_id`` ``[G, n]``, ``n_coarse`` ``[G]``. Returns ``[G,
+    out_capacity]`` arrays and the ``[G]`` counts."""
+    cr = take_groups(coarse_id, row.clamp(max=n - 1), 0)
+    cc = take_groups(coarse_id, col.clamp(max=n - 1), 0)
+    keep = (row < n) & (cr != cc)
+    row = torch.where(keep, cr, sentinel)
+    col = torch.where(keep, cc, sentinel)
+    val = torch.where(keep, val, 0)
+    return coalesce_arrays_groups(row, col, val, n_coarse, out_capacity,
+                                  sentinel=sentinel)
 
 
 def contract(level: GraphLevel, coarse_id: torch.Tensor, n_coarse: int,

@@ -18,10 +18,13 @@ import dataclasses
 import torch
 
 from repro_torch.core.graph import GraphLevel, graph_from_adjacency, hash32
-from repro_torch.sparse.coo import COO, coalesce_arrays, spmv, spmv_t
-from repro_torch.sparse.ell import ell_layout_traced
-from repro_torch.sparse.segment import (per_row, segment_argmin_lex,
-                                        segment_sum, take_fill)
+from repro_torch.sparse.coo import (COO, coalesce_arrays,
+                                    coalesce_arrays_groups, spmv, spmv_t)
+from repro_torch.sparse.ell import ell_layout_groups, ell_layout_traced
+from repro_torch.sparse.segment import (group_ids, per_row,
+                                        segment_argmin_lex, segment_sum,
+                                        segment_sum_groups, take_fill,
+                                        take_groups)
 
 MAX_ELIM_DEGREE = 4  # paper: "like LAMG, we eliminate vertices of degree 4 or less"
 
@@ -52,6 +55,31 @@ def select_eliminated(level: GraphLevel, max_degree: int = MAX_ELIM_DEGREE,
     self_key = h - _U32_TO_I32
     # STRICT comparison: a tie would let two adjacent candidates with
     # colliding hashes both be eliminated.
+    lt = (self_key < best_key) | ((self_key == best_key) & (iota < best_id))
+    return cand & lt
+
+
+def select_eliminated_groups(row: torch.Tensor, col: torch.Tensor, n: int,
+                             n_valid: torch.Tensor,
+                             max_degree: int = MAX_ELIM_DEGREE
+                             ) -> torch.Tensor:
+    """:func:`select_eliminated` of every graph of a group of
+    bucket-padded levels of ``n`` vertices: ``row``/``col`` ``[G, m]``
+    (each graph's own ids, padding ``>= n``), ``n_valid`` ``[G]``.
+    Returns the ``[G, n]`` masks."""
+    g = row.shape[0]
+    valid = row < n
+    iota = torch.arange(n, device=row.device)
+    cand = segment_sum_groups(valid.to(torch.int32), row, n) <= max_degree
+    cand = cand & (iota < n_valid[:, None])
+    h = hash32(iota)
+    col_ok = take_groups(cand, col, False) & valid
+    nbr_key = take_fill(h, col, 0xFFFFFFFF) - _U32_TO_I32
+    best_key, best_id = segment_argmin_lex(
+        nbr_key.reshape(-1), col.reshape(-1),
+        group_ids(row, n).reshape(-1), g * n, valid=col_ok.reshape(-1))
+    best_key, best_id = best_key.view(g, n), best_id.view(g, n)
+    self_key = h - _U32_TO_I32
     lt = (self_key < best_key) | ((self_key == best_key) & (iota < best_id))
     return cand & lt
 
@@ -170,6 +198,78 @@ def schur_arrays(adj: COO, deg: torch.Tensor, elim: torch.Tensor, n, *,
     all_val = torch.cat([cc_val, fill_val])
     co_row, co_col, co_val, co_nnz = coalesce_arrays(
         all_row, all_col, all_val, n_c, out_capacity or all_row.shape[0],
+        sentinel=sentinel)
+    return dict(c_index=c_index, f_index=f_index, f_vertices=f_vertices,
+                inv_deg_f=inv_deg_f, p_row=p_row.to(torch.int32),
+                p_col=p_col.to(torch.int32), p_val=p_val, co_row=co_row,
+                co_col=co_col, co_val=co_val, co_nnz=co_nnz, n_f=n_f)
+
+
+def schur_arrays_groups(row, col, val, deg, elim, n, *, f_cap: int,
+                        max_degree: int = MAX_ELIM_DEGREE,
+                        out_capacity: int | None = None,
+                        sentinel=None) -> dict:
+    """:func:`schur_arrays` of every graph of a group: ``row``, ``col``,
+    ``val`` ``[G, m]`` (each graph's own ids, padding ``>= n_cap``),
+    ``deg`` and ``elim`` ``[G, n_cap]``, ``n`` the ``[G]`` real counts.
+    Returns the same dict with a leading graph axis on every array and
+    count, graph g's bit for bit its own."""
+    g, n_cap = deg.shape
+    dev = deg.device
+    if sentinel is None:
+        sentinel = n_cap
+    n_f = elim.sum(1)
+    n_c = n - n_f
+    iota = torch.arange(n_cap, dtype=torch.int32, device=dev)
+    valid = row < n_cap
+
+    c_index = (torch.cumsum((~elim).to(torch.int32), 1) - 1).to(torch.int32)
+    f_index = (torch.cumsum(elim.to(torch.int32), 1) - 1).to(torch.int32)
+    f_slot = torch.where(elim, f_index, f_cap).long()
+    f_slot = f_slot + torch.arange(g, device=dev)[:, None] * (f_cap + 1)
+    f_vertices = torch.full((g * (f_cap + 1),), n_cap, dtype=torch.int32,
+                            device=dev)
+    f_vertices[f_slot.reshape(-1)] = iota.expand(g, n_cap).reshape(-1)
+    f_vertices = f_vertices.view(g, f_cap + 1)[:, :f_cap]
+
+    row_f = take_groups(elim, row, False) & valid
+    inv_deg_f = 1.0 / torch.clamp(take_groups(deg, f_vertices, 1.0),
+                                  min=1e-30)
+    row_c = row.clamp(max=n_cap - 1)
+    col_c = col.clamp(max=n_cap - 1)
+    p_row = torch.where(row_f, take_groups(f_index, row_c, 0), f_cap)
+    p_col = torch.where(row_f, take_groups(c_index, col_c, 0), f_cap)
+    p_scale = take_groups(inv_deg_f, p_row.clamp(max=f_cap - 1), 0)
+    p_val = torch.where(row_f, val * p_scale, 0)
+
+    cc = (~take_groups(elim, row, True)) & \
+        (~take_groups(elim, col, True)) & valid
+    cc_row = torch.where(cc, take_groups(c_index, row_c, 0), n_cap)
+    cc_col = torch.where(cc, take_groups(c_index, col_c, 0), n_cap)
+    cc_val = torch.where(cc, val, 0)
+
+    lay = ell_layout_groups(row, col, n_cap, max_degree)
+    w = max_degree
+    f_nb_col = take_groups(lay.col_table.view(g, n_cap, w), f_vertices,
+                           n_cap)                               # [G,f_cap,w]
+    f_nb_val = take_groups(lay.table(val).view(g, n_cap, w), f_vertices, 0)
+    pair_val = f_nb_val[..., :, None] * f_nb_val[..., None, :] * \
+        inv_deg_f[..., None, None]                            # [G,f_cap,w,w]
+    u = f_nb_col[..., :, None].expand(pair_val.shape)
+    v = f_nb_col[..., None, :].expand(pair_val.shape)
+    nb = n[:, None, None, None]
+    off_diag = (u != v) & (u < nb) & (v < nb)
+    fill_row = torch.where(off_diag, take_groups(
+        c_index, u.clamp(max=n_cap - 1), 0), n_cap).reshape(g, -1)
+    fill_col = torch.where(off_diag, take_groups(
+        c_index, v.clamp(max=n_cap - 1), 0), n_cap).reshape(g, -1)
+    fill_val = torch.where(off_diag, pair_val, 0).reshape(g, -1)
+
+    all_row = torch.cat([cc_row, fill_row], dim=1).to(torch.int32)
+    all_col = torch.cat([cc_col, fill_col], dim=1).to(torch.int32)
+    all_val = torch.cat([cc_val, fill_val], dim=1)
+    co_row, co_col, co_val, co_nnz = coalesce_arrays_groups(
+        all_row, all_col, all_val, n_c, out_capacity or all_row.shape[1],
         sentinel=sentinel)
     return dict(c_index=c_index, f_index=f_index, f_vertices=f_vertices,
                 inv_deg_f=inv_deg_f, p_row=p_row.to(torch.int32),

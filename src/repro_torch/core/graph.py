@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.sparse import matvec as matvec_ops
 from repro_torch.sparse.coo import COO, degrees, row_sums
-from repro_torch.sparse.ell import ELL, EllLayout
+from repro_torch.sparse.ell import ELL, EllLayout, GroupEllLayout
 
 _M32 = 0xFFFFFFFF
 
@@ -56,6 +56,49 @@ def attach_setup_twin(level: GraphLevel, lay: EllLayout) -> GraphLevel:
     ell = ELL(lay.col_table, lay.table(adj.val), lay.n_rows)
     rem = COO(lay.spill_row, lay.spill_col, lay.spill(adj.val), lay.n_rows,
               lay.n_rows)
+    return dataclasses.replace(level, ell=ell, ell_rem=rem)
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupLevel:
+    """G bucket-padded levels of one ``(n_cap, e_cap)`` bucket, stacked on
+    a leading graph axis (the batched setup's form of a padded
+    :class:`GraphLevel`): each graph's edge list with its own ids, sentinel
+    ``n_cap`` and padding last, and its degrees. ``ell``/``ell_rem`` are an
+    optional stacked twin (``setup_ell_sweeps``,
+    :func:`attach_setup_twin_groups`): one ``[G·n_cap, width]`` ELL table
+    with stacked column ids, and each graph's spill ``(row, col, val)``
+    ``[G, cap]``."""
+
+    row: torch.Tensor               # int32 [G, e_cap]
+    col: torch.Tensor               # int32 [G, e_cap]
+    val: torch.Tensor               # float32 [G, e_cap]
+    deg: torch.Tensor               # float32 [G, n_cap]
+    ell: ELL | None = None
+    ell_rem: tuple | None = None
+
+    @property
+    def n(self) -> int:
+        return self.deg.shape[1]
+
+    @property
+    def groups(self) -> int:
+        return self.deg.shape[0]
+
+    @property
+    def valid(self) -> torch.Tensor:
+        return self.row < self.n
+
+    def laplacian_matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return matvec_ops.laplacian_matvec_groups(self, x)
+
+
+def attach_setup_twin_groups(level: GroupLevel,
+                             lay: GroupEllLayout) -> GroupLevel:
+    """:func:`attach_setup_twin` of every graph of a group at once."""
+    ell = ELL(lay.stacked_col_table(), lay.table(level.val),
+              lay.groups * lay.n_rows)
+    rem = (lay.spill_row, lay.spill_col, lay.spill(level.val))
     return dataclasses.replace(level, ell=ell, ell_rem=rem)
 
 

@@ -40,9 +40,10 @@ synchronising call is seen); ``_fetch`` and the host work after the last
 fetch lift the mode.
 
 **The registry.** PyTorch compiles nothing, so a registry entry is the
-step function for one ``(step, bucket key)`` together with the constants
-that depend only on that bucket: the strength sweeps' ``(n_cap, R)``
-uniform draw and the λmax start vector. ``counters()["steps"][name]
+step function for one ``(step, bucket key)``. The constants that depend
+only on the bucket (the strength sweeps' ``(n_cap, R)`` uniform draw and
+the λmax start vector) are drawn once per bucket and shared by its
+entries, the batched ones included. ``counters()["steps"][name]
 ["compiles"]`` counts registry misses under the reference's name, where a
 miss was one XLA compile; a second graph whose levels land in the same
 buckets adds no entry. Steps look up the kernel wrappers when they run,
@@ -53,10 +54,15 @@ so a wrapper rebound after an entry was built is still the one called.
 :func:`build_hierarchy_superstep` drives one plan.
 :func:`build_hierarchy_superstep_batch` drives N in lockstep rounds:
 requests for the same ``(step, bucket key)`` run through one registry
-entry ``<name>@batch`` whose members run in turn (the reference's
-``unroll`` lowering), and every plan waiting on host scalars shares one
-fetch a round. Each hierarchy of a batch is therefore bit-identical to
-its own build. Both give the eager loop's hierarchy: the same levels,
+entry ``<name>@batch``, the step's stacked form over the group (what the
+reference's ``jax.vmap`` makes of it on an accelerator: one launch of each
+kernel for the G graphs, the vote rounds through the graph-batched
+``agg_vote`` kernel), and every plan waiting on host scalars shares one
+fetch a round. Each graph's slice of a stacked step is bit for bit its
+single-graph step's, so each hierarchy of a batch is bit-identical to its
+own build. Builders with a semiring hook (the distributed ones) run a
+group's members in turn instead (the reference's CPU ``unroll``
+lowering). Both setups give the eager loop's hierarchy: the same levels,
 aggregates and elimination masks, and bitwise the same PCG residuals
 (every float sum runs over the same entries in the same order, whatever
 the padding).
@@ -69,20 +75,29 @@ import time
 
 import torch
 
-from repro_torch.core.aggregation import (aggregate, quantise_strength,
-                                          renumber_device, vote_edge_reduce)
-from repro_torch.core.coarsen import AggregationLevel, contract_arrays
+from repro_torch.core.aggregation import (aggregate, aggregate_groups,
+                                          quantise_strength, renumber_device,
+                                          renumber_device_groups,
+                                          vote_edge_reduce,
+                                          vote_edge_reduce_groups)
+from repro_torch.core.coarsen import (AggregationLevel, contract_arrays,
+                                      contract_arrays_groups)
 from repro_torch.core.elimination import (EliminationLevel, schur_arrays,
-                                          select_eliminated)
-from repro_torch.core.graph import (GraphLevel, attach_setup_twin,
-                                    count_tensor, graph_from_adjacency,
-                                    pow2_bucket)
+                                          schur_arrays_groups,
+                                          select_eliminated,
+                                          select_eliminated_groups)
+from repro_torch.core.graph import (GraphLevel, GroupLevel,
+                                    attach_setup_twin,
+                                    attach_setup_twin_groups, count_tensor,
+                                    graph_from_adjacency, pow2_bucket)
 from repro_torch.core.prng import normal, uniform
-from repro_torch.core.smoothers import estimate_lambda_max
-from repro_torch.core.strength import STRENGTH_METRICS
+from repro_torch.core.smoothers import (estimate_lambda_max,
+                                        estimate_lambda_max_groups)
+from repro_torch.core.strength import (STRENGTH_METRICS,
+                                       STRENGTH_METRICS_GROUPS)
 from repro_torch.sparse.coo import COO
-from repro_torch.sparse.ell import ell_layout_traced
-from repro_torch.sparse.segment import segment_sum
+from repro_torch.sparse.ell import ell_layout_groups, ell_layout_traced
+from repro_torch.sparse.segment import segment_sum, segment_sum_groups
 from repro_torch.testing import faults
 
 
@@ -91,8 +106,10 @@ from repro_torch.testing import faults
 # ----------------------------------------------------------------------------
 
 _CACHE: dict = {}
+_CONSTANTS: dict = {}   # (device, n_cap, seed, R) -> the bucket's draws
 _STATS: dict = {}       # step name -> {"compiles": int, "calls": int}
 _SYNCS = [0]            # batched host fetches since the last reset
+_I32_MAX = torch.iinfo(torch.int32).max
 
 
 def reset_counters() -> None:
@@ -104,6 +121,7 @@ def reset_counters() -> None:
 def clear_cache() -> None:
     """Drop every registry entry and the device constants it holds."""
     _CACHE.clear()
+    _CONSTANTS.clear()
 
 
 def counters() -> dict:
@@ -295,17 +313,28 @@ def _build_elim_fused(n_cap: int, e_cap: int, max_degree: int,
 
 def _lam_seed_vector(n_cap: int, device) -> torch.Tensor:
     """The λmax power-iteration start vector of a vertex bucket (seed 0,
-    ``estimate_lambda_max``'s default), drawn once per registry entry."""
+    ``estimate_lambda_max``'s default)."""
     return normal(0, (n_cap,), device)
+
+
+def _agg_constants(n_cap: int, cfg, device) -> tuple:
+    """A vertex bucket's constants: the strength sweeps' ``(n_cap, R)``
+    uniform draw and the λmax start vector, drawn once per (device,
+    bucket, seed, R) and shared by every registry entry of that bucket,
+    its batched entries included (a group broadcasts them)."""
+    key = (torch.device(device), n_cap, cfg.seed, cfg.strength_vectors)
+    if key not in _CONSTANTS:
+        _CONSTANTS[key] = (uniform(cfg.seed, (n_cap, cfg.strength_vectors),
+                                   -0.5, 0.5, device),
+                           _lam_seed_vector(n_cap, device))
+    return _CONSTANTS[key]
 
 
 def _build_agg(n_cap: int, e_cap: int, cfg, device, vote_factory=None,
                select_fn=None):
     strength_fn = STRENGTH_METRICS[cfg.strength_metric]
     acfg = cfg.aggregation
-    # the bucket's constants, drawn once for every call of this entry
-    x0 = uniform(cfg.seed, (n_cap, cfg.strength_vectors), -0.5, 0.5, device)
-    lam_v0 = _lam_seed_vector(n_cap, device)
+    x0, lam_v0 = _agg_constants(n_cap, cfg, device)
 
     def step(row, col, val, deg, n):
         level = _plevel(row, col, val, deg)
@@ -342,6 +371,7 @@ def _build_agg(n_cap: int, e_cap: int, cfg, device, vote_factory=None,
                     co_nnz=co_nnz, n_elim_next=next_elim.sum(),
                     lam=estimate_lambda_max(level, n_valid=n, v0=lam_v0))
 
+    step.constants = (x0, lam_v0)
     return step
 
 
@@ -356,6 +386,180 @@ def _build_rebucket(n_from: int, e_from: int, n_to: int, e_to: int):
         return r, c, v, deg[:n_to]
 
     return step
+
+
+# ----------------------------------------------------------------------------
+# Stacked step builders (the batched setup): each step over a group of G
+# same-bucket levels at once, what the reference's ``jax.vmap`` makes of it
+# on an accelerator. Arguments and results carry a leading graph axis (the
+# counts are [G] tensors); every graph keeps its own ids, sentinel n_cap and
+# padding-last edge blocks, so graph g's slice of each result is bit for bit
+# its single-graph step's: integer work is per row or per segment, every
+# sort is stable and keyed (graph, row, col), every float segment sum adds
+# the entries it has alone in the same order, and the few whole-vector
+# float sums (the strength and λmax means and norms) run a graph at a time.
+# ----------------------------------------------------------------------------
+
+def _pad_groups(row, col, val, cap: int, sentinel: int):
+    """:func:`_pad` of every graph of a group."""
+    g, pad = row.shape[0], cap - row.shape[1]
+    full = torch.full((g, pad), sentinel, dtype=torch.int32,
+                      device=row.device)
+    return (torch.cat([row, full], 1), torch.cat([col, full], 1),
+            torch.cat([val, val.new_zeros((g, pad))], 1))
+
+
+def _ingest_probe_groups(row, n0):
+    valid = row < n0[:, None]
+    nnz = valid.sum(1)
+    iota = torch.arange(row.shape[1], device=row.device)
+    return nnz, (valid == (iota < nnz[:, None])).all(1)
+
+
+def _build_ingest_fast_groups(raw_cap: int, n_cap: int, e_cap: int):
+    def step(row, col, val, n0):
+        valid = row < n0[:, None]
+        r = torch.where(valid, row, n_cap).to(torch.int32)
+        c = torch.where(valid, col, n_cap).to(torch.int32)
+        v = torch.where(valid, val, 0)
+        if e_cap <= raw_cap:
+            r, c, v = (t[:, :e_cap].contiguous() for t in (r, c, v))
+        else:
+            r, c, v = _pad_groups(r, c, v, e_cap, n_cap)
+        return r, c, v, segment_sum_groups(v, r, n_cap)
+
+    return step
+
+
+def _build_ingest_groups(raw_cap: int, n_cap: int, e_cap: int):
+    fast = _build_ingest_fast_groups(raw_cap, n_cap, e_cap)
+
+    def step(row, col, val, n0):
+        order = torch.argsort((row >= n0[:, None]).to(torch.int32), dim=1,
+                              stable=True)
+        return fast(row.gather(1, order), col.gather(1, order),
+                    val.gather(1, order), n0)
+
+    return step
+
+
+def _schur_groups(row, col, val, deg, elim, n, f_cap: int, max_degree: int):
+    n_cap = deg.shape[1]
+    w = max_degree
+    out = schur_arrays_groups(row, col, val, deg, elim, n, f_cap=f_cap,
+                              max_degree=max_degree,
+                              out_capacity=row.shape[1] + f_cap * w * w,
+                              sentinel=n_cap)
+    out["co_deg"] = segment_sum_groups(out["co_val"], out["co_row"], n_cap)
+    return out
+
+
+def _build_elim_select_groups(n_cap: int, e_cap: int, max_degree: int):
+    def step(row, col, val, deg, n):
+        elim = select_eliminated_groups(row, col, n_cap, n, max_degree)
+        return elim, elim.sum(1)
+
+    return step
+
+
+def _build_elim_build_groups(n_cap: int, e_cap: int, f_cap: int,
+                             max_degree: int):
+    def step(row, col, val, deg, n, elim):
+        return _schur_groups(row, col, val, deg, elim, n, f_cap, max_degree)
+
+    return step
+
+
+def _build_elim_fused_groups(n_cap: int, e_cap: int, max_degree: int):
+    def step(row, col, val, deg, n):
+        elim = select_eliminated_groups(row, col, n_cap, n, max_degree)
+        return elim, _schur_groups(row, col, val, deg, elim, n, n_cap,
+                                   max_degree)
+
+    return step
+
+
+def _build_agg_groups(n_cap: int, e_cap: int, cfg, device):
+    strength_fn = STRENGTH_METRICS_GROUPS[cfg.strength_metric]
+    acfg = cfg.aggregation
+    x0, lam_v0 = _agg_constants(n_cap, cfg, device)
+
+    def step(row, col, val, deg, n):
+        level = GroupLevel(row, col, val, deg)
+        lay = ell_layout_groups(row, col, n_cap, cfg.setup_ell_width)
+        if cfg.ell_sweeps:
+            level = attach_setup_twin_groups(level, lay)
+        strength = strength_fn(level, n_vectors=cfg.strength_vectors,
+                               n_sweeps=cfg.strength_sweeps, seed=cfg.seed,
+                               n_valid=n, x0=x0)
+        sq = quantise_strength(strength, acfg)
+        sq_table, sq_spill = lay.table(sq), lay.spill(sq)
+
+        def edge_reduce(state):
+            # ONE graph-batched vote launch a round for the whole group
+            return vote_edge_reduce_groups(lay, sq_table, sq_spill, state,
+                                           acfg)
+
+        aggs, _state = aggregate_groups(n, n_cap, edge_reduce, acfg)
+        coarse_id, n_c, ok = renumber_device_groups(aggs, n)
+        co_row, co_col, co_val, co_nnz = contract_arrays_groups(
+            row, col, val, n_cap, coarse_id, n_c, sentinel=n_cap,
+            out_capacity=row.shape[1])
+        co_deg = segment_sum_groups(co_val, co_row, n_cap)
+        next_elim = select_eliminated_groups(co_row, co_col, n_cap, n_c,
+                                             cfg.elim_max_degree)
+        return dict(coarse_id=coarse_id, n_c=n_c, ok=ok, co_row=co_row,
+                    co_col=co_col, co_val=co_val, co_deg=co_deg,
+                    co_nnz=co_nnz, n_elim_next=next_elim.sum(1),
+                    lam=estimate_lambda_max_groups(level, n_valid=n,
+                                                   v0=lam_v0))
+
+    step.constants = (x0, lam_v0)
+    return step
+
+
+def _build_rebucket_groups(n_from: int, e_from: int, n_to: int, e_to: int):
+    def step(row, col, val, deg):
+        if e_to <= e_from:
+            r, c, v = row[:, :e_to], col[:, :e_to], val[:, :e_to]
+        else:
+            r, c, v = _pad_groups(row, col, val, e_to, n_from)
+        r = torch.where(r >= n_to, n_to, r).to(torch.int32)
+        c = torch.where(c >= n_to, n_to, c).to(torch.int32)
+        return r, c, v.contiguous(), deg[:, :n_to].contiguous()
+
+    return step
+
+
+def _group_extent(method: str, params: tuple, max_degree: int) -> tuple:
+    """(vertex bucket, entries a graph) that a stacked step indexes."""
+    if method == "probe":
+        return 0, params[0]
+    if method in ("ingest", "ingest_fast"):
+        raw_cap, n_cap, e_cap = params
+        return n_cap, max(raw_cap, e_cap)
+    if method == "rebucket":
+        n_from, e_from, n_to, e_to = params
+        return max(n_from, n_to), max(e_from, e_to)
+    n_cap, e_cap = params[:2]
+    if method in ("elim", "elim_build"):
+        f_cap = params[2] if method == "elim_build" else n_cap
+        return n_cap, e_cap + f_cap * max_degree * max_degree
+    return n_cap, e_cap
+
+
+def check_group(method: str, params: tuple, n_graphs: int,
+                max_degree: int) -> None:
+    """Raise unless a group of ``n_graphs`` stacks within int32: the
+    stacked vertex ids with each graph's sentinel (G·(n_cap + 1), the sort
+    keys' and the vote kernel's row space) and the stacked entries."""
+    n_cap, entries = _group_extent(method, params, max_degree)
+    if n_graphs * (n_cap + 1) > _I32_MAX or n_graphs * entries > _I32_MAX:
+        raise ValueError(
+            f"a group of {n_graphs} graphs at {method}{params} does not "
+            f"stack within int32 ({n_graphs}·(n_cap + 1) = "
+            f"{n_graphs * (n_cap + 1)}, {n_graphs}·{entries} entries): "
+            f"batch fewer graphs")
 
 
 # ----------------------------------------------------------------------------
@@ -433,15 +637,46 @@ class SuperstepBuilders:
             return _build_rebucket(*params)
         raise KeyError(f"unknown super-step method {method!r}")
 
+    def _make_groups(self, method: str, params: tuple):
+        md = self.cfg.elim_max_degree
+        if method == "probe":
+            return _ingest_probe_groups
+        if method == "ingest":
+            return _build_ingest_groups(*params)
+        if method == "ingest_fast":
+            return _build_ingest_fast_groups(*params)
+        if method == "elim":
+            return _build_elim_fused_groups(*params, md)
+        if method == "elim_select":
+            return _build_elim_select_groups(*params, md)
+        if method == "elim_build":
+            return _build_elim_build_groups(*params, md)
+        if method == "agg":
+            return _build_agg_groups(*params, self.cfg, self.device)
+        if method == "rebucket":
+            return _build_rebucket_groups(*params)
+        raise KeyError(f"unknown super-step method {method!r}")
+
+    def _hooked(self) -> bool:
+        """True when a subclass overrides a semiring hook (the
+        distributed builders): its steps have no stacked form."""
+        base = SuperstepBuilders
+        return (type(self).select_fn is not base.select_fn
+                or type(self).vote_factory is not base.vote_factory)
+
     def step(self, method: str, params: tuple, batch: int = 1):
         if batch == 1:
             if method == "probe":
                 return _ingest_probe
             return _step(method, self._key(method, params),
                          lambda: self._make(method, params))
-        return _step(method + "@batch",
-                     self._key(method, params) + ("batch", batch),
-                     lambda: _batch_program(self._make(method, params)))
+        key = self._key(method, params) + ("batch", batch)
+        if self._hooked():
+            return _step(method + "@batch", key + ("looped",),
+                         lambda: _looped_program(self._make(method, params)))
+        check_group(method, params, batch, self.cfg.elim_max_degree)
+        return _step(method + "@batch", key, lambda: _batch_program(
+            self._make_groups(method, params)))
 
 
 # ----------------------------------------------------------------------------
@@ -490,11 +725,50 @@ def _wrap_agg(fine: GraphLevel, spec: dict) -> AggregationLevel:
 # The setup loop.
 # ----------------------------------------------------------------------------
 
+def _stack(ts: list) -> torch.Tensor:
+    """The members' same-shape tensors as one ``[G, ...]`` tensor: a view
+    where they are already consecutive slices of one tensor (the results
+    of the group's previous stacked step), else one copy."""
+    t0 = ts[0]
+    n = t0.numel()
+    base = t0.untyped_storage().data_ptr()
+    if all(t.is_contiguous() and t.shape == t0.shape and t.dtype == t0.dtype
+           and t.device == t0.device
+           and t.untyped_storage().data_ptr() == base
+           and t.storage_offset() == t0.storage_offset() + i * n
+           for i, t in enumerate(ts)):
+        return t0.as_strided((len(ts),) + tuple(t0.shape),
+                             (n,) + tuple(t0.stride()), t0.storage_offset())
+    return torch.stack(ts)
+
+
+def _unstack(out, g: int) -> list:
+    """Member g's slice of every tensor of a stacked result."""
+    if isinstance(out, torch.Tensor):
+        return [out[i] for i in range(g)]
+    if isinstance(out, dict):
+        parts = {k: _unstack(v, g) for k, v in out.items()}
+        return [{k: parts[k][i] for k in out} for i in range(g)]
+    parts = [_unstack(v, g) for v in out]
+    return [tuple(p[i] for p in parts) for i in range(g)]
+
+
 def _batch_program(fn):
-    """Lift a single-graph step to a group of graphs: it takes a list of
-    per-member argument tuples and returns the list of their results.
-    The members run in turn (the reference's ``unroll`` lowering), so
-    each result is its single-graph result by construction."""
+    """A stacked step as a group's registry entry: it takes the list of
+    the members' argument tuples, stacks each argument once, runs ``fn``
+    once for the group and hands each member its slice of the results
+    (the reference's ``jax.vmap`` lowering)."""
+    def run(member_args):
+        stacked = [_stack(list(a)) for a in zip(*member_args)]
+        return _unstack(fn(*stacked), len(member_args))
+
+    run.step = fn
+    return run
+
+
+def _looped_program(fn):
+    """A single-graph step run for each member in turn (the reference's
+    ``unroll`` lowering): the group form of a step with a semiring hook."""
     def run(member_args):
         return [fn(*args) for args in member_args]
 

@@ -78,6 +78,46 @@ def estimate_lambda_max(level: GraphLevel, n_iters: int = 15,
     return lam * 1.05
 
 
+def _member_sums(v: torch.Tensor) -> torch.Tensor:
+    # each graph's sum alone: in its own build's order
+    return torch.stack([v[g].sum() for g in range(v.shape[0])])
+
+
+def _member_norms(v: torch.Tensor) -> torch.Tensor:
+    # each graph's 2-norm alone: in its own build's order
+    return torch.stack([torch.linalg.norm(v[g]) for g in range(v.shape[0])])
+
+
+def estimate_lambda_max_groups(level, n_iters: int = 15, seed: int = 0,
+                               n_valid=None,
+                               v0: torch.Tensor | None = None
+                               ) -> torch.Tensor:
+    """:func:`estimate_lambda_max` of every graph of a group
+    (``core.graph.GroupLevel``, ``n_valid`` a [G] tensor): ``[G]``, graph
+    g's bit for bit its own level's. The bucket's start vector ``v0`` is
+    broadcast, not copied; the sums and norms run a graph at a time (a
+    reduction of ``[G, n]`` along n need not add in the order of
+    ``[n]``)."""
+    n = level.n
+    dev = level.deg.device
+    n_real = n_valid
+    row_ok = torch.arange(n, device=dev) < n_real[:, None]
+    inv_d = 1.0 / torch.clamp(level.deg, min=1e-30)
+    if v0 is None:
+        v0 = normal(seed, (n,), dev)
+    v = torch.where(row_ok, v0, 0.0)
+    v = torch.where(row_ok, v - (_member_sums(v) / n_real)[:, None], 0.0)
+    v = v / _member_norms(v)[:, None]
+    lam = torch.zeros(level.groups, device=dev)
+    for _ in range(n_iters):
+        w = inv_d * level.laplacian_matvec(v)
+        w = torch.where(row_ok, w - (_member_sums(w) / n_real)[:, None],
+                        0.0)
+        lam = _member_norms(w)
+        v = w / torch.clamp(lam, min=1e-30)[:, None]
+    return lam * 1.05
+
+
 def chebyshev(level: GraphLevel, b: torch.Tensor, x: torch.Tensor,
               lam_max: torch.Tensor, degree: int = 3,
               lam_min_frac: float = 0.25) -> torch.Tensor:

@@ -7,7 +7,10 @@
 // with no such slot returns the identity (INT32_MIN, INT32_MAX).
 //
 // Replaces the TPU kernel src/repro/kernels/agg_vote/agg_vote.py ::
-// vote_reduce_pallas.
+// vote_reduce_pallas, and (repro_agg_vote_batched_i32, StackedVote below)
+// what jax.vmap over a group of graphs makes of it in the batched setup
+// (src/repro/core/setup_step.py _batch_program): one launch over G graphs'
+// stacked tables, each row reduced over its own graph's state.
 //
 // What bounds it on an H100: bytes. One round reads the int32 col and sq
 // tables once (8 bytes a slot), gathers state, and writes two int32 per
@@ -76,6 +79,35 @@ struct VoteRow {
   }
 };
 
+// The graph-batched form: the tables are G graphs' [rows_per_graph, width]
+// tables stacked ([G·rows_per_graph, width], each graph's own column ids)
+// and state is [G, n_cols]. A row finds its graph as row / rows_per_graph
+// and reduces over that graph's state, as VoteRow does for one graph; the
+// ids it returns are its graph's own. (What jax.vmap over a graph axis
+// makes of vote_reduce_pallas: one launch for the group.)
+template <int P>
+struct StackedVote {
+  using Val = int;
+  static constexpr bool kGlobalRow = true;
+  const int* state;
+  int rows_per_graph;
+  int n_cols;
+  int levels;
+  int decided;
+  int g;  // ell_tiles::bank_group(width)
+  __device__ __forceinline__ int2 operator()(const int* c, const int* q,
+                                             int width, int r,
+                                             long long row) const {
+    // the stacked row count fits int32 (the wrapper checks it)
+    const int graph = static_cast<int>(row) / rows_per_graph;
+    const int* st = state + static_cast<long long>(graph) * n_cols;
+    return VoteRow<P>{st, n_cols, levels, decided, g}(c, q, width, r);
+  }
+  __device__ __forceinline__ static int2 identity() {
+    return VoteRow<P>::identity();
+  }
+};
+
 struct StoreVote {
   int* best_key;
   int* best_id;
@@ -104,5 +136,31 @@ extern "C" int repro_agg_vote_i32(const void* col, const void* sq,
         c, q, n_rows, width, rows_per_tile, stages, smem_bytes,
         VoteRow<P>{st, n_cols, levels, decided, g}, epi,
         static_cast<cudaStream_t>(stream));
+  });
+}
+
+extern "C" int repro_agg_vote_batched_i32(const void* col, const void* sq,
+                                          const void* state, void* best_key,
+                                          void* best_id, int n_graphs,
+                                          int rows_per_graph, int width,
+                                          int n_cols, int levels, int decided,
+                                          int rows_per_tile, int stages,
+                                          int smem_bytes, void* stream) {
+  const int* c = static_cast<const int*>(col);
+  const int* q = static_cast<const int*>(sq);
+  const int* st = static_cast<const int*>(state);
+  const StoreVote epi{static_cast<int*>(best_key), static_cast<int*>(best_id)};
+  const int g = ell_tiles::bank_group(width);
+  const long long n_rows = static_cast<long long>(n_graphs) * rows_per_graph;
+  if (n_graphs < 0 || rows_per_graph < 0 || n_rows > INT_MAX) {
+    return cudaErrorInvalidValue;
+  }
+  return ell_tiles::dispatch_width(width, [&](auto lanes) {
+    constexpr int P = decltype(lanes)::value;
+    return ell_tiles::launch_kernel(
+        c, q, static_cast<int>(n_rows), width, rows_per_tile, stages,
+        smem_bytes,
+        StackedVote<P>{st, rows_per_graph, n_cols, levels, decided, g},
+        epi, static_cast<cudaStream_t>(stream));
   });
 }

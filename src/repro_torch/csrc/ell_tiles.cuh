@@ -261,6 +261,27 @@ struct BlockSumRow {
   }
 };
 
+// A Row whose work depends on the row's index in the whole table (the
+// graph-batched vote: the graph a row of a stacked table belongs to)
+// declares kGlobalRow = true and takes that index as a fifth argument;
+// the other rows see only their tile position.
+template <class Row, class = void>
+struct wants_global_row : std::false_type {};
+template <class Row>
+struct wants_global_row<Row, std::void_t<decltype(Row::kGlobalRow)>>
+    : std::integral_constant<bool, Row::kGlobalRow> {};
+
+template <class Row>
+__device__ __forceinline__ auto call_row(const Row& row, const int* c,
+                                         const typename Row::Val* v,
+                                         int width, int r, long long grow) {
+  if constexpr (wants_global_row<Row>::value) {
+    return row(c, v, width, r, grow);
+  } else {
+    return row(c, v, width, r);
+  }
+}
+
 // The unstaged rows' call of row(): not inlined, so that the kernel holds
 // one inlined copy of the unrolled row loop, the staged path's. With both
 // copies inlined, jacobi at width 34 and both kernels at width 64 ran 2–11 %
@@ -268,8 +289,8 @@ struct BlockSumRow {
 template <class Row>
 __device__ __noinline__ auto unstaged_row(const Row& row, const int* c,
                                           const typename Row::Val* v,
-                                          int width, int r) {
-  return row(c, v, width, r);
+                                          int width, int r, long long grow) {
+  return call_row(row, c, v, width, r, grow);
 }
 
 // The producer's loop (one thread): the full tiles of this block, two bulk
@@ -351,7 +372,7 @@ tiles_kernel(const int* __restrict__ col,
       const Val* v = s_val + stage * tile_slots;
       for (int r = tid; r < rows; r += n_consumers) {
         const int o = r * width;
-        epi(row0 + r, row(c + o, v + o, width, r));
+        epi(row0 + r, call_row(row, c + o, v + o, width, r, row0 + r));
       }
       __syncwarp();
       if (tid % kWarp == 0) bulk::mbar_arrive(&empty[stage]);
@@ -363,7 +384,8 @@ tiles_kernel(const int* __restrict__ col,
       for (int r = tid; r < rows && row0 + r < n_rows; r += n_consumers) {
         const long long o = (row0 + r) * width;
         epi(row0 + r,
-            width > 0 ? unstaged_row(row, col + o, val + o, width, r)
+            width > 0 ? unstaged_row(row, col + o, val + o, width, r,
+                                     row0 + r)
                       : Row::identity());
       }
     }

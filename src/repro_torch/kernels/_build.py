@@ -46,6 +46,8 @@ _SIGNATURES = {
                                _I, _I, _I, _I, _I, _P),
     "repro_agg_vote_i32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                            _I, _P),
+    "repro_agg_vote_batched_i32": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _I, _P),
     "repro_embedding_bag_f32": (_P, _P, _P, _L, _I, _I, _I, _I, _I, _I, _P),
     "repro_embedding_bag_rows_f32": (_P, _P, _P, _L, _I, _I, _I, _P),
     "repro_embedding_bag_backward_f32": (_P, _P, _P, _P, _P, _L, _L, _I, _I,

@@ -15,8 +15,9 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.sparse.segment import (per_row, segment_max, segment_sum,
-                                        take_fill)
+from repro_torch.sparse.segment import (per_row, segment_max,
+                                        segment_max_groups, segment_sum,
+                                        segment_sum_groups, take_fill)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -184,6 +185,49 @@ def coalesce_arrays(row, col, val, n_rows, capacity: int, sentinel=None):
     out_col = torch.where(is_pad, sentinel, rep_col).to(torch.int32)
     out_val = torch.where(is_pad, 0.0, summed)
     return out_row, out_col, out_val, (~is_pad).sum()
+
+
+def group_sort_key(row: torch.Tensor, col: torch.Tensor,
+                   sentinel: int) -> torch.Tensor:
+    """int64 key of ``[G, m]`` per-graph ids in ``[0, sentinel]`` whose
+    order is (graph, row, col): :func:`sort_key` of the stacked row
+    ``g·(sentinel + 1) + row``, so each graph's entries stay in one block
+    in their own (row, col) order, its padding last in the block."""
+    base = torch.arange(row.shape[0], device=row.device)[:, None] \
+        * (sentinel + 1)
+    return sort_key(row.long() + base, col)
+
+
+def coalesce_arrays_groups(row, col, val, n_rows, capacity: int,
+                           sentinel: int):
+    """:func:`coalesce_arrays` of each graph of a group: ``row``, ``col``,
+    ``val`` ``[G, m]`` with each graph's own ids, ``n_rows`` an int or a
+    ``[G]`` tensor. Returns ``[G, capacity]`` arrays and the counts
+    ``[G]``; graph g's are bit for bit its own coalesce's (the same stable
+    order, the same segment sums)."""
+    g, m = row.shape
+    if isinstance(n_rows, torch.Tensor):
+        n_rows = n_rows[:, None]
+    valid = row < n_rows
+    row = torch.where(valid, row, sentinel).to(torch.int32)
+    col = torch.where(valid, col, sentinel).to(torch.int32)
+    order = torch.argsort(group_sort_key(row, col, sentinel).reshape(-1),
+                          stable=True)
+    r = row.reshape(-1)[order].view(g, m)
+    c = col.reshape(-1)[order].view(g, m)
+    v = torch.where(valid, val, 0).reshape(-1)[order].view(g, m)
+    first = torch.ones_like(r, dtype=torch.bool)
+    if m > 1:
+        first[:, 1:] = (r[:, 1:] != r[:, :-1]) | (c[:, 1:] != c[:, :-1])
+    seg = torch.cumsum(first.to(torch.int32), 1) - 1
+    summed = segment_sum_groups(v, seg, capacity)
+    rep_row = segment_max_groups(r, seg, capacity)
+    rep_col = segment_max_groups(c, seg, capacity)
+    is_pad = (rep_row < 0) | (rep_row >= n_rows)
+    out_row = torch.where(is_pad, sentinel, rep_row).to(torch.int32)
+    out_col = torch.where(is_pad, sentinel, rep_col).to(torch.int32)
+    out_val = torch.where(is_pad, 0.0, summed)
+    return out_row, out_col, out_val, (~is_pad).sum(1)
 
 
 def coalesce(row, col, val, n_rows: int, n_cols: int, capacity: int) -> COO:

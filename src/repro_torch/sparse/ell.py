@@ -14,8 +14,8 @@ import dataclasses
 
 import torch
 
-from repro_torch.sparse.coo import COO, sort_key
-from repro_torch.sparse.segment import take_fill
+from repro_torch.sparse.coo import COO, group_sort_key, sort_key
+from repro_torch.sparse.segment import group_ids, take_fill
 
 
 @dataclasses.dataclass(frozen=True)
@@ -160,3 +160,99 @@ def ell_layout_traced(row: torch.Tensor, col: torch.Tensor, n_rows: int,
                      spill_row=torch.where(spilled, r, n_rows),
                      spill_col=torch.where(spilled, c, n_rows),
                      n_rows=n_rows, width=width)
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupEllLayout:
+    """:class:`EllLayout` of each of G padded edge lists of one bucket,
+    stacked (the graph-batched vote's tables).
+
+    The tables are ``[G·n_rows, width]``, the same memory as ``[G, n_rows,
+    width]``: graph g's rows are ``[g·n_rows, (g+1)·n_rows)`` and hold its
+    own column ids (sentinel ``n_rows``), as its own layout's table does.
+    The spill arrays are ``[G, cap]`` of each graph's own ids, graph g's
+    bit for bit its own layout's; ``order``, ``rr`` (the stacked table
+    row, sentinel ``G·n_rows``), ``kk`` and ``in_ell`` are over the
+    flattened ``[G·cap]`` entries.
+    """
+
+    order: torch.Tensor       # int64 [G·cap]: into (graph, row, col) order
+    rr: torch.Tensor          # int64 [G·cap]: stacked scatter row
+    kk: torch.Tensor          # int64 [G·cap]: scatter slot in [0, width)
+    in_ell: torch.Tensor      # bool [G·cap], aligned with the sorted order
+    col_table: torch.Tensor   # int32 [G·n_rows, width], each graph's ids
+    spill_row: torch.Tensor   # int32 [G, cap], sentinel n_rows
+    spill_col: torch.Tensor   # int32 [G, cap], sentinel n_rows
+    n_rows: int               # a graph's rows
+    width: int
+
+    @property
+    def groups(self) -> int:
+        return self.spill_row.shape[0]
+
+    def table(self, values: torch.Tensor, fill=0) -> torch.Tensor:
+        """Scatter a per-edge payload ``[G, cap]`` (original entry order)
+        into the ``[G·n_rows, width]`` tables."""
+        rows = self.groups * self.n_rows
+        v = values.reshape(-1)[self.order]
+        if self.width == 0:
+            return v.new_zeros((rows, 0))
+        out = torch.full((rows + 1, self.width), fill, dtype=v.dtype,
+                         device=v.device)
+        out[self.rr, self.kk] = torch.where(self.in_ell, v, fill)
+        return out[:rows]
+
+    def spill(self, values: torch.Tensor, fill=0) -> torch.Tensor:
+        """The spilled entries of a per-edge payload ``[G, cap]``, aligned
+        with ``spill_row``/``spill_col``."""
+        v = values.reshape(-1)[self.order].view(self.spill_row.shape)
+        return torch.where(self.spill_row < self.n_rows, v, fill)
+
+    def stacked_col_table(self) -> torch.Tensor:
+        """The tables with stacked column ids (graph g's column c as
+        ``g·n_rows + c``, padding as the stacked sentinel ``G·n_rows``):
+        one ELL table of ``G·n_rows`` rows over a stacked vector, whose
+        padding slots read no other graph's entries."""
+        g = self.groups
+        return group_ids(self.col_table.view(g, self.n_rows, self.width),
+                         self.n_rows).to(torch.int32).view(
+                             g * self.n_rows, self.width)
+
+
+def ell_layout_groups(row: torch.Tensor, col: torch.Tensor, n_rows: int,
+                      width: int) -> GroupEllLayout:
+    """:func:`ell_layout_traced` of each graph of ``[G, cap]`` per-graph
+    padded edge lists in one pass: graph g's tables, ranks and spill are
+    its own layout's. Nothing here makes the host wait on the device."""
+    dev = row.device
+    g, cap = row.shape
+    valid = row < n_rows
+    row = torch.where(valid, row, n_rows).to(torch.int32)
+    col = torch.where(valid, col, n_rows).to(torch.int32)
+    key = group_sort_key(row, col, n_rows).reshape(-1)
+    order = torch.argsort(key, stable=True)
+    grow = key.index_select(0, order) >> 32   # stacked row, ascending
+    r = row.reshape(-1)[order]
+    c = col.reshape(-1)[order]
+    real = r < n_rows
+    rank = torch.arange(g * cap, device=dev) - torch.searchsorted(grow, grow)
+    ok = real & (rank < width)
+    graph = torch.arange(g * cap, device=dev) // cap
+    rr = torch.where(ok, graph * n_rows + r, g * n_rows)
+    kk = torch.where(ok, rank, 0)
+    if width:
+        col_table = torch.full((g * n_rows + 1, width), n_rows,
+                               dtype=torch.int32, device=dev)
+        col_table[rr, kk] = torch.where(ok, c, n_rows)
+        col_table = col_table[:g * n_rows]
+    else:
+        col_table = torch.zeros((g * n_rows, 0), dtype=torch.int32,
+                                device=dev)
+    spilled = real & (rank >= width)
+    return GroupEllLayout(order=order, rr=rr, kk=kk, in_ell=ok,
+                          col_table=col_table,
+                          spill_row=torch.where(spilled, r, n_rows).view(
+                              g, cap),
+                          spill_col=torch.where(spilled, c, n_rows).view(
+                              g, cap),
+                          n_rows=n_rows, width=width)

@@ -21,7 +21,8 @@ import torch
 
 from repro_torch.sparse.coo import COO, spmv
 from repro_torch.sparse.ell import ELL, coo_to_ell
-from repro_torch.sparse.segment import per_row
+from repro_torch.sparse.segment import (per_row, segment_sum_groups,
+                                        take_groups)
 
 MATVEC_BACKENDS = ("coo", "ell", "auto")
 
@@ -134,3 +135,50 @@ def level_spmm(level, x: torch.Tensor) -> torch.Tensor:
     ``spmv_ell`` kernel where a level carries an ELL twin (the reference
     vmaps its kernel over the columns), else the COO ``spmm``."""
     return level_spmv(level, x)
+
+
+# ----------------------------------------------------------------------------
+# Group forms (the batched setup): G graphs' levels stacked on a leading
+# axis (``core.graph.GroupLevel``); ``x`` is ``[G, n]`` (a vector a graph)
+# or ``[G, n, k]`` (a block a graph), graph g's result bit for bit its
+# level's alone.
+# ----------------------------------------------------------------------------
+
+def spmv_groups(row, col, val, n: int, x: torch.Tensor) -> torch.Tensor:
+    """``spmv``/``spmm`` of each graph's COO ``(row, col, val)`` ``[G, m]``
+    (its own ids, padding ``>= n``) on its ``x[g]``."""
+    xg = take_groups(x, col, 0)
+    valid = row < n
+    if x.dim() == 3:
+        prod = torch.where(valid[..., None], val[..., None] * xg, 0)
+    else:
+        prod = torch.where(valid, val * xg, 0)
+    return segment_sum_groups(prod, row, n)
+
+
+def level_spmv_groups(level, x: torch.Tensor) -> torch.Tensor:
+    """:func:`level_spmv` of every graph of a ``GroupLevel``: its stacked
+    ELL twin through one kernel launch for the group (the rows of one
+    graph gather only its own entries) and the spill a graph, or the COO
+    path."""
+    from repro_torch.kernels.spmv_ell import spmv_ell
+
+    n = level.n
+    if level.ell is None:
+        return spmv_groups(level.row, level.col, level.val, n, x)
+    ell = level.ell
+    flat = x.reshape((ell.n_rows,) + x.shape[2:])
+    if ell.width == 0:
+        y = torch.zeros_like(flat)
+    else:
+        y = spmv_ell(ell.col, ell.val, flat)
+    y = y.view(x.shape)
+    if level.ell_rem is not None:
+        y = y + spmv_groups(*level.ell_rem, n, x)
+    return y
+
+
+def laplacian_matvec_groups(level, x: torch.Tensor) -> torch.Tensor:
+    """:func:`laplacian_matvec` of every graph of a ``GroupLevel``."""
+    deg = level.deg if x.dim() == 2 else level.deg[..., None]
+    return deg * x - level_spmv_groups(level, x)

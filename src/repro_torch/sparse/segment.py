@@ -141,6 +141,93 @@ def _sum_sorted(data: torch.Tensor, lengths: torch.Tensor,
     return out[:num_segments]
 
 
+# ----------------------------------------------------------------------------
+# Group forms: G graphs of one bucket stacked on a leading axis, each with
+# its own ids (what ``jax.vmap`` over a graph axis makes of the functions
+# above). Vertex v of graph g is g·n + v in the stacked index space, and
+# every id outside [0, n) maps to the one stacked sentinel G·n.
+# ----------------------------------------------------------------------------
+
+def group_ids(ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Stacked int64 ids of per-graph ``ids`` ``[G, ...]``: graph g's id
+    i in ``[0, num_segments)`` becomes ``g·num_segments + i``, any other
+    id the stacked sentinel ``G·num_segments``; same shape as ``ids``."""
+    ids = ids.long()
+    base = torch.arange(ids.shape[0], device=ids.device).reshape(
+        (-1,) + (1,) * (ids.dim() - 1)) * num_segments
+    ok = (ids >= 0) & (ids < num_segments)
+    return torch.where(ok, ids + base, ids.shape[0] * num_segments)
+
+
+def take_groups(x: torch.Tensor, idx: torch.Tensor, fill) -> torch.Tensor:
+    """``take_fill(x[g], idx[g], fill)`` for every graph g: ``x`` is
+    ``[G, n, ...]``, ``idx`` ``[G, ...]`` of each graph's own ids."""
+    g, n = x.shape[:2]
+    flat = x.reshape((g * n,) + x.shape[2:])
+    return take_fill(flat, group_ids(idx, n), fill)
+
+
+def segment_sum_groups(data: torch.Tensor, ids: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """``segment_sum(data[g], ids[g], num_segments)`` for every graph g of
+    ``data`` ``[G, m, ...]`` and ``ids`` ``[G, m]``: ``[G, num_segments,
+    ...]``, each float segment summed over the same entries in the same
+    order as alone (:func:`segment_sum_groups_plan`)."""
+    if not data.is_floating_point():
+        g, m = ids.shape
+        out = segment_sum(data.reshape((g * m,) + data.shape[2:]),
+                          group_ids(ids, num_segments).reshape(-1),
+                          g * num_segments)
+        return out.reshape((g, num_segments) + data.shape[2:])
+    return segment_sum_groups_plan(ids, num_segments)(data)
+
+
+def segment_sum_groups_plan(ids: torch.Tensor, num_segments: int):
+    """The float :func:`segment_sum_groups` over fixed ``ids`` ``[G, m]``,
+    its sort done once.
+
+    The entries are sorted stably by (graph, segment), each graph's dropped
+    entries last in its own block, so graph g's block is the m positions
+    ``[g·m, (g+1)·m)`` and holds the order the graph's own sort gives.
+    Every segment is then reduced over the entries it has alone, in that
+    order, and its start lies at the same offset modulo m as alone: on the
+    card a 1-D segment's reduction (one CUB block a segment) loads a long
+    segment in vectors only where its start is 16-byte aligned, so with m
+    a multiple of 4 each segment is summed in its own order whatever G."""
+    g, m = ids.shape
+    dev = ids.device
+    seg = _seg_ids(ids, num_segments)
+    key = seg + torch.arange(g, device=dev)[:, None] * (num_segments + 1)
+    order = torch.argsort(key.reshape(-1), stable=True)
+    sorted_seg = seg.reshape(-1).index_select(0, order).view(g, m)
+    bounds = torch.searchsorted(sorted_seg, torch.arange(
+        num_segments + 1, device=dev).expand(g, -1).contiguous())
+    tail = torch.arange(1, m // _DROP_CHUNK + 2, device=dev) * _DROP_CHUNK
+    bounds = torch.cat([bounds, torch.clamp(bounds[:, -1:] + tail, max=m)],
+                       dim=1)
+    lengths = bounds[:, 1:] - bounds[:, :-1]
+    width = lengths.shape[1]
+    lengths = lengths.reshape(-1)
+
+    def apply(data: torch.Tensor) -> torch.Tensor:
+        rows = data.reshape((g * m,) + data.shape[2:])
+        out = torch.segment_reduce(take_rows(rows, order), "sum",
+                                   lengths=lengths, axis=0, unsafe=True)
+        return out.view((g, width) + data.shape[2:])[
+            :, :num_segments].contiguous()
+
+    return apply
+
+
+def segment_max_groups(data, ids, num_segments):
+    """:func:`segment_max` of every graph of ``data``/``ids`` ``[G, m]``."""
+    g = ids.shape[0]
+    out = segment_max(data.reshape((-1,) + data.shape[2:]),
+                      group_ids(ids, num_segments).reshape(-1),
+                      g * num_segments)
+    return out.reshape((g, num_segments) + data.shape[2:])
+
+
 def _segment_extreme(data, ids, num_segments, reduce, init):
     seg = _seg_ids(ids, num_segments)
     out = torch.full((num_segments + 1,) + data.shape[1:], init,

@@ -17,9 +17,13 @@ With no plan armed (the production default) every hook is a single global
 ``None`` check: no copy, no device sync.
 
 Corruption is **deterministic**: the corrupted entries are drawn from
-``numpy.random.default_rng((plan.seed, hash(name) & 0x7FFFFFFF, call))``
-exactly as the reference draws them, so one plan armed on both packages
-in one process corrupts the same entries of arrays of the same shape.
+``numpy.random.default_rng((plan.seed, site_key(name), call))``, where
+:func:`site_key` is a stable hash of the site name (CRC-32), so a plan
+corrupts the same entries in every process whatever ``PYTHONHASHSEED``
+is. The reference draws in the same way from ``hash(name) &
+0x7FFFFFFF``, which changes from process to process; a test that arms one
+plan on both packages makes the reference draw the same entries by
+shadowing its module's ``hash`` with :func:`site_key`.
 An armed site given a tensor copies it to the host, corrupts it there and
 copies it back with its dtype and device.
 
@@ -54,6 +58,7 @@ import contextlib
 import dataclasses
 import itertools
 import os
+import zlib
 
 import numpy as np
 
@@ -84,6 +89,12 @@ _MODES = ("nan", "inf", "huge", "zero", "negate", "bitflip", "perturb",
 # exit code of a mode="kill" fault — tests assert on it so an unrelated
 # crash can't masquerade as the injected kill
 KILL_EXIT_CODE = 43
+
+
+def site_key(name: str) -> int:
+    """The stable 31-bit key of a site name in the draws' seed: its
+    CRC-32, the same in every process (``hash`` of a ``str`` is not)."""
+    return zlib.crc32(name.encode()) & 0x7FFFFFFF
 
 
 class InjectedFault(RuntimeError):
@@ -229,7 +240,7 @@ class FaultPlan:
             arr = arr.astype(np.float64)
         flat = arr.reshape(-1)
         rng = np.random.default_rng(
-            (self.seed, hash(name) & 0x7FFFFFFF, self.counts[name] - 1))
+            (self.seed, site_key(name), self.counts[name] - 1))
         m = max(1, int(round(f.fraction * flat.size)))
         idx = rng.choice(flat.size, size=min(m, flat.size), replace=False)
         if f.mode == "nan":
@@ -275,7 +286,7 @@ class FaultPlan:
         if size == 0:
             return None
         rng = np.random.default_rng(
-            (self.seed, hash(name) & 0x7FFFFFFF, self.counts[name] - 1))
+            (self.seed, site_key(name), self.counts[name] - 1))
         m = max(1, int(round(f.fraction * size)))
         idx = rng.choice(size, size=min(m, size), replace=False)
         factor = None

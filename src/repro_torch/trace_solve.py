@@ -1,6 +1,7 @@
 """Where the time of setup and of a solve goes on the card.
 
     python -m repro_torch.trace_solve [--n 1048576] [--trace PATH] [--block K]
+    python -m repro_torch.trace_solve --batch 8 [--batch-n 131072]
 
 Builds the main path's graph (Barabási–Albert, m = 4, seed 0, weighted,
 connected) and:
@@ -23,7 +24,13 @@ connected) and:
   sides on the throughput path (``exact_columns=False``: one k-column
   ``spmv_ell``/``jacobi`` launch a level operation) the same way, its
   kernels grouped by kernel and form (``spmv_ell_block``,
-  ``jacobi_block``).
+  ``jacobi_block``);
+* with ``--batch G`` (instead of all the above), traces the batched
+  setup of G Barabási–Albert graphs of ``--batch-n`` vertices (m = 4,
+  seeds 1..G, the service phase's graphs) the same way, warm: their
+  hierarchy builds stacked (``build_hierarchy_superstep_batch``) and
+  looped (``build_hierarchy_superstep`` a graph), each with its device
+  busy time, launches and top kernels.
 
 Prints one JSON object. It needs a CUDA device.
 """
@@ -62,7 +69,8 @@ def _stage_seconds(prof: cProfile.Profile) -> dict:
 # repro_bag_plan: a histogram, a scan and a pass per 8 bits of the keys)
 PORT_KERNELS = {"StoreRow": "spmv_ell", "JacobiRow": "jacobi",
                 "StoreBlock": "spmv_ell_block", "JacobiBlock": "jacobi_block",
-                "VoteRow": "agg_vote", "bag_tiles_kernel": "embedding_bag",
+                "VoteRow": "agg_vote", "StackedVote": "agg_vote_batched",
+                "bag_tiles_kernel": "embedding_bag",
                 "bag_rows_gather": "embedding_bag",
                 "bag_grad_chunks": "embedding_bag_backward",
                 "bag_grad_finish": "embedding_bag_backward",
@@ -192,6 +200,28 @@ def profile_call(torch, fn, trace_path=None, top: int = 10):
                      [:top]])
 
 
+def trace_batch(torch, n_graphs: int, n: int, cfg) -> dict:
+    """The ``--batch`` trace: G graphs' hierarchy builds, stacked and
+    looped, each through :func:`profile_call` (warm)."""
+    from repro_torch.core import setup_step
+    from repro_torch.core.solver import _prepare
+    from repro_torch.graphs.generators import barabasi_albert, ensure_connected
+
+    adjs = [_prepare(*ensure_connected(*barabasi_albert(
+        n, m=4, seed=seed, weighted=True)), cfg.seed, True, None,
+        torch.device("cuda"))[1] for seed in range(1, n_graphs + 1)]
+    runs = dict(
+        stacked=lambda: setup_step.build_hierarchy_superstep_batch(adjs, cfg),
+        looped=lambda: [setup_step.build_hierarchy_superstep(a, cfg)
+                        for a in adjs])
+    out = dict(device=torch.cuda.get_device_name(0), batch_graphs=n_graphs,
+               batch_n=n)
+    for name, run in runs.items():
+        _, prof = profile_call(torch, run, top=12)
+        out.update({f"{name}_{k}": val for k, val in prof.items()})
+    return out
+
+
 def main(argv=None) -> int:
     import numpy as np
     import torch
@@ -206,6 +236,9 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
     ap.add_argument("--block", type=int, default=0,
                     help="also trace a blocked solve of this many columns")
+    ap.add_argument("--batch", type=int, default=0,
+                    help="trace only the batched setup of this many graphs")
+    ap.add_argument("--batch-n", type=int, default=1 << 17)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("trace_solve: needs a CUDA device", file=sys.stderr)
@@ -213,6 +246,10 @@ def main(argv=None) -> int:
 
     # the coarse solve's dense product in full float32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.batch:
+        print(json.dumps(trace_batch(torch, args.batch, args.batch_n,
+                                     SetupConfig(matvec_backend="ell"))))
+        return 0
     n, r, c, v = ensure_connected(*barabasi_albert(args.n, m=4, seed=0,
                                                    weighted=True))
     cfg = SetupConfig(matvec_backend="ell")

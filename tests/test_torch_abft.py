@@ -23,8 +23,10 @@ import jax.numpy as jnp  # noqa: E402
 
 import repro.api as J  # noqa: E402
 import repro.testing as JT  # noqa: E402
+import repro.testing.faults as JF  # noqa: E402
 from repro.core import verify as jv  # noqa: E402
 import repro_torch.testing as TT  # noqa: E402
+from repro_torch.testing.faults import site_key  # noqa: E402
 from repro_torch.api import (Certificate, Problem,  # noqa: E402
                              SolverOptions, setup)
 from repro_torch.api.result import worst_status  # noqa: E402
@@ -37,6 +39,17 @@ from repro_torch.graphs.generators import (barabasi_albert,  # noqa: E402
 from repro_torch.testing import Fault, FaultPlan, inject  # noqa: E402
 
 KW = dict(coarsest_size=64)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _stable_site_key():
+    """The port draws its faults from a stable key of the site name
+    (``site_key``); the reference's module ``hash`` is shadowed with the
+    same key, so one plan armed on both packages corrupts the same entries
+    whatever ``PYTHONHASHSEED`` is."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JF, "hash", site_key, raising=False)
+        yield
 
 
 def graph(n=300, seed=0):

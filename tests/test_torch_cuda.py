@@ -9,7 +9,8 @@ it runs on a machine that has only the port's dependencies:
 Tolerances: ``spmv_ell``/``jacobi`` rtol 1e-5 / atol 1e-6 against their
 plain versions (the float32 summation order differs) and bitwise equal
 from one call to the next; their k-column forms the same, and each column
-bitwise the one-vector kernel on that column, ``agg_vote`` bit-exact, ``embedding_bag``
+bitwise the one-vector kernel on that column, ``agg_vote`` bit-exact (its
+graph-batched form also bitwise the one-graph kernel on each graph), ``embedding_bag``
 bitwise equal at hot <= 2 (a sum of two floats from 0 has one rounding)
 and rtol / atol 1e-6 above (PyTorch's sum may add in another order), and
 bitwise equal from one call to the next; the bag backward within 1e-6 of
@@ -33,7 +34,9 @@ torch.set_num_threads(1)
 
 from repro_torch.kernels import (bag_path, bag_tile_plan,  # noqa: E402
                                  ell_tile_plan)
-from repro_torch.kernels.agg_vote import vote_reduce, vote_reduce_ref  # noqa: E402
+from repro_torch.kernels.agg_vote import (  # noqa: E402
+    vote_reduce, vote_reduce_batched, vote_reduce_batched_ref,
+    vote_reduce_ref)
 from repro_torch.kernels.embedding_bag import (  # noqa: E402
     BagSum, bag_grad_layout, bag_grad_plan, bag_grad_plan_ref,
     embedding_bag_backward, embedding_bag_backward_ref, embedding_bag_kernel,
@@ -568,6 +571,49 @@ def test_cuda_vote_main_path_shape_ragged_with_ties_and_all_decided():
     k, i = vote_reduce(C, Q, torch.zeros_like(S), levels=1 << 20)
     assert (k == torch.iinfo(torch.int32).min).all()
     assert (i == torch.iinfo(torch.int32).max).all()
+
+
+# (graphs, rows a graph, width): the service batch's first level (8 BA
+# 2^17 graphs), groups whose graphs end inside a tile (rows a graph not a
+# multiple of the tile's), the widest width, one graph, width 0
+BATCHED_VOTE_CASES = [(8, 1 << 17, 8), (3, 4099, 19), (4, 1000, 64),
+                      (1, 70_000, 8), (5, 777, 3), (2, 300, 0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_graphs,n_rows,width", BATCHED_VOTE_CASES)
+def test_cuda_vote_batched_matches_plain_and_one_graph_kernel(
+        n_graphs, n_rows, width):
+    """The graph-batched vote on random stacked tables with hub columns
+    (a few columns in a tenth of the slots), whole padding rows and
+    Decided neighbours: bitwise its plain version, the one-graph kernel
+    on each graph's tables and state, and itself on a repeat; one launch
+    a call (none at width 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(n_graphs * n_rows + width)
+    cols = []
+    for _ in range(n_graphs):
+        col, _ = _ell(rng, n_rows, n_rows, width, density=0.8)
+        hub = rng.random(col.shape) < 0.1
+        col[hub] = rng.integers(0, 4, int(hub.sum()))
+        col[rng.random(n_rows) < 0.05] = n_rows        # padding rows
+        cols.append(col)
+    sq = rng.integers(0, 4, (n_graphs, n_rows, width)).astype(np.int32)
+    state = rng.integers(0, 3, (n_graphs, n_rows)).astype(np.int32)
+    C, Q, S = (_t(a).cuda() for a in (np.stack(cols), sq, state))
+    v0, b0 = vote_reduce.launches, vote_reduce_batched.launches
+    got = vote_reduce_batched(C, Q, S, levels=1 << 20)
+    assert vote_reduce_batched.launches == b0 + (1 if width else 0)
+    assert vote_reduce.launches == v0
+    want = vote_reduce_batched_ref(C, Q, S, levels=1 << 20)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    again = vote_reduce_batched(C, Q, S, levels=1 << 20)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    for g in range(n_graphs):
+        one = vote_reduce(C[g].clone(), Q[g].clone(), S[g].clone(),
+                          levels=1 << 20)
+        assert all(torch.equal(o, b[g]) for o, b in zip(one, got))
 
 
 def _bags(n_bags, hot, d, n_vocab, seed):

@@ -28,9 +28,11 @@ import jax.numpy as jnp  # noqa: E402
 
 import repro.api as J  # noqa: E402
 import repro.testing as JT  # noqa: E402
+import repro.testing.faults as JF  # noqa: E402
 from repro.api.triage import triage_problem as j_triage  # noqa: E402
 from repro.core import krylov as jk  # noqa: E402
 import repro_torch.testing as TT  # noqa: E402
+from repro_torch.testing.faults import site_key  # noqa: E402
 from repro_torch.api import Problem, SolverOptions, setup  # noqa: E402
 from repro_torch.api.triage import triage_problem  # noqa: E402
 from repro_torch.core import krylov as tk  # noqa: E402
@@ -41,6 +43,17 @@ from repro_torch.testing import (Fault, FaultPlan, InjectedFault,  # noqa: E402
 
 KW = dict(coarsest_size=64, max_iters=200)
 EXPLICIT = ("converged", "max_iters", "degraded", "failed")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _stable_site_key():
+    """The port draws its faults from a stable key of the site name
+    (``site_key``); the reference's module ``hash`` is shadowed with the
+    same key, so one plan armed on both packages corrupts the same entries
+    whatever ``PYTHONHASHSEED`` is."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JF, "hash", site_key, raising=False)
+        yield
 
 
 def ba(n=300, seed=0):

@@ -34,9 +34,11 @@ import jax.numpy as jnp  # noqa: E402
 import repro.api as J  # noqa: E402
 import repro.service as JS  # noqa: E402
 import repro.testing as JT  # noqa: E402
+import repro.testing.faults as JF  # noqa: E402
 import repro_torch.api as T  # noqa: E402
 import repro_torch.service as TS  # noqa: E402
 import repro_torch.testing as TT  # noqa: E402
+from repro_torch.testing.faults import site_key  # noqa: E402
 from repro_torch.core import cycles, krylov  # noqa: E402
 from repro_torch.checkpoint import latest_step  # noqa: E402
 from repro_torch.graphs.generators import (barabasi_albert,  # noqa: E402
@@ -51,6 +53,17 @@ COUNTERS = ("requests", "served", "flushes", "setup_batches",
             "requeued", "breaker_opened", "checkpoints", "resumed",
             "queue_depth", "batch_occupancy")
 CACHE_COUNTERS = ("size", "hits", "misses", "evictions", "invalidations")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _stable_site_key():
+    """The port draws its faults from a stable key of the site name
+    (``site_key``); the reference's module ``hash`` is shadowed with the
+    same key, so one plan armed on both packages corrupts the same entries
+    whatever ``PYTHONHASHSEED`` is."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(JF, "hash", site_key, raising=False)
+        yield
 
 
 class Pkg:
